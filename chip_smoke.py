@@ -7,6 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. hold each kernel against its plain PyTorch version on the card, in
      bf16, at the serving path's shapes (with left-padded rows), and time
      kernel, plain version and one library call beside the card's bound;
+     The W8A8 kernels (B4-B7) are checked the same way at the W8A8 path's
+     B=8 shapes (M = 20480 rows);
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -14,7 +16,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      CLIP tower for both. The launch counters must show every kernel on
      that path, and the B=2 rewards must match the same forward through the
      plain versions;
-  5. one JSON line listing every kernel, then the result line.
+  5. the same requests with the decoder quantized W8A8 on the card
+     (--load_in_8bit; CLIP stays bf16): B4 x2, B5, B6 and four int8 GEMMs per
+     decoder layer, counted and checked the same way;
+  6. one JSON line listing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py
 """
@@ -35,12 +40,17 @@ from llava_reward_torch.evalx.adaptor import RewardAdaptor
 from llava_reward_torch.models import phi3v
 from llava_reward_torch.ops import cuda_lib
 from llava_reward_torch.ops import flash_attention as fa
+from llava_reward_torch.ops import int8_matmul as im
+from llava_reward_torch.ops import quant_epilogue as qe
 from llava_reward_torch.ops.rope import rope_cos_sin_for_config
 from llava_reward_torch.preprocess.phi3v_processor import build_img_gather_idx
 from llava_reward_torch.reward.model import RewardBatch, init_head_params
 from llava_reward_torch.reward.preference import preference_prob
+from llava_reward_torch.utils.quantize import quantize_stacked_layers
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # attention: |kernel - plain| <= ATTN_ATOL + ATTN_RTOL * |plain| on valid rows,
 # about one bf16 ulp (2^-7 relative): the two round the probabilities at
@@ -49,6 +59,10 @@ ATTN_ATOL, ATTN_RTOL = 8e-3, 2 ** -7
 ATTN_TOL_TEXT = f"{ATTN_ATOL:g} + {ATTN_RTOL:g}*|plain|"
 PREP_TOL = 0.0  # rope in fp32 with one rounding on both sides: bit-exact
 REWARD_TOL = 5e-3  # bf16 forward through 55 attention layers, |reward| ~ 2e-2
+# B4 sums x^2 in another order than its plain version: a value at a rounding
+# boundary may take the neighbouring code. B5: the JAX package's rule for
+# sigmoid's rounding (tests/test_quant_epilogue.py). B6 and B7 are exact.
+CODE_SHARE = {"rms_quant": 1e-3, "silu_mul_quant": 0.02, "row_quant": 0.0}
 
 KERNELS = {
     "fa_direct": dict(
@@ -60,6 +74,18 @@ KERNELS = {
     "fa_hm": dict(
         route="cuda", source="llava_reward_torch/csrc/flash_attention.cu",
         replaces="llava_reward_tpu/ops/flash_attention.py:45"),
+    "rms_quant": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:46"),
+    "silu_mul_quant": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:126"),
+    "row_quant": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:183"),
+    "int8_matmul": dict(
+        route="cuda", source="llava_reward_torch/csrc/int8_matmul.cu",
+        replaces="llava_reward_tpu/ops/int8_matmul.py:55"),
 }
 
 
@@ -85,9 +111,18 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def launches() -> dict:
+    return {**fa.LAUNCHES, **qe.LAUNCHES, **im.LAUNCHES}
+
+
+def reset_counters() -> None:
+    for mod in (fa, qe, im):
+        mod.reset_counters()
 
 
 # ------------------------------------------------------------------ phase 1
@@ -257,7 +292,7 @@ def _attn_err(out, ref):
 
 def _report(title, name, err, tol_text, within, finite, ms, plain_ms, lib_ms, b_ms, b_by, detail):
     ok = within and finite
-    say("kernel", f"{title}: {detail}; max_abs_err {err:.3e} (tol {tol_text}) pad rows finite "
+    say("kernel", f"{title}: {detail}; max_abs_err {err:.3e} (tol {tol_text}) finite "
         f"{finite}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by}) "
         f"-> {'ok' if ok else 'MISMATCH'}")
@@ -265,6 +300,123 @@ def _report(title, name, err, tol_text, within, finite, ms, plain_ms, lib_ms, b_
         fail(f"{title} disagrees with its plain version")
     return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+
+
+W8A8_M = 8 * 2560  # decoder rows of a B=8 request
+
+
+def _zero_rows(x):
+    x[:: W8A8_M // 4] = 0  # amax := 1 on these rows
+    return x
+
+
+def _codes_report(title, name, got, ref, ms, plain_ms, nbytes, nops, detail):
+    """Codes and amax of an epilogue kernel against its plain version."""
+    (c, a), (rc, ra) = got, ref
+    d = (c.int() - rc.int()).abs()
+    dmax, share = d.max().item(), (d > 0).float().mean().item()
+    amax_rel = ((a - ra).abs() / ra).max().item()
+    rule = CODE_SHARE[name]
+    if rule == 0:
+        within, tol_text = share == 0 and amax_rel == 0, "0 (exact)"
+    else:
+        within = dmax <= 1 and share < rule and amax_rel <= 2 ** -7
+        tol_text = f"|code diff| <= 1 on < {rule:g} of codes, amax within 2^-7"
+    b_ms, b_by = bound_ms(nops, nbytes, PEAK_FP32_FLOPS)
+    return _report(title, name, float(dmax), tol_text, within, bool(torch.isfinite(a).all()),
+                   ms, plain_ms, None, b_ms, b_by,
+                   f"{detail}; differing codes {share:.3e}, amax rel err {amax_rel:.3e}")
+
+
+def check_quant_epilogues(gen, cfg):
+    M, H, I = W8A8_M, cfg.decoder.hidden_size, cfg.decoder.intermediate_size
+    eps = cfg.decoder.rms_norm_eps
+    bf = torch.bfloat16
+    x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
+    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
+    rows = [_codes_report(
+        f"B4 rms_quant ({M},{H}) bf16", "rms_quant", qe.rms_quant(x, w, eps),
+        qe.rms_quant_plain(x, w, eps), time_ms(lambda: qe.rms_quant(x, w, eps)),
+        time_ms(lambda: qe.rms_quant_plain(x, w, eps), iters=3, warmup=1),
+        M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H, "zero rows every 5120")]
+    gu = _zero_rows(torch.randn(M, 2 * I, generator=gen, device="cuda", dtype=bf).mul_(2))
+    rows.append(_codes_report(
+        f"B5 silu_mul_quant ({M},{2 * I}) bf16", "silu_mul_quant", qe.silu_mul_quant(gu),
+        qe.silu_mul_quant_plain(gu), time_ms(lambda: qe.silu_mul_quant(gu)),
+        time_ms(lambda: qe.silu_mul_quant_plain(gu), iters=3, warmup=1),
+        M * 2 * I * 2 + M * I + M * 4, 10 * M * I, "-> codes (M, I)"))
+    del gu
+    rows.append(_codes_report(
+        f"B6 row_quant ({M},{H}) bf16", "row_quant", qe.row_quant(x), qe.row_quant_plain(x),
+        time_ms(lambda: qe.row_quant(x)), time_ms(lambda: qe.row_quant_plain(x), iters=3,
+                                                  warmup=1),
+        M * H * 2 + M * H + M * 4, 4 * M * H, "zero rows every 5120"))
+    return rows
+
+
+def _int_mm_scaled(codes, amax, wq, ws):
+    """The library yardstick: cuBLASLt's s8 x s8 -> s32 plus the epilogue."""
+    return (torch._int_mm(codes, wq).float() * (amax / 127.0) * ws).to(torch.bfloat16)
+
+
+def check_int8_matmul(gen, cfg):
+    M, H = W8A8_M, cfg.decoder.hidden_size
+    I, qkv = cfg.decoder.intermediate_size, cfg.decoder.q_size + 2 * cfg.decoder.kv_size
+    bf = torch.bfloat16
+    rows = []
+
+    def weights(K, N):
+        wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        return wq, torch.rand(1, N, generator=gen, device="cuda") * 1e-3 + 1e-4
+
+    # the dynamic form at the qkv shape: B6's kernel, then the GEMM
+    wq, ws = weights(H, qkv)
+    x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
+    out, ref = im.w8a8_matmul(x, wq, ws), im.w8a8_matmul_plain(x, wq, ws)
+    codes, amax = qe.row_quant_plain(x)
+    rows.append(_gemm_report(f"B7 dynamic qkv ({M},{H})x({H},{qkv})", out, ref,
+                             lambda: im.w8a8_matmul(x, wq, ws),
+                             lambda: im.w8a8_matmul_plain(x, wq, ws),
+                             lambda: _int_mm_scaled(codes, amax, wq, ws), M, H, qkv, 2,
+                             "x bf16 -> B6 codes -> GEMM; library: _int_mm on the codes"))
+    # the pre-quantized form at the four decoder shapes (gate_up last: the
+    # kernels line reports it)
+    for tag, K, N in (("qkv", H, qkv), ("o", H, H), ("down", I, H), ("gate_up", H, 2 * I)):
+        wq, ws = weights(K, N)
+        codes = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                              dtype=torch.int8)
+        amax = torch.rand(M, 1, generator=gen, device="cuda") * 4 + 0.1
+        out = im.int8_matmul_pre(codes, amax, wq, ws)
+        ref = im.int8_matmul_pre_plain(codes, amax, wq, ws, bf)
+        # cuBLASLt's s32 product alone, with w as the tree holds it (N
+        # contiguous) and K-major, for information
+        wq_k = wq.t().contiguous().t()
+        mm_ms = time_ms(lambda: torch._int_mm(codes, wq))
+        mm_k_ms = time_ms(lambda: torch._int_mm(codes, wq_k))
+        rows.append(_gemm_report(
+            f"B7 {tag} ({M},{K})x({K},{N})", out, ref,
+            lambda: im.int8_matmul_pre(codes, amax, wq, ws),
+            lambda: im.int8_matmul_pre_plain(codes, amax, wq, ws, bf),
+            lambda: _int_mm_scaled(codes, amax, wq, ws), M, K, N, 1,
+            f"pre-quantized codes; _int_mm alone {mm_ms:.4f} ms, K-major w {mm_k_ms:.4f} ms"))
+        del wq_k
+        del out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _gemm_report(title, out, ref, run, plain, lib, M, K, N, x_bytes, detail):
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    exact = torch.equal(out, ref)
+    ms = time_ms(run)
+    plain_ms = time_ms(plain, iters=2, warmup=1)
+    lib_ms = time_ms(lib)
+    b_ms, b_by = bound_ms(2 * M * K * N, M * K * x_bytes + K * N + M * 4 + N * 4 + M * N * 2,
+                          PEAK_INT8_OPS)
+    return _report(title, "int8_matmul", err, "0 (exact)", exact, bool(torch.isfinite(out).all()),
+                   ms, plain_ms, lib_ms, b_ms, b_by,
+                   f"{detail}; {2 * M * K * N / ms / 1e9:.1f} TOPS")
 
 
 def phase_kernels(cfg):
@@ -276,6 +428,10 @@ def phase_kernels(cfg):
                      [0, 300, 0, 1000, 0, 7, 0, 64], 2560, cfg),
     ]
     rows += check_prep_and_hm(gen, cfg)
+    torch.cuda.empty_cache()
+    rows += check_quant_epilogues(gen, cfg)
+    torch.cuda.empty_cache()
+    rows += check_int8_matmul(gen, cfg)
     torch.cuda.empty_cache()
     return rows
 
@@ -322,6 +478,64 @@ def _serve(score, params, batch, reps):
     return out, times
 
 
+def _prob(r, pairs, rcfg):
+    return preference_prob(r[:pairs].float(), r[pairs:].float(), is_general_preference=True,
+                           value_head_dim=2, tau=rcfg.general_preference_tau)
+
+
+def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps):
+    """Serve ``req2`` then ``req8`` (one warm + ``reps`` timed calls each)
+    through make_score_fn(); the launch counters must equal ``per2`` /
+    ``per8`` launches per request for every kernel; the B=2 rewards must
+    match the same forward through the plain versions."""
+    adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
+    score = adaptor.make_score_fn()
+    if adaptor.make_score_fn() is not score:
+        fail("make_score_fn is not memoised")
+    calls = reps + 1
+
+    reset_counters()  # the main path's run starts here
+    r2, t2 = _serve(score, params, req2, reps)
+    after2 = launches()
+    r8, t8 = _serve(score, params, req8, reps)
+    total = launches()  # ... and ends here
+    say(tag, f"launches after B=2: {after2}; after B=8: {total}")
+    want2 = {k: calls * per2.get(k, 0) for k in total}
+    if after2 != want2:
+        fail(f"{tag} B=2 launches {after2} != {want2}")
+    d8 = {k: total[k] - after2[k] for k in total}
+    want8 = {k: calls * per8.get(k, 0) for k in total}
+    if d8 != want8:
+        fail(f"{tag} B=8 launches {d8} != {want8}")
+
+    timing = {}
+    for name, r, t, pairs in (("B=2", r2, t2, 1), ("B=8", r8, t8, 4)):
+        if r.shape != (2 * pairs, 2) or not bool(torch.isfinite(r).all()):
+            fail(f"{tag} {name} rewards not finite / wrong shape: {r}")
+        med = float(np.median(t))
+        timing[name] = med
+        say(tag, f"{name}: rewards {r.float().cpu().numpy().round(6).tolist()} "
+            f"preference_prob {_prob(r, pairs, rcfg).cpu().numpy().round(6).tolist()}; "
+            f"{med:.4f} s/request (median of {t}), {pairs / med:.3f} pairs/s")
+
+    # the same B=2 forward through the kernels' plain versions
+    plain = adaptor.make_score_fn(attn_impl="plain")
+    before = launches()
+    rp = plain(params, req2)
+    torch.cuda.synchronize()
+    if launches() != before:
+        fail(f"{tag}: the plain forward launched a kernel")
+    gap = (r2.float() - rp.float()).abs().max().item()
+    p_k, p_p = _prob(r2, 1, rcfg), _prob(rp, 1, rcfg)
+    same = bool(((p_k > 0.5) == (p_p > 0.5)).all())
+    say(tag, f"B=2 kernels vs plain versions: rewards {r2.float().cpu().numpy().tolist()} vs "
+        f"{rp.float().cpu().numpy().tolist()}; max gap {gap:.3e} (tol {REWARD_TOL:g}); "
+        f"prob {p_k.item():.6f} vs {p_p.item():.6f}; same decision {same}")
+    if gap > REWARD_TOL or not same:
+        fail(f"{tag}: B=2 rewards through the kernels disagree with the plain versions")
+    return total, (r2, r8), timing
+
+
 def phase_serve(cfg, rcfg, reps=3):
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -333,62 +547,40 @@ def phase_serve(cfg, rcfg, reps=3):
     n_params = sum(t.numel() for t in _leaves(params))
     say("serve", f"random bf16 params: {n_params / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
-    score = adaptor.make_score_fn()
-    if adaptor.make_score_fn() is not score:
-        fail("make_score_fn is not memoised")
     seq = 2560
     req2 = make_request(cfg, gen, 1, seq, {1: 40})
     req8 = make_request(cfg, gen, 4, seq, {})
     n_clip = cfg.vision.num_active_layers
     n_dec = cfg.decoder.num_layers
-    calls = reps + 1
+    # per request: B1 in CLIP; B2 x3 + B3 (B=2) or B1 (B=8) in the decoder
+    attn2 = {"fa_direct": n_clip, "prep": 3 * n_dec, "fa_hm": n_dec}
+    attn8 = {"fa_direct": n_clip + n_dec}
+    bf16_launches, bf16_r, bf16_t = serve_and_check(
+        "serve", cfg, rcfg, params, req2, req8, attn2, attn8, reps)
 
-    fa.reset_counters()  # the main path's run starts here
-    r2, t2 = _serve(score, params, req2, reps)
-    after2 = dict(fa.LAUNCHES)
-    r8, t8 = _serve(score, params, req8, reps)
-    launches = dict(fa.LAUNCHES)  # ... and ends here
-    say("serve", f"launches after B=2: {after2}; after B=8: {launches}")
-    want2 = {"fa_direct": calls * n_clip, "prep": calls * 3 * n_dec, "fa_hm": calls * n_dec}
-    if after2 != want2:
-        fail(f"B=2 launches {after2} != {want2} (B1 in CLIP, B2 x3 + B3 in the decoder)")
-    d8 = {k: launches[k] - after2[k] for k in launches}
-    want8 = {"fa_direct": calls * (n_clip + n_dec), "prep": 0, "fa_hm": 0}
-    if d8 != want8:
-        fail(f"B=8 launches {d8} != {want8} (B1 in CLIP and in the decoder)")
-    if any(v == 0 for v in launches.values()):
-        fail(f"a kernel of the path never launched: {launches}")
-
-    for name, r, t, pairs in (("B=2", r2, t2, 1), ("B=8", r8, t8, 4)):
-        if r.shape != (2 * pairs, 2) or not bool(torch.isfinite(r).all()):
-            fail(f"{name} rewards not finite / wrong shape: {r}")
-        prob = preference_prob(r[:pairs].float(), r[pairs:].float(), is_general_preference=True,
-                               value_head_dim=2, tau=rcfg.general_preference_tau)
-        med = float(np.median(t))
-        say("serve", f"{name}: rewards {r.float().cpu().numpy().round(6).tolist()} "
-            f"preference_prob {prob.cpu().numpy().round(6).tolist()}; "
-            f"{med:.4f} s/request (median of {t}), {pairs / med:.3f} pairs/s")
-
-    # the same B=2 forward through the kernels' plain versions
-    plain = adaptor.make_score_fn(attn_impl="plain")
-    before = dict(fa.LAUNCHES)
-    rp = plain(params, req2)
+    # --load_in_8bit: the decoder's projections W8A8, quantized on the card;
+    # CLIP and the head stay bf16 (bench.py:209-216)
+    t0 = time.perf_counter()
+    dec = params["backbone"]["decoder"]
+    qparams = {**params, "backbone": {**params["backbone"], "decoder": {
+        **dec, "layers": quantize_stacked_layers(dec["layers"], scheme="w8a8")}}}
     torch.cuda.synchronize()
-    if dict(fa.LAUNCHES) != before:
-        fail("the plain forward launched a kernel")
-    gap = (r2.float() - rp.float()).abs().max().item()
-    p_k = preference_prob(r2[:1].float(), r2[1:].float(), is_general_preference=True,
-                          value_head_dim=2, tau=rcfg.general_preference_tau)
-    p_p = preference_prob(rp[:1].float(), rp[1:].float(), is_general_preference=True,
-                          value_head_dim=2, tau=rcfg.general_preference_tau)
-    same = bool(((p_k > 0.5) == (p_p > 0.5)).all())
-    say("serve", f"B=2 kernels vs plain versions: rewards {r2.float().cpu().numpy().tolist()} vs "
-        f"{rp.float().cpu().numpy().tolist()}; max gap {gap:.3e} (tol {REWARD_TOL:g}); "
-        f"prob {p_k.item():.6f} vs {p_p.item():.6f}; same decision {same}")
-    if gap > REWARD_TOL or not same:
-        fail("B=2 rewards through the kernels disagree with the plain versions")
-    return launches
+    quantized = [k for k, v in qparams["backbone"]["decoder"]["layers"].items()
+                 if isinstance(v, dict)]
+    say("w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s: {quantized}")
+    # per decoder layer: B4 x2, B6, B5 and the four GEMMs
+    w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
+          "int8_matmul": 4 * n_dec}
+    w8_launches, w8_r, w8_t = serve_and_check(
+        "w8a8", cfg, rcfg, qparams, req2, req8, {**attn2, **w8}, {**attn8, **w8}, reps)
+    for name, rb, rq in (("B=2", bf16_r[0], w8_r[0]), ("B=8", bf16_r[1], w8_r[1])):
+        say("w8a8", f"{name} rewards W8A8 {rq.float().cpu().numpy().round(6).tolist()} beside "
+            f"bf16 {rb.float().cpu().numpy().round(6).tolist()} (same weights; for information)")
+    for name in ("B=2", "B=8"):
+        say("w8a8", f"{name}: W8A8 {w8_t[name]:.4f} s/request beside bf16 {bf16_t[name]:.4f}")
+    # each kernel's count from the run of the path it belongs to
+    return {**{k: bf16_launches[k] for k in fa.LAUNCHES},
+            **{k: w8_launches[k] for k in (*qe.LAUNCHES, *im.LAUNCHES)}}
 
 
 def _leaves(tree):
@@ -409,14 +601,14 @@ def main() -> int:
     rcfg = RewardConfig(is_general_preference=True, value_head_dim=2,
                         add_cross_attention=True, layer_id=cfg.decoder.num_layers)
     rows = phase_kernels(cfg)
-    launches = phase_serve(cfg, rcfg)
+    counts = phase_serve(cfg, rcfg)
 
     kernels = []
     for name, meta in KERNELS.items():
         # one row per kernel: its last check (for B1 the decoder's shapes,
-        # which dominate its time on the path)
+        # which dominate its time on the path; for the int8 GEMM gate_up's)
         row = [r for r in rows if r["name"] == name][-1]
-        kernels.append({"name": name, **meta, "launches": launches[name],
+        kernels.append({"name": name, **meta, "launches": counts[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)

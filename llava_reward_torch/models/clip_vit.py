@@ -25,6 +25,7 @@ from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
 from ..ops.activations import ACT2FN
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
+from ..utils.quantize import is_w8a8
 
 
 def init_params(
@@ -143,10 +144,23 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
     return residual + x2
 
 
-def _layer_slice(tree, i):
+def layer_slice(tree, i):
+    """Layer ``i`` of a stacked tree: every leaf, also inside nested dicts
+    (quantized leaves, LoRA factors), indexed on its leading axis."""
     if isinstance(tree, dict):
-        return {k: _layer_slice(v, i) for k, v in tree.items()}
+        return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _refuse_w8a8(tree) -> None:
+    if isinstance(tree, dict):
+        if is_w8a8(tree):
+            raise NotImplementedError(
+                "W8A8 CLIP weights need the LayerNorm quantizing epilogue "
+                "(_ln_quant_kernel), which is ROADMAP B9; the tower runs in bf16"
+            )
+        for v in tree.values():
+            _refuse_w8a8(v)
 
 
 def extract_patch_features(
@@ -158,7 +172,8 @@ def extract_patch_features(
     lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """Penultimate-layer patch features, CLS dropped: (N, num_patches, H)
-    (``clip_vit.py:226-279``)."""
+    (``clip_vit.py:226-279``). W8A8 weights raise (ROADMAP B9)."""
+    _refuse_w8a8(params["layers"])
     h = embed_patches(params, cfg, pixel_values)
     h = layer_norm(
         h, params["pre_layernorm"]["weight"], params["pre_layernorm"]["bias"],
@@ -185,7 +200,7 @@ def extract_patch_features(
             attn_impl = "fused_plain" if attn_impl == "plain" else "fused"
 
     for i in range(n_active):
-        lora_layer = _layer_slice(lora, i) if lora is not None else None
-        h = _encoder_layer(h, _layer_slice(params["layers"], i), cfg, attn_impl,
+        lora_layer = layer_slice(lora, i) if lora is not None else None
+        h = _encoder_layer(h, layer_slice(params["layers"], i), cfg, attn_impl,
                            lora_layer, valid_len)
     return h[:, 1:S, :]  # drop CLS (and the pad tail)

@@ -1,10 +1,17 @@
-"""Phi-3 decoder (``llava_reward_tpu/models/phi3.py``), bf16 path.
+"""Phi-3 decoder (``llava_reward_tpu/models/phi3.py``).
 
 Layer: h -> RMSNorm -> fused qkv -> su-RoPE causal attention -> o_proj
 -> +residual -> RMSNorm -> fused gate_up, silu-gated -> down -> +residual,
 with a final RMSNorm. Layers are stacked on a leading axis and run by a
-Python loop (``lax.scan`` in JAX). The W8A8 branches of the JAX layer wait
-for ROADMAP slice 2.
+Python loop (``lax.scan`` in JAX).
+
+Projection leaves may be quantized (``utils/quantize.py``): weight-only
+leaves are dequantized per layer, W8A8 leaves run through the int8 GEMM.
+With W8A8 leaves, no LoRA and a 128-multiple width, the kernel route
+(on the card, or ``attn_impl="pallas"``) takes the activation codes straight
+from the quantizing epilogues (``ops/quant_epilogue.py``): RMSNorm ->
+codes for qkv and gate_up, attention output -> codes for o_proj,
+silu(gate)*up -> codes for down (``phi3.py:103-166``).
 
 Param tree:
   {'embed_tokens': (V, H),
@@ -21,11 +28,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.config import DecoderConfig
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
+from ..ops import quant_epilogue as qe
 from ..ops.activations import ACT2FN
 from ..ops.attention import fused_rope_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_cos_sin_for_config
+from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8, qmatmul
+from .clip_vit import layer_slice
 
 
 def init_params(
@@ -73,24 +83,54 @@ def decoder_layer(
     attn_impl: str,
     lora_layer: Optional[dict] = None,
 ) -> torch.Tensor:
+    lp = dequant_layer(lp, h.dtype)
+    eps = cfg.rms_norm_eps
+    # attn_impl="plain" sends the epilogues and the int8 GEMM to their plain
+    # versions too; "pallas" forces their route on any device
+    plain = attn_impl == "plain"
+    use_rq = lora_layer is None and (attn_impl == "pallas" or on_card(h)) and qe.supported(h)
+    rms_q = qe.rms_quant_plain if plain else qe.rms_quant
+
     residual = h
-    x = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
-    qkv = _maybe_lora(x, x @ lp["qkv_proj"], lora_layer, "qkv_proj")
+    if use_rq and is_w8a8(lp["qkv_proj"]):
+        codes, rs = rms_q(h, lp["input_layernorm"], eps)
+        qkv = int8_linear_pre(codes, rs, lp["qkv_proj"], h.dtype, plain)
+    else:
+        x = rms_norm(h, lp["input_layernorm"], eps)
+        qkv = _maybe_lora(x, qmatmul(x, lp["qkv_proj"], plain), lora_layer, "qkv_proj")
     attn = fused_rope_attention(
         qkv, cos, sin,
         n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         causal=True, key_padding_mask=attention_mask,
         sliding_window=cfg.sliding_window, impl=attn_impl,
     )
-    attn = _maybe_lora(attn, attn @ lp["o_proj"], lora_layer, "o_proj")
+    if use_rq and is_w8a8(lp["o_proj"]):
+        codes, rs = (qe.row_quant_plain if plain else qe.row_quant)(attn)
+        attn = int8_linear_pre(codes, rs, lp["o_proj"], h.dtype, plain)
+    else:
+        attn = _maybe_lora(attn, qmatmul(attn, lp["o_proj"], plain), lora_layer, "o_proj")
     h = residual + attn
 
     residual = h
-    x = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    gate_up = _maybe_lora(x, x @ lp["gate_up_proj"], lora_layer, "gate_up_proj")
-    gate, up = torch.chunk(gate_up, 2, dim=-1)
-    mlp = up * ACT2FN[cfg.hidden_act](gate)
-    mlp = _maybe_lora(mlp, mlp @ lp["down_proj"], lora_layer, "down_proj")
+    if use_rq and is_w8a8(lp["gate_up_proj"]):
+        codes, rs = rms_q(h, lp["post_attention_layernorm"], eps)
+        gate_up = int8_linear_pre(codes, rs, lp["gate_up_proj"], h.dtype, plain)
+    else:
+        x = rms_norm(h, lp["post_attention_layernorm"], eps)
+        gate_up = _maybe_lora(x, qmatmul(x, lp["gate_up_proj"], plain), lora_layer,
+                              "gate_up_proj")
+    if (
+        use_rq
+        and is_w8a8(lp["down_proj"])
+        and cfg.hidden_act == "silu"
+        and cfg.intermediate_size % 128 == 0
+    ):
+        codes, rs = (qe.silu_mul_quant_plain if plain else qe.silu_mul_quant)(gate_up)
+        mlp = int8_linear_pre(codes, rs, lp["down_proj"], h.dtype, plain)
+    else:
+        gate, up = torch.chunk(gate_up, 2, dim=-1)
+        mlp = up * ACT2FN[cfg.hidden_act](gate)
+        mlp = _maybe_lora(mlp, qmatmul(mlp, lp["down_proj"], plain), lora_layer, "down_proj")
     return residual + mlp
 
 
@@ -120,12 +160,9 @@ def forward(
     h = inputs_embeds
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        lora_layer = (
-            {n: {k: v[i] for k, v in t.items()} for n, t in lora.items()}
-            if lora is not None else None
-        )
-        h = decoder_layer(h, lp, cfg, cos, sin, attention_mask, attn_impl, lora_layer)
+        lora_layer = layer_slice(lora, i) if lora is not None else None
+        h = decoder_layer(h, layer_slice(layers, i), cfg, cos, sin, attention_mask, attn_impl,
+                          lora_layer)
         if collect and i + 1 == collect_layer_id:
             collected = h
 

@@ -32,6 +32,10 @@ _SIGNATURES = {
     "lrt_fa_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _F, _P],
     "lrt_rope_transpose": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
+    "lrt_rms_quant": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "lrt_silu_mul_quant": [_P, _P, _P, _I, _I, _I, _P],
+    "lrt_row_quant": [_P, _P, _P, _I, _I, _I, _P],
+    "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,16 +1,26 @@
 """The port's hand-written CUDA kernels against their plain versions, on the
 card. They need an NVIDIA Hopper card with ``nvcc`` and skip elsewhere: a
 CUDA kernel has no CPU mode (the plain versions are held to the JAX
-package's interpreted Pallas kernels in tests/test_torch_attention.py).
+package's interpreted Pallas kernels in tests/test_torch_attention.py and
+tests/test_torch_quant_kernels.py).
 
 ``chip_smoke.py`` checks the kernels at the serving path's shapes; these
-tests cover the options that path does not reach: sliding window, GQA
-(n_rep > 1), head_dim 128, a ``valid_len`` / ``q_len`` tail, S not a
-multiple of the 64-row tile, a query tile of pure left pad, and the
-wrappers' refusals. Inputs are bf16 from a seeded CUDA generator.
-Tolerance on valid rows: |kernel - plain| <= 8e-3 + 2^-7 |plain|, about
-one bf16 ulp (the two round the probabilities at different points); pad
-rows must be finite. B2 (RoPE + relayout) must be bit-exact.
+tests cover the options that path does not reach. Attention: sliding
+window, GQA (n_rep > 1), head_dim 128, a ``valid_len`` / ``q_len`` tail, S
+not a multiple of the 64-row tile, a query tile of pure left pad. W8A8:
+B4-B6 on f32 input, B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM at a
+ragged M, at M < 16, at K and N that the 64 x 128 tiles do not divide and
+with f32 output; the weight quantizers on the card against the CPU's. And
+the wrappers' refusals. Inputs come from a seeded CUDA
+generator.
+
+Tolerances. Attention, on valid rows: |kernel - plain| <= 8e-3 + 2^-7
+|plain|, about one bf16 ulp (the two round the probabilities at different
+points); pad rows must be finite. B2 (RoPE + relayout), B6 (row quantize)
+and B7 (the int8 GEMM, integer sums) must be bit-exact. B4 sums x^2 in
+another order than its plain version: codes within one on under 0.1 % of
+elements, amax within one bf16 ulp. B5: codes within one on under 2 % of
+elements (the JAX package's rule for sigmoid's rounding).
 
 Run on a machine with the card; these tests need no JAX, so the suite's
 conftest, which imports JAX, can be left out:
@@ -22,6 +32,8 @@ import pytest
 import torch
 
 from llava_reward_torch.ops import flash_attention as fa
+from llava_reward_torch.ops import int8_matmul as im
+from llava_reward_torch.ops import quant_epilogue as qe
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +146,114 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(NotImplementedError, match="slice 5"):
         fa._flash_fwd_hm(hm, hm, hm, kv, torch.ones(1, 64, device="cuda"), False, None,
                          0.125, q_len=64)
+
+
+# ------------------------------------------------------------------ W8A8
+
+
+def _rows(gen, M, n, dtype):
+    x = torch.randn(M, n, generator=gen, device="cuda").mul_(3).to(dtype)
+    x[M // 2] = 0  # a zero row: amax := 1
+    return x
+
+
+def _check_codes(name, got, ref):
+    (c, a), (rc, ra) = got, ref
+    d = (c.int() - rc.int()).abs()
+    share = (d > 0).float().mean().item()
+    if name == "row_quant":
+        assert torch.equal(c, rc) and torch.equal(a, ra)
+    else:
+        assert d.max().item() <= 1 and share < (1e-3 if name == "rms_quant" else 0.02), share
+        assert torch.allclose(a, ra, rtol=2 ** -7, atol=0)
+    assert float(a[c.shape[0] // 2]) == 1.0 and not bool(c[c.shape[0] // 2].any())
+
+
+@pytest.mark.parametrize("name", ["rms_quant", "silu_mul_quant", "row_quant"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quant_epilogue_kernels_match_plain(gen, name, dtype):
+    M, H = 77, 384
+    qe.reset_counters()
+    if name == "rms_quant":
+        x = _rows(gen, M, H, dtype)
+        w = torch.randn(H, generator=gen, device="cuda").to(dtype)
+        got, ref = qe.rms_quant(x, w, 1e-5), qe.rms_quant_plain(x, w, 1e-5)
+    elif name == "silu_mul_quant":
+        x = _rows(gen, M, 2 * H, dtype)
+        got, ref = qe.silu_mul_quant(x), qe.silu_mul_quant_plain(x)
+    else:
+        x = _rows(gen, M, H, dtype)
+        got, ref = qe.row_quant(x), qe.row_quant_plain(x)
+    assert qe.LAUNCHES[name] == 1 and qe.PLAIN_CALLS[name] == 1
+    torch.cuda.synchronize()
+    _check_codes(name, got, ref)
+
+
+@pytest.mark.parametrize("I", [256, 18944])
+def test_silu_mul_quant_kernel_at_other_widths(gen, I):
+    x = _rows(gen, 40, 2 * I, torch.bfloat16)
+    got = qe.silu_mul_quant(x.reshape(2, 20, 2 * I))
+    assert tuple(got[0].shape) == (2, 20, I) and tuple(got[1].shape) == (2, 20, 1)
+    torch.cuda.synchronize()
+    _check_codes("silu_mul_quant", (got[0].reshape(40, I), got[1].reshape(40, 1)),
+                 qe.silu_mul_quant_plain(x))
+
+
+GEMM_CASES = {
+    # name: (M, K, N, out dtype)
+    "ragged_m_bf16": (200, 384, 256, torch.bfloat16),
+    "m_below_16_f32": (5, 256, 384, torch.float32),
+    "k_n_off_tile_f32": (130, 208, 272, torch.float32),
+    "k_n_off_tile_bf16": (64, 8192 + 16, 48, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_int8_matmul_kernel_is_bit_exact(gen, case):
+    M, K, N, out_dtype = GEMM_CASES[case]
+    x = _rows(gen, M, K, torch.bfloat16)
+    wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+    ws = torch.rand(1, N, generator=gen, device="cuda") * 1e-3 + 1e-4
+    im.reset_counters()
+    qe.reset_counters()
+    dyn = im.w8a8_matmul(x, wq, ws, out_dtype)
+    assert im.LAUNCHES["int8_matmul"] == 1 and qe.LAUNCHES["row_quant"] == 1
+    codes, amax = qe.row_quant_plain(x)
+    pre = im.int8_matmul_pre(codes, amax, wq, ws, out_dtype)
+    ref = im.int8_matmul_pre_plain(codes, amax, wq, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert dyn.dtype == out_dtype and tuple(dyn.shape) == (M, N)
+    assert torch.equal(pre, ref) and torch.equal(dyn, ref)
+    assert not bool(dyn[M // 2].any())
+
+
+@pytest.mark.parametrize("scheme", ["w8a8", "absmax", "nf4"])
+def test_quantizers_on_the_card_match_the_cpu(gen, scheme):
+    """The decoder is quantized on the card: its codes and scales must be
+    the CPU's (which tests/test_torch_quantize.py holds to JAX's)."""
+    from llava_reward_torch.utils.quantize import quantize_stacked_layers
+
+    w = torch.randn(2, 3072, 320, generator=gen, device="cuda").mul_(0.02).bfloat16()
+    w[0, :, 5] = 0
+    on_card = quantize_stacked_layers({"w": w}, scheme=scheme, min_size=0)["w"]
+    on_cpu = quantize_stacked_layers({"w": w.cpu()}, scheme=scheme, min_size=0)["w"]
+    assert on_card.keys() == on_cpu.keys()
+    for k in on_cpu:
+        assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+
+
+def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    codes = torch.zeros(32, 200, dtype=torch.int8, device="cuda")
+    amax = torch.ones(32, 1, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16"):  # K = 200
+        im.int8_matmul_pre(codes, amax, torch.zeros(200, 64, dtype=torch.int8, device="cuda"),
+                           torch.ones(1, 64, device="cuda"))
+    with pytest.raises(ValueError, match="multiples of 16"):  # N = 40
+        im.int8_matmul_pre(codes[:, :192], amax,
+                           torch.zeros(192, 40, dtype=torch.int8, device="cuda"),
+                           torch.ones(1, 40, device="cuda"))
+    attn = _randn(gen, 2, 64, 4, 128).transpose(1, 2)  # (B, H, S, D): not a row layout
+    with pytest.raises(ValueError, match="not contiguous"):
+        qe.row_quant(attn.reshape(2, 4, 64 * 128)[:, :, :256])
+    with pytest.raises(ValueError, match="not contiguous"):
+        qe.row_quant(attn)

@@ -103,10 +103,35 @@ def test_card_tensor_never_takes_the_plain_version(monkeypatch):
     assert all(v == 0 for v in fa.LAUNCHES.values())
 
 
+def test_card_tensor_never_takes_the_plain_w8a8_versions(monkeypatch):
+    """The same rule for the W8A8 kernels (B4-B7)."""
+    from llava_reward_torch.ops import int8_matmul as im
+    from llava_reward_torch.ops import quant_epilogue as qe
+
+    monkeypatch.setattr(qe, "on_card", lambda x: True)
+    monkeypatch.setattr(im, "on_card", lambda x: True)
+    qe.reset_counters()
+    im.reset_counters()
+    x = torch.zeros(4, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        qe.rms_quant(x, torch.ones(256, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        qe.silu_mul_quant(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        qe.row_quant(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        im.w8a8_matmul(x, torch.zeros(256, 128, dtype=torch.int8), torch.ones(1, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        im.int8_matmul_pre(torch.zeros(4, 256, dtype=torch.int8), torch.ones(4, 1),
+                           torch.zeros(256, 128, dtype=torch.int8), torch.ones(1, 128))
+    for d in (qe.PLAIN_CALLS, qe.LAUNCHES, im.PLAIN_CALLS, im.LAUNCHES):
+        assert all(v == 0 for v in d.values())
+
+
 def test_import_builds_nothing():
     from llava_reward_torch.ops import cuda_lib
 
     assert cuda_lib._lib is None
     assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
-        "flash_attention.cu", "rope_transpose.cu"
+        "flash_attention.cu", "rope_transpose.cu", "quant_epilogue.cu", "int8_matmul.cu"
     }

@@ -19,6 +19,21 @@ Phases, each printing its own lines; any failure exits non-zero:
   5. the same requests with the decoder quantized W8A8 on the card
      (--load_in_8bit; CLIP stays bf16): B4 x2, B5, B6 and four int8 GEMMs per
      decoder layer, counted and checked the same way;
+  5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
+     3584; random bf16 weights built on the card from seed 0, the decoder's
+     projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
+     through RewardAdaptor(model_type="qwen").make_score_fn(): uint8 patches
+     (normalised on the card) in the real window layout and M-RoPE
+     positions, seq 1792, one 1280-patch image per sequence; one pair at
+     B=2 (the rejected image 28 x 36 patches, so 272 pad slots among its
+     1280, and its tokens left-padded by 40) and four pairs at B=8. Per
+     request: B2 x3 + B3 in each decoder layer, B3's segment mode in the
+     four full-attention vision blocks. The B=2 rewards against the plain
+     route, beside the reference attention's drift from it. Then the
+     decoder W8A8 (B4 x2, B5, o_proj's B6 + GEMM, four GEMMs per layer).
+     From one input, the vision tower and decoder layer 0 (bf16, W8A8)
+     through the kernels against the plain versions; a B=8 request's time
+     split between the vision tower and the decoder layers;
   6. LoRA training at full width and depth (random bf16 backbone, fp32 heads
      and LoRA r=128, alpha=256 on qkv/o/gate_up/down, AdamW 2e-4 cosine with
      3 % warmup over 100 steps, remat on): one step through the kernels and
@@ -52,18 +67,20 @@ import dataclasses
 import os
 import tempfile
 
-from llava_reward_torch.core.config import RewardConfig, phi35_vision_config
+from llava_reward_torch.core.config import RewardConfig, phi35_vision_config, qwen25_vl_7b_config
 from llava_reward_torch.evalx.adaptor import RewardAdaptor
 from llava_reward_torch.io import artifact
 from llava_reward_torch.lora.lora import init_lora, init_vision_lora, peft_state_to_stacked
-from llava_reward_torch.models import phi3, phi3v
+from llava_reward_torch.models import phi3, phi3v, qwen25_vl
 from llava_reward_torch.models.clip_vit import layer_slice
 from llava_reward_torch.ops import cuda_lib
 from llava_reward_torch.ops import flash_attention as fa
 from llava_reward_torch.ops import int8_matmul as im
 from llava_reward_torch.ops import quant_epilogue as qe
 from llava_reward_torch.ops.rope import rope_cos_sin_for_config
+from llava_reward_torch.preprocess.collate import collate_qwen_samples, to_reward_batch
 from llava_reward_torch.preprocess.phi3v_processor import build_img_gather_idx
+from llava_reward_torch.preprocess.qwen_vision import sample_from_patches, windowize
 from llava_reward_torch.reward.model import RewardBatch, init_head_params
 from llava_reward_torch.reward.preference import preference_prob
 from llava_reward_torch.train.optim import make_optimizer, tree_leaves, tree_map
@@ -83,6 +100,25 @@ ATTN_ATOL, ATTN_RTOL = 8e-3, 2 ** -7
 ATTN_TOL_TEXT = f"{ATTN_ATOL:g} + {ATTN_RTOL:g}*|plain|"
 PREP_TOL = 0.0  # rope in fp32 with one rounding on both sides: bit-exact
 REWARD_TOL = 5e-3  # bf16 forward through 55 attention layers, |reward| ~ 2e-2
+# Qwen2.5-VL-7B: 32 vision blocks and 28 decoder layers in bf16; the printed
+# drift floor (the reference attention against the plain route) sits below
+# it. With the decoder W8A8 every layer requantizes its activations four
+# times: where the two routes' bf16 values differ by an ulp next to a code
+# boundary, a code flips (amax/127 on a row) and the next layers carry it.
+# The reference attention stood 4.6e-03 from the plain route there, the
+# kernels 8.7e-03, on rewards of ~1-2e-02, all with the same decision; the
+# end-to-end bound is set at the rewards' own size, and the sharp checks are
+# the vision tower and decoder layer 0 at full width from one input (the
+# worst batch row's relative L2 error of the output, or of the layer's
+# update): bf16 1.7e-02 and 6.3e-03, with the reference attention at
+# 1.7e-02 and 7.8e-03; W8A8 3.3e-02, the reference 3.7e-02 (its code flips).
+# A run with B3's mask row dropped put the vision tower's padded row at 0.106
+# from the plain route; with the left pad dropped, layer 0's padded row at
+# 0.539.
+QWEN_REWARD_TOL, QWEN_W8A8_REWARD_TOL = 5e-3, 2e-2
+QWEN_PART_TOL, QWEN_W8A8_PART_TOL = 5e-2, 0.1
+QWEN_GRIDS = ((1, 32, 40), (1, 28, 36))  # 1280 and 1008 patches in a 1280-patch budget
+QWEN_SEQ, QWEN_PATCHES, QWEN_UNITS = 1792, 1280, 320
 # B4 sums x^2 in another order than its plain version: a value at a rounding
 # boundary may take the neighbouring code. B5: the JAX package's rule for
 # sigmoid's rounding (tests/test_quant_epilogue.py). B6 and B7 are exact.
@@ -329,6 +365,103 @@ def check_prep_and_hm(gen, cfg):
     return rows
 
 
+def check_qwen_prep(gen, qcfg):
+    """B2 at the Qwen2.5-VL decoder's B=8 shape: q (28 x 128), k and v (4 x
+    128) out of the fused (8, 1792, 4608) projection, M-RoPE tables."""
+    dev, tc = "cuda", qcfg.text
+    B, S, D, H, Hk = 8, QWEN_SEQ, tc.head_dim, tc.num_heads, tc.num_kv_heads
+    qkv = torch.randn(B, S, tc.q_size + 2 * tc.kv_size, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    pos = torch.arange(S, device=dev)[None, None].expand(3, B, S)
+    cos, sin = qwen25_vl._mrope_cos_sin(pos, tc, torch.bfloat16)
+    parts = ((0, H, True), (H * D, Hk, True), ((H + Hk) * D, Hk, False))
+    errs = []
+    for off, n, rope in parts:
+        c, s_ = (cos, sin) if rope else (None, None)
+        got = fa.rope_transpose(qkv, c, s_, col_offset=off, n_heads=n, head_dim=D)
+        ref = fa.rope_transpose_plain(qkv, c, s_, col_offset=off, n_heads=n, head_dim=D)
+        errs.append((got.float() - ref.float()).abs().max().item())
+    kw = dict(col_offset=0, n_heads=H, head_dim=D)
+    ms = time_ms(lambda: fa.rope_transpose(qkv, cos, sin, **kw))
+    plain_ms = time_ms(lambda: fa.rope_transpose_plain(qkv, cos, sin, **kw), iters=5)
+    nbytes = 2 * B * S * H * D + 4 * B * S * D + 2 * B * S * H * D
+    b_ms, b_by = bound_ms(6 * B * S * H * D, nbytes)
+    return _report(f"B2 prep qwen ({B},{S},{qkv.shape[-1]}) -> q (8,28,{S},128), k/v "
+                   f"(8,4,{S},128)", "prep", max(errs), "0 (exact)", max(errs) <= PREP_TOL, True,
+                   ms, plain_ms, None, b_ms, b_by, "M-RoPE q/k, v not; timed: q call")
+
+
+def _segment_pairs(seg):
+    """Query x key pairs that segment ids leave open: sum of n^2 per id."""
+    n = 0
+    for row in seg.cpu().numpy():
+        ids, counts = np.unique(row[row != 0], return_counts=True)
+        n += int((counts.astype(np.int64) ** 2).sum())
+    return n
+
+
+def check_hm_segments(gen):
+    """B3's segment mode at the Qwen2.5-VL vision tower's full-attention
+    blocks, B=8: 16 heads x 80 over 1280 patches, one row with 272 pad slots
+    among them (a 28 x 36 image windowized), non-causal."""
+    dev = "cuda"
+    B, H, S, D = 8, 16, QWEN_PATCHES, 80
+    rows = [windowize(QWEN_GRIDS[0])[1]] * (B - 1) + [windowize(QWEN_GRIDS[1])[1]]
+    seg = torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    kv0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(causal=False, sliding_window=None, scale=D ** -0.5, q_len=S)
+    run = lambda: fa._flash_fwd_hm(q, k, v, kv0, seg, segments=True, **kw)  # noqa: E731
+    out = run()
+    ref = fa.flash_fwd_hm_plain(q, k, v, kv0, key_mask=seg, segments=True, **kw)
+    torch.cuda.synchronize()
+    valid = seg != 0  # a pad patch's query has no key; its row must be finite
+    err, within = _attn_err(out.transpose(1, 2)[valid], ref.transpose(1, 2)[valid])
+    finite = bool(torch.isfinite(out).all())
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: fa.flash_fwd_hm_plain(q, k, v, kv0, key_mask=seg, segments=True,
+                                                     **kw), iters=2, warmup=1)
+    mask = ((seg[:, None, :] != 0) & (seg[:, None, :] == seg[:, :, None]))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=D ** -0.5))
+    b_ms, b_by = bound_ms(4 * D * H * _segment_pairs(seg), 2 * 4 * B * H * S * D + 4 * B * S)
+    return _report(f"B3 fa_hm segments qwen vision ({B},{H},{S},{D})", "fa_hm", err,
+                   ATTN_TOL_TEXT, within, finite, ms, plain_ms, lib_ms, b_ms, b_by,
+                   f"non-causal, segment ids, row {B - 1}: {int(valid[-1].sum())} valid of {S}; "
+                   f"pad rows finite {finite}; library: SDPA, boolean mask")
+
+
+def check_hm_gqa(gen, qcfg):
+    """B3 at the Qwen2.5-VL decoder's B=8 shape: GQA 28 / 4 heads x 128,
+    causal, one row left-padded by 40."""
+    dev, tc = "cuda", qcfg.text
+    B, H, Hk, S, D = 8, tc.num_heads, tc.num_kv_heads, QWEN_SEQ, tc.head_dim
+    kv_start = [0, 40, 0, 0, 0, 0, 0, 0]
+    q = torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(B, Hk, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    kv = torch.tensor(kv_start, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, sliding_window=None, scale=D ** -0.5, q_len=S)
+    run = lambda: fa._flash_fwd_hm(q, k, v, kv, None, **kw)  # noqa: E731
+    out = run()
+    ref = fa.flash_fwd_hm_plain(q, k, v, kv, **kw)
+    torch.cuda.synchronize()
+    valid = _leftpad_rows(kv_start, S, dev)
+    err, within = _attn_err(out.transpose(1, 2)[valid], ref.transpose(1, 2)[valid])
+    finite = bool(torch.isfinite(out).all())
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: fa.flash_fwd_hm_plain(q, k, v, kv, **kw), iters=2, warmup=1)
+    mask = _sdpa_mask(kv_start, S, S, True, dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=D ** -0.5, enable_gqa=True))
+    flops = 4 * D * H * _pairs_allowed(S, kv_start, S, True)
+    b_ms, b_by = bound_ms(flops, 2 * (2 * B * H * S * D + 2 * B * Hk * S * D))
+    return _report(f"B3 fa_hm GQA qwen decoder ({B},{H}/{Hk},{S},{D})", "fa_hm", err,
+                   ATTN_TOL_TEXT, within, finite, ms, plain_ms, lib_ms, b_ms, b_by,
+                   f"causal kv_start={kv_start}; library: SDPA enable_gqa, boolean mask")
+
+
 def _attn_err(out, ref):
     """Max abs error on valid rows, and whether every element is within
     ATTN_ATOL + ATTN_RTOL * |ref|."""
@@ -349,11 +482,12 @@ def _report(title, name, err, tol_text, within, finite, ms, plain_ms, lib_ms, b_
                 bound_by=b_by, library_ms=lib_ms)
 
 
-W8A8_M = 8 * 2560  # decoder rows of a B=8 request
+W8A8_M = 8 * 2560  # decoder rows of a phi3v B=8 request
+QWEN_M = 8 * QWEN_SEQ  # ... and of a qwen one
 
 
 def _zero_rows(x):
-    x[:: W8A8_M // 4] = 0  # amax := 1 on these rows
+    x[:: x.shape[0] // 4] = 0  # amax := 1 on these rows
     return x
 
 
@@ -375,9 +509,8 @@ def _codes_report(title, name, got, ref, ms, plain_ms, nbytes, nops, detail):
                    f"{detail}; differing codes {share:.3e}, amax rel err {amax_rel:.3e}")
 
 
-def check_quant_epilogues(gen, cfg):
-    M, H, I = W8A8_M, cfg.decoder.hidden_size, cfg.decoder.intermediate_size
-    eps = cfg.decoder.rms_norm_eps
+def check_quant_epilogues(gen, dcfg, M):
+    H, I, eps = dcfg.hidden_size, dcfg.intermediate_size, dcfg.rms_norm_eps
     bf = torch.bfloat16
     x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
@@ -385,7 +518,7 @@ def check_quant_epilogues(gen, cfg):
         f"B4 rms_quant ({M},{H}) bf16", "rms_quant", qe.rms_quant(x, w, eps),
         qe.rms_quant_plain(x, w, eps), time_ms(lambda: qe.rms_quant(x, w, eps)),
         time_ms(lambda: qe.rms_quant_plain(x, w, eps), iters=3, warmup=1),
-        M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H, "zero rows every 5120")]
+        M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H, f"zero rows every {M // 4}")]
     gu = _zero_rows(torch.randn(M, 2 * I, generator=gen, device="cuda", dtype=bf).mul_(2))
     rows.append(_codes_report(
         f"B5 silu_mul_quant ({M},{2 * I}) bf16", "silu_mul_quant", qe.silu_mul_quant(gu),
@@ -397,7 +530,7 @@ def check_quant_epilogues(gen, cfg):
         f"B6 row_quant ({M},{H}) bf16", "row_quant", qe.row_quant(x), qe.row_quant_plain(x),
         time_ms(lambda: qe.row_quant(x)), time_ms(lambda: qe.row_quant_plain(x), iters=3,
                                                   warmup=1),
-        M * H * 2 + M * H + M * 4, 4 * M * H, "zero rows every 5120"))
+        M * H * 2 + M * H + M * 4, 4 * M * H, f"zero rows every {M // 4}"))
     return rows
 
 
@@ -406,9 +539,8 @@ def _int_mm_scaled(codes, amax, wq, ws):
     return (torch._int_mm(codes, wq).float() * (amax / 127.0) * ws).to(torch.bfloat16)
 
 
-def check_int8_matmul(gen, cfg):
-    M, H = W8A8_M, cfg.decoder.hidden_size
-    I, qkv = cfg.decoder.intermediate_size, cfg.decoder.q_size + 2 * cfg.decoder.kv_size
+def check_int8_matmul(gen, dcfg, M):
+    H, I, qkv = dcfg.hidden_size, dcfg.intermediate_size, dcfg.q_size + 2 * dcfg.kv_size
     bf = torch.bfloat16
     rows = []
 
@@ -509,7 +641,7 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start):
                    f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; two launches")
 
 
-def phase_kernels(cfg):
+def phase_kernels(cfg, qcfg):
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = [
         check_direct("B1 fa_direct CLIP", gen, 136, 640, 16, 64, False, False, [0] * 136, 577,
@@ -526,9 +658,19 @@ def phase_kernels(cfg):
     rows.append(check_bwd("B8 fa_bwd decoder (2,32,2560,96)", gen, 2, 32, 2560, 96, True,
                           [0, 40]))
     torch.cuda.empty_cache()
-    rows += check_quant_epilogues(gen, cfg)
+    rows += check_quant_epilogues(gen, cfg.decoder, W8A8_M)
     torch.cuda.empty_cache()
-    rows += check_int8_matmul(gen, cfg)
+    rows += check_int8_matmul(gen, cfg.decoder, W8A8_M)
+    torch.cuda.empty_cache()
+    # the Qwen2.5-VL path's shapes (their rows come last: the kernels line
+    # reports them, B3's segment mode for fa_hm)
+    rows.append(check_qwen_prep(gen, qcfg))
+    rows.append(check_hm_gqa(gen, qcfg))
+    rows.append(check_hm_segments(gen))
+    torch.cuda.empty_cache()
+    rows += check_quant_epilogues(gen, qcfg.text, QWEN_M)
+    torch.cuda.empty_cache()
+    rows += check_int8_matmul(gen, qcfg.text, QWEN_M)
     torch.cuda.empty_cache()
     return rows
 
@@ -580,12 +722,15 @@ def _prob(r, pairs, rcfg):
                            value_head_dim=2, tau=rcfg.general_preference_tau)
 
 
-def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps):
+def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps, model_type="phi3v",
+                    tol=REWARD_TOL):
     """Serve ``req2`` then ``req8`` (one warm + ``reps`` timed calls each)
     through make_score_fn(); the launch counters must equal ``per2`` /
     ``per8`` launches per request for every kernel; the B=2 rewards must
-    match the same forward through the plain versions."""
-    adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
+    match the same forward through the plain versions within ``tol``, with
+    the same decision; the reference attention's gap from the plain route
+    (the drift floor of any two attention routes) is printed beside it."""
+    adaptor = RewardAdaptor(cfg, rcfg, params, model_type=model_type, device="cuda")
     score = adaptor.make_score_fn()
     if adaptor.make_score_fn() is not score:
         fail("make_score_fn is not memoised")
@@ -615,20 +760,30 @@ def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps):
             f"preference_prob {_prob(r, pairs, rcfg).cpu().numpy().round(6).tolist()}; "
             f"{med:.4f} s/request (median of {t}), {pairs / med:.3f} pairs/s")
 
-    # the same B=2 forward through the kernels' plain versions
-    plain = adaptor.make_score_fn(attn_impl="plain")
+    # the same B=2 forward through the kernels' plain versions, and through
+    # the reference attention (neither kernel nor plain version)
     before = launches()
-    rp = plain(params, req2)
+    rp = adaptor.make_score_fn(attn_impl="plain")(params, req2)
     torch.cuda.synchronize()
     if launches() != before:
         fail(f"{tag}: the plain forward launched a kernel")
+    # the reference route changes the attention only: on the card a W8A8
+    # decoder keeps its epilogue and GEMM kernels there, as in the JAX package
+    rx = adaptor.make_score_fn(attn_impl="xla")(params, req2)
+    torch.cuda.synchronize()
+    if any(launches()[k] != before[k] for k in fa.LAUNCHES):
+        fail(f"{tag}: the reference forward launched an attention kernel")
     gap = (r2.float() - rp.float()).abs().max().item()
-    p_k, p_p = _prob(r2, 1, rcfg), _prob(rp, 1, rcfg)
+    floor = (rx.float() - rp.float()).abs().max().item()
+    p_k, p_p, p_x = _prob(r2, 1, rcfg), _prob(rp, 1, rcfg), _prob(rx, 1, rcfg)
     same = bool(((p_k > 0.5) == (p_p > 0.5)).all())
     say(tag, f"B=2 kernels vs plain versions: rewards {r2.float().cpu().numpy().tolist()} vs "
-        f"{rp.float().cpu().numpy().tolist()}; max gap {gap:.3e} (tol {REWARD_TOL:g}); "
+        f"{rp.float().cpu().numpy().tolist()}; max gap {gap:.3e} (tol {tol:g}); "
         f"prob {p_k.item():.6f} vs {p_p.item():.6f}; same decision {same}")
-    if gap > REWARD_TOL or not same:
+    say(tag, f"drift floor, reference attention (attn_impl='xla') vs plain versions: rewards "
+        f"{rx.float().cpu().numpy().tolist()}; max gap {floor:.3e}; prob {p_x.item():.6f}; "
+        f"same decision {bool(((p_x > 0.5) == (p_p > 0.5)).all())}")
+    if gap > tol or not same:
         fail(f"{tag}: B=2 rewards through the kernels disagree with the plain versions")
     return total, (r2, r8), timing
 
@@ -675,9 +830,158 @@ def phase_serve(cfg, rcfg, reps=3):
             f"bf16 {rb.float().cpu().numpy().round(6).tolist()} (same weights; for information)")
     for name in ("B=2", "B=8"):
         say("w8a8", f"{name}: W8A8 {w8_t[name]:.4f} s/request beside bf16 {bf16_t[name]:.4f}")
-    # each kernel's count from the run of the path it belongs to
-    return {**{k: bf16_launches[k] for k in fa.LAUNCHES},
-            **{k: w8_launches[k] for k in (*qe.LAUNCHES, *im.LAUNCHES)}}
+    return {k: bf16_launches[k] + w8_launches[k] for k in bf16_launches}
+
+
+def qwen_request(qcfg, rng, grids, left_pad):
+    """One Qwen2.5-VL request: per row a uint8 image of ``grids[i]`` patches
+    (raw pixels, normalised on the card) spliced after 2 text tokens, random
+    text to QWEN_SEQ tokens less ``left_pad[i]``, collated to the static
+    (1792 tokens, 1280 patches, 320 units) budget on the card."""
+    tc, vc = qcfg.text, qcfg.vision
+    samples = []
+    for i, grid in enumerate(grids):
+        n_units = (grid[1] // 2) * (grid[2] // 2)
+        n_text = QWEN_SEQ - left_pad.get(i, 0) - n_units + 1  # + the placeholder
+        ids = rng.integers(2, 150000, n_text).astype(np.int32)
+        ids[2] = tc.image_token_id  # the placeholder sample_from_patches expands
+        patches = rng.integers(0, 256, (grid[1] * grid[2], vc.patch_dim)).astype(np.uint8)
+        samples.append(sample_from_patches(ids, patches, grid, tc.image_token_id,
+                                           vc.window_size, vc.patch_size,
+                                           vc.spatial_merge_size))
+    return to_reward_batch(collate_qwen_samples(samples, QWEN_SEQ, tc.pad_token_id,
+                                                QWEN_PATCHES, QWEN_UNITS), device="cuda")
+
+
+def phase_serve_qwen(qcfg, reps=3):
+    """Qwen2.5-VL-7B scoring at full width and depth, bf16 then W8A8."""
+    torch.cuda.empty_cache()
+    tc, vc = qcfg.text, qcfg.vision
+    rcfg = RewardConfig(is_general_preference=True, value_head_dim=2, add_cross_attention=True,
+                        layer_id=tc.num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    backbone = qwen25_vl.init_params(qcfg, gen, torch.bfloat16, "cuda")
+    # the inference layout the adaptor loads (fused qkv and gate_up)
+    backbone["text"]["layers"] = qwen25_vl.fuse_decoder_projections(backbone["text"]["layers"])
+    params = {"backbone": backbone, "head": init_head_params(qcfg, rcfg, gen, torch.bfloat16,
+                                                             "cuda")}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say("qwen", f"Qwen2.5-VL-7B random bf16 params (decoder fused): {n_params / 1e9:.3f} B in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    req2 = qwen_request(qcfg, rng, QWEN_GRIDS, {1: 40})
+    req8 = qwen_request(qcfg, rng, [QWEN_GRIDS[0]] * 8, {})
+    say("qwen", f"requests: seq {QWEN_SEQ}, u8 patches {tuple(req8.pixel_values.shape)}, "
+        f"B=2 valid patches {req2.patch_valid.ne(0).sum(1).tolist()}, units "
+        f"{req2.num_img_tokens.tolist()}, left pad {(1 - req2.attention_mask).sum(1).tolist()}")
+    n_dec, n_full = tc.num_layers, len(vc.fullatt_block_indexes)
+    # per request: B2 x3 + B3 in each decoder layer, B3 (segments) in each
+    # full-attention vision block; the 64-patch windows stay on the reference
+    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full}
+    torch.cuda.reset_peak_memory_stats()
+    bf16_launches, bf16_r, bf16_t = serve_and_check(
+        "qwen", qcfg, rcfg, params, req2, req8, attn, attn, reps, "qwen", QWEN_REWARD_TOL)
+    say("qwen", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 serving)")
+
+    # --load_in_8bit: the decoder's projections W8A8, quantized on the card;
+    # the vision tower and the head stay bf16. Quantizing the fused leaves
+    # gives the codes of quantizing q/k/v (gate/up) and fusing after: the
+    # scales are per output column.
+    t0 = time.perf_counter()
+    text = params["backbone"]["text"]
+    qparams = {**params, "backbone": {**params["backbone"], "text": {
+        **text, "layers": quantize_stacked_layers(text["layers"], scheme="w8a8")}}}
+    torch.cuda.synchronize()
+    quantized = [k for k, v in qparams["backbone"]["text"]["layers"].items()
+                 if isinstance(v, dict) and isinstance(v.get("kernel"), dict)]
+    say("qwen-w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s: {quantized}")
+    w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
+          "int8_matmul": 4 * n_dec}
+    torch.cuda.reset_peak_memory_stats()
+    w8_launches, w8_r, w8_t = serve_and_check(
+        "qwen-w8a8", qcfg, rcfg, qparams, req2, req8, {**attn, **w8}, {**attn, **w8}, reps,
+        "qwen", QWEN_W8A8_REWARD_TOL)
+    say("qwen-w8a8", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 and "
+        f"W8A8 trees both held)")
+    for name, rb, rq in (("B=2", bf16_r[0], w8_r[0]), ("B=8", bf16_r[1], w8_r[1])):
+        say("qwen-w8a8", f"{name} rewards W8A8 {rq.float().cpu().numpy().round(6).tolist()} "
+            f"beside bf16 {rb.float().cpu().numpy().round(6).tolist()} (same weights; for "
+            f"information)")
+    for name in ("B=2", "B=8"):
+        say("qwen-w8a8", f"{name}: W8A8 {w8_t[name]:.4f} s/request beside bf16 "
+            f"{bf16_t[name]:.4f}")
+    _qwen_part_checks(qcfg, params, qparams, req2)
+    _qwen_time_split(qcfg, params, qparams, req8, bf16_t["B=8"], w8_t["B=8"])
+    return {k: bf16_launches[k] + w8_launches[k] for k in bf16_launches}
+
+
+@torch.inference_mode()
+def _qwen_time_split(qcfg, params, qparams, req, bf16_s, w8_s):
+    """Where a B=8 request's time goes: the vision tower, and decoder layer 0
+    (bf16, W8A8) times the depth, each timed alone through the kernels."""
+    tc, vc = qcfg.text, qcfg.vision
+    vin = (req.pixel_values, req.patch_valid, req.rot_pos, req.unit_gather, req.num_img_tokens)
+    vis = params["backbone"]["visual"]
+    vis_ms = time_ms(lambda: qwen25_vl.vision_forward(vis, vc, *vin), iters=3, warmup=1)
+    # one window block and one full block on the same hidden state
+    x = torch.randn(*req.patch_valid.shape, vc.hidden_size, device="cuda", dtype=torch.bfloat16)
+    vcos, vsin = qwen25_vl._vision_rope(req.rot_pos, vc.head_dim)
+    n_full = len(vc.fullatt_block_indexes)
+    block_ms = {full: time_ms(lambda: qwen25_vl._vision_block(
+        x, layer_slice(vis["blocks"], i), vc, vcos, vsin, req.patch_valid, full, "auto"),
+        iters=3, warmup=1) for full, i in ((False, 0), (True, vc.fullatt_block_indexes[0]))}
+    blocks = block_ms[False] * (vc.depth - n_full) + block_ms[True] * n_full
+    say("qwen-split", f"B=8 vision tower {vis_ms:.2f} ms: window block {block_ms[False]:.2f} ms "
+        f"x {vc.depth - n_full}, full block (B3 segments) {block_ms[True]:.2f} ms x {n_full} = "
+        f"{blocks:.2f} ms; the rest (u8 normalise, patch embed, rotary tables, merger, "
+        f"gather) {vis_ms - blocks:.2f} ms")
+    h = params["backbone"]["text"]["embed_tokens"][req.input_ids.long()]
+    cos, sin = qwen25_vl._mrope_cos_sin(req.position_ids, tc, h.dtype)
+    for tag, tree, served in (("bf16", params, bf16_s), ("W8A8", qparams, w8_s)):
+        lp = layer_slice(tree["backbone"]["text"]["layers"], 0)
+        layer_ms = time_ms(lambda: qwen25_vl._decoder_layer(h, lp, tc, cos, sin,
+                                                            req.attention_mask, "auto"),
+                           iters=3, warmup=1)
+        dec_ms = layer_ms * tc.num_layers
+        say("qwen-split", f"B=8 {tag}: vision tower {vis_ms:.2f} ms, decoder layer "
+            f"{layer_ms:.2f} ms x {tc.num_layers} = {dec_ms:.2f} ms; sum {vis_ms + dec_ms:.2f} "
+            f"ms of the served {served * 1e3:.2f} ms/request (rest: embedding, splice, "
+            f"final norm, SkipCA, head, host)")
+
+
+@torch.inference_mode()
+def _qwen_part_checks(qcfg, params, qparams, req):
+    """From one input at full width: the vision tower (B3's segment mode in
+    its four full blocks) and decoder layer 0 (B2 x3 + B3; W8A8: + B4 x2, B5,
+    B6 and four GEMMs) through the kernels against the plain versions, as
+    the worst batch row's relative L2 error (of the layer's update, out - h,
+    on valid tokens: the padded row shows a mask fault undiluted), beside
+    the reference attention's error against the plain versions."""
+    tc, vc = qcfg.text, qcfg.vision
+    vis = params["backbone"]["visual"]
+    vin = (req.pixel_values, req.patch_valid, req.rot_pos, req.unit_gather, req.num_img_tokens)
+    outs = {i: qwen25_vl.vision_forward(vis, vc, *vin, attn_impl=i)
+            for i in ("auto", "plain", "xla")}
+    checks = [("vision tower (2, 1280 patches) -> (2, 320, 3584)", outs, QWEN_PART_TOL)]
+    h = params["backbone"]["text"]["embed_tokens"][req.input_ids.long()]
+    cos, sin = qwen25_vl._mrope_cos_sin(req.position_ids, tc, h.dtype)
+    valid = req.attention_mask[..., None].to(h.dtype)
+    for tag, tree in (("bf16", params), ("W8A8", qparams)):
+        lp = layer_slice(tree["backbone"]["text"]["layers"], 0)
+        outs = {i: (qwen25_vl._decoder_layer(h, lp, tc, cos, sin, req.attention_mask, i)
+                    - h) * valid for i in ("auto", "plain", "xla")}
+        checks.append((f"decoder layer 0 {tag} (2, {QWEN_SEQ}, {tc.hidden_size})", outs,
+                       QWEN_W8A8_PART_TOL if tag == "W8A8" else QWEN_PART_TOL))
+    for title, o, tol in checks:
+        err, floor = (max(_rel_err(a, b) for a, b in zip(o[i], o["plain"]))
+                      for i in ("auto", "xla"))
+        finite = bool(torch.isfinite(o["auto"]).all())
+        say("qwen", f"{title}, kernels vs plain versions: relative L2 error {err:.3e} (tol "
+            f"{tol:g}); reference attention vs plain {floor:.3e}; finite {finite}")
+        if err > tol or not finite:
+            fail(f"qwen: the {title} through the kernels disagrees with the plain versions")
 
 
 def _leaves(tree):
@@ -693,7 +997,8 @@ def _leaves(tree):
 
 def _halves(batch, pairs):
     """A stacked request as its chosen and rejected halves."""
-    return (RewardBatch(*[t[:pairs] for t in batch]), RewardBatch(*[t[pairs:] for t in batch]))
+    return tuple(RewardBatch(*[None if t is None else t[sl] for t in batch])
+                 for sl in (slice(None, pairs), slice(pairs, None)))
 
 
 def _trainable(cfg, rcfg, gen, vision=False):
@@ -930,16 +1235,21 @@ def main() -> int:
     cfg = phi35_vision_config()
     rcfg = RewardConfig(is_general_preference=True, value_head_dim=2,
                         add_cross_attention=True, layer_id=cfg.decoder.num_layers)
-    rows = phase_kernels(cfg)
-    counts = phase_serve(cfg, rcfg)
-    # B8's count from the training path's run (B1-B3 keep the serving run's)
+    qcfg = qwen25_vl_7b_config()
+    rows = phase_kernels(cfg, qcfg)
+    # launches: summed over the four serving runs (phi3v and qwen, bf16 and
+    # W8A8); B8's from the training path's run
+    phi3v_counts = phase_serve(cfg, rcfg)
+    qwen_counts = phase_serve_qwen(qcfg)
+    counts = {k: phi3v_counts[k] + qwen_counts[k] for k in phi3v_counts}
     counts["fa_bwd"] = phase_train(cfg, rcfg)["fa_bwd"]
 
     kernels = []
     for name, meta in KERNELS.items():
-        # one row per kernel: its last check (for B1 and B8 the decoder's
-        # shapes, which dominate their time on the path; for the int8 GEMM
-        # gate_up's)
+        # one row per kernel: its last check (B1 and B8 at the phi3v
+        # decoder's shapes, which dominate their time on the path; B2, B4-B7
+        # at the qwen decoder's, the GEMM at gate_up; B3 in its segment mode
+        # at the qwen vision tower's)
         row = [r for r in rows if r["name"] == name][-1]
         kernels.append({"name": name, **meta, "launches": counts[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -3,9 +3,10 @@
 The port keeps its own copy of the JAX package's configs
 (``llava_reward_tpu/core/config.py``: VisionConfig, RopeScalingConfig,
 DecoderConfig, Phi3VConfig, phi35_vision_config, phi3v_tiny_config,
-RewardConfig with its checkpoint-contract helpers), su-RoPE factor tables
-verbatim, so that it imports nothing from that package. Qwen / LLaVA-NeXT
-configs arrive with their slices.
+RewardConfig with its checkpoint-contract helpers, QwenVisionConfig,
+QwenTextConfig, Qwen25VLConfig, qwen25_vl_7b_config, qwen_tiny_config),
+su-RoPE factor tables verbatim, so that it imports nothing from that
+package. The LLaVA-NeXT config arrives with its slice.
 """
 
 from __future__ import annotations
@@ -223,6 +224,121 @@ def phi3v_tiny_config(
         ),
         num_crops=num_crops,
         image_dim_out=vision_hidden,
+    )
+
+
+@dataclass(frozen=True)
+class QwenVisionConfig:
+    """Qwen2.5-VL vision tower (window-attention ViT, SwiGLU blocks,
+    RMSNorm, 2D rotary). Defaults are the 7B checkpoint's values."""
+
+    depth: int = 32
+    hidden_size: int = 1280
+    intermediate_size: int = 3420
+    num_heads: int = 16
+    patch_size: int = 14
+    temporal_patch_size: int = 2
+    spatial_merge_size: int = 2
+    window_size: int = 112
+    fullatt_block_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    out_hidden_size: int = 3584
+    in_channels: int = 3
+    rms_norm_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.temporal_patch_size * self.patch_size ** 2
+
+    @property
+    def win_patches(self) -> int:
+        side = self.window_size // self.patch_size // self.spatial_merge_size
+        return side * side * self.spatial_merge_size ** 2
+
+
+@dataclass(frozen=True)
+class QwenTextConfig:
+    """Qwen2.5 decoder: GQA with q/k/v bias, separate gate/up SwiGLU,
+    M-RoPE sections. Defaults: Qwen2.5-VL-7B-Instruct."""
+
+    vocab_size: int = 152064
+    hidden_size: int = 3584
+    intermediate_size: int = 18944
+    num_layers: int = 28
+    num_heads: int = 28
+    num_kv_heads: int = 4
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1000000.0
+    max_position_embeddings: int = 128000
+    mrope_section: Tuple[int, int, int] = (16, 24, 24)
+    sliding_window: Optional[int] = None
+    hidden_act: str = "silu"
+    pad_token_id: int = 151643
+    eos_token_id: int = 151645
+    image_token_id: int = 151655
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def q_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class Qwen25VLConfig:
+    text: QwenTextConfig = field(default_factory=QwenTextConfig)
+    vision: QwenVisionConfig = field(default_factory=QwenVisionConfig)
+    min_pixels: int = 256 * 28 * 28
+    max_pixels: int = 1280 * 28 * 28
+
+
+def qwen25_vl_7b_config() -> Qwen25VLConfig:
+    return Qwen25VLConfig()
+
+
+def qwen_tiny_config(
+    num_layers: int = 2,
+    hidden_size: int = 64,
+    num_heads: int = 4,
+    num_kv_heads: int = 2,
+    vision_depth: int = 4,
+    vision_hidden: int = 32,
+    vocab_size: int = 512,
+) -> Qwen25VLConfig:
+    """Tiny CPU-test config; fullatt every other block to exercise both
+    attention modes; head_dim 16 keeps mrope sections (4, 2, 2)."""
+    return Qwen25VLConfig(
+        text=QwenTextConfig(
+            vocab_size=vocab_size,
+            hidden_size=hidden_size,
+            intermediate_size=hidden_size * 2,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            num_kv_heads=num_kv_heads,
+            mrope_section=(4, 2, 2),  # sums to head_dim//2 = 8
+            pad_token_id=vocab_size - 1,
+            eos_token_id=vocab_size - 1,
+            image_token_id=vocab_size - 2,
+        ),
+        vision=QwenVisionConfig(
+            depth=vision_depth,
+            hidden_size=vision_hidden,
+            intermediate_size=vision_hidden * 2,
+            num_heads=4,
+            out_hidden_size=hidden_size,
+            fullatt_block_indexes=tuple(range(1, vision_depth, 2)),
+        ),
+        min_pixels=4 * 28 * 28,
+        max_pixels=16 * 28 * 28,
     )
 
 

@@ -8,8 +8,18 @@
 //   96, causal, su-RoPE, left-pad kv_start).
 // fa_hm_kernel replaces llava_reward_tpu/ops/flash_attention.py:_fa_kernel
 //   (B3): head-major (or any (b, h, s) strided) q/k/v, native GQA (query head
-//   h reads kv head h / n_rep), causal + window + kv_start + q_len masks. The
-//   key-mask and segment-id modes wait for the Qwen slice.
+//   h reads kv head h / n_rep), causal + window + kv_start + q_len masks, and
+//   the two modes of an int32 (B, S) row (_fa_kernel:96-111):
+//   - key mask (MODE 1): key k counts iff mask[k] != 0 (Qwen2.5-VL's vision
+//     windows, any pattern of interleaved pads);
+//   - segment ids (MODE 2): key k counts for query q iff seg[k] != 0 and
+//     seg[k] == seg[q] (the vision tower's full-attention blocks; 0 = pad).
+//     q's id is read from the same row at the query's position: the TPU's
+//     second, q-block view of the row is not needed.
+//   MODE 0 (no row) is its own instantiation, so the left-pad launch keeps
+//   its code. Head dims 64, 96, 128 and Qwen's vision 80 (1280 / 16; a
+//   multiple of the 16-wide WMMA step: the JAX package pads 80 to 128 for
+//   Mosaic's lanes, which is no part of the kernel's meaning).
 //
 // What bounds them on an H100: causal attention at S=2560, D=96 does about
 // 4*D*S*S/2 FLOPs per head on 2*S*D*3 bytes, ~100 FLOP/byte per head pair,
@@ -23,8 +33,10 @@
 // Semantics kept from the TPU kernels:
 // - roped q/k are rounded to bf16 before the dot; scale is applied to the
 //   fp32 dot; masked scores take the finite fill -1e30 (not -inf), so a query
-//   row whose keys are all masked (a left-pad row) comes out finite, as the
-//   mean of V over the keys visited, and never NaN;
+//   row whose keys are all masked (a left-pad row, or a pad patch whose
+//   segment id is 0) comes out finite, as the mean of V over the keys
+//   visited, and never NaN: the next window block's reference attention
+//   runs over those rows, where a NaN would reach valid rows;
 // - probabilities are rounded to bf16 before P.V, accumulated in fp32.
 //   The TPU normalises before that rounding, this kernel after P.V (online
 //   softmax); the difference is within bf16 rounding of the probabilities.
@@ -53,6 +65,7 @@ struct Args {
   const bf16* cos;  // (B, S, D) when RoPE is on
   const bf16* sin;
   const int* kv_start;  // (B,) first valid key per batch row
+  const int* mask;  // (B, S) key mask / segment ids (MODE 1 / 2), else null
   long long q_sb, q_sh, q_ss;  // element strides: batch, head, sequence
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -69,7 +82,8 @@ struct Smem {
   static constexpr size_t v_off = k_off + (size_t)BK * D * 2;
   static constexpr size_t s_off = v_off + (size_t)BK * D * 2;
   static constexpr size_t p_off = s_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t bytes = p_off + (size_t)NWARPS * WROWS * LDP * 2;
+  static constexpr size_t m_off = p_off + (size_t)NWARPS * WROWS * LDP * 2;
+  static constexpr size_t bytes = m_off + (size_t)BK * 4;  // the tile's mask row
 };
 
 // 64 rows x D columns of a (row-strided) bf16 matrix into shared memory,
@@ -99,7 +113,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
-template <int D, bool ROPE>
+// MODE: 0 no mask row, 1 key mask, 2 segment ids (see the top of the file).
+template <int D, bool ROPE, int MODE>
 __device__ __forceinline__ void attn_block(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   typedef Smem<D> L;
@@ -108,6 +123,7 @@ __device__ __forceinline__ void attn_block(const Args& a) {
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
   float* sS = reinterpret_cast<float*>(smem + L::s_off);
   bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off);
+  int* sM = reinterpret_cast<int*>(smem + L::m_off);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // heaviest causal tiles first
@@ -137,6 +153,9 @@ __device__ __forceinline__ void attn_block(const Args& a) {
   // each lane pair owns one query row; lane & 1 picks its half of the columns
   const int r = lane >> 1, half = lane & 1;
   const int qrow = q0 + warp * WROWS + r;
+  const int* mrow = MODE != 0 ? a.mask + (long long)b * a.S : nullptr;
+  // a query past S takes id 0, which no key matches: its row is never written
+  const int qseg = (MODE == 2 && qrow < a.S) ? mrow[qrow] : 0;
   float m = MASK_FILL, l = 0.f;
   float acc[D / 2];
 #pragma unroll
@@ -154,6 +173,9 @@ __device__ __forceinline__ void attn_block(const Args& a) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D, ROPE>(sK, kb, a.k_ss, k0, a.S, cb, sb);
     load_tile<D, false>(sV, vb, a.v_ss, k0, a.S, nullptr, nullptr);
+    if (MODE != 0) {
+      for (int i = threadIdx.x; i < BK; i += NTHREADS) sM[i] = k0 + i < a.S ? mrow[k0 + i] : 0;
+    }
     __syncthreads();
 
     // scores: (16 x D) . (D x 64) per warp, fp32
@@ -179,6 +201,8 @@ __device__ __forceinline__ void attn_block(const Args& a) {
       const int kc = half * 32 + j;
       const int kpos = k0 + kc;
       bool ok = kpos < a.q_len && kpos >= kvs;
+      if (MODE == 1) ok = ok && sM[kc] != 0;
+      if (MODE == 2) ok = ok && sM[kc] != 0 && sM[kc] == qseg;
       if (a.causal) {
         ok = ok && kpos <= qrow;
         if (a.window > 0) ok = ok && kpos > qrow - a.window;
@@ -240,12 +264,12 @@ __device__ __forceinline__ void attn_block(const Args& a) {
 
 template <int D, bool ROPE>
 __global__ void __launch_bounds__(NTHREADS) fa_direct_kernel(Args a) {
-  attn_block<D, ROPE>(a);
+  attn_block<D, ROPE, 0>(a);
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS) fa_hm_kernel(Args a) {
-  attn_block<D, false>(a);
+  attn_block<D, false, MODE>(a);
 }
 
 template <int D>
@@ -257,6 +281,15 @@ int launch(void (*kernel)(Args), const Args& a, int B, int H, cudaStream_t strea
   dim3 grid((a.S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_hm(const Args& a, int mode, int B, int H, cudaStream_t st) {
+  switch (mode) {
+    case 0: return launch<D>(fa_hm_kernel<D, 0>, a, B, H, st);
+    case 1: return launch<D>(fa_hm_kernel<D, 1>, a, B, H, st);
+    default: return launch<D>(fa_hm_kernel<D, 2>, a, B, H, st);
+  }
 }
 
 }  // namespace
@@ -276,6 +309,7 @@ extern "C" int lrt_fa_direct(const void* qkv, const void* cos, const void* sin,
   a.cos = static_cast<const bf16*>(cos);
   a.sin = static_cast<const bf16*>(sin);
   a.kv_start = static_cast<const int*>(kv_start);
+  a.mask = nullptr;
   a.q_sb = a.k_sb = a.v_sb = (long long)S * C;
   a.q_sh = a.k_sh = a.v_sh = D;
   a.q_ss = a.k_ss = a.v_ss = C;
@@ -306,13 +340,16 @@ extern "C" int lrt_fa_direct(const void* qkv, const void* cos, const void* sin,
 }
 
 // B3: q (B, H, S, D) and k/v (B, Hk, S, D), any element strides with a unit
-// last-dim stride; out written through its own strides.
+// last-dim stride; out written through its own strides. mask: a contiguous
+// int32 (B, S) row read as a key mask (mask_mode 1) or segment ids (2), or
+// null with mask_mode 0.
 extern "C" int lrt_fa_hm(const void* q, const void* k, const void* v, const void* kv_start,
-                         void* out, int B, int H, int Hk, int S, int D, long long q_sb,
-                         long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-                         long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-                         long long o_sb, long long o_sh, long long o_ss, int q_len,
-                         int causal, int window, float scale, void* stream) {
+                         const void* mask, void* out, int B, int H, int Hk, int S, int D,
+                         long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+                         long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+                         long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+                         int q_len, int causal, int window, int mask_mode, float scale,
+                         void* stream) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -321,6 +358,9 @@ extern "C" int lrt_fa_hm(const void* q, const void* k, const void* v, const void
   a.cos = nullptr;
   a.sin = nullptr;
   a.kv_start = static_cast<const int*>(kv_start);
+  a.mask = static_cast<const int*>(mask);
+  if ((mask_mode != 0) != (mask != nullptr) || mask_mode < 0 || mask_mode > 2)
+    return (int)cudaErrorInvalidValue;
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
@@ -333,9 +373,10 @@ extern "C" int lrt_fa_hm(const void* q, const void* k, const void* v, const void
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(fa_hm_kernel<64>, a, B, H, st);
-    case 96: return launch<96>(fa_hm_kernel<96>, a, B, H, st);
-    case 128: return launch<128>(fa_hm_kernel<128>, a, B, H, st);
+    case 64: return launch_hm<64>(a, mask_mode, B, H, st);
+    case 80: return launch_hm<80>(a, mask_mode, B, H, st);
+    case 96: return launch_hm<96>(a, mask_mode, B, H, st);
+    case 128: return launch_hm<128>(a, mask_mode, B, H, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

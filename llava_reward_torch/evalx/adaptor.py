@@ -3,6 +3,9 @@
 ``RewardAdaptor`` holds the configs, the param tree and the device;
 ``make_score_fn`` returns the function that answers scoring requests,
 memoised per ``(attn_impl, training)`` as in the JAX package.
+``model_type`` is ``"phi3v"`` or ``"qwen"``; a qwen tree may be in the
+fused-projection layout (``models/qwen25_vl.fuse_decoder_projections``,
+as ``load_reward_adaptor`` leaves it) or the separate one.
 ``load_reward_adaptor`` (base weights + LoRA merge + artifact heads) waits
 for ROADMAP slice 3.
 """
@@ -14,7 +17,7 @@ from typing import Callable, Dict, Tuple, Union
 
 import torch
 
-from ..core.config import Phi3VConfig, RewardConfig
+from ..core.config import Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..reward.model import RewardBatch, reward_forward
 
@@ -29,7 +32,7 @@ class RewardAdaptor:
     """Model + configs on one device; ``device`` defaults to ``"cuda"`` and
     raises where there is none."""
 
-    cfg: Phi3VConfig
+    cfg: Union[Phi3VConfig, Qwen25VLConfig]
     rcfg: RewardConfig
     params: dict  # {'backbone': ..., 'head': ...}
     model_type: str = "phi3v"
@@ -38,11 +41,14 @@ class RewardAdaptor:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.model_type != "phi3v":
+        want = {"phi3v": Phi3VConfig, "qwen": Qwen25VLConfig}.get(self.model_type)
+        if want is None:
             raise NotImplementedError(
-                f"model_type {self.model_type!r}: Qwen2.5-VL is ROADMAP slice 5, "
-                "LLaVA-NeXT slice 6"
+                f"model_type {self.model_type!r}: LLaVA-NeXT is ROADMAP slice 6"
             )
+        if not isinstance(self.cfg, want):
+            raise ValueError(f"model_type {self.model_type!r} takes a {want.__name__}, "
+                             f"got {type(self.cfg).__name__}")
 
     def make_score_fn(self, attn_impl: str = "auto", training: bool = False):
         """``score(params, batch) -> (B, value_head_dim)`` rewards. Batch

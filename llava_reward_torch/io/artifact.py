@@ -111,7 +111,8 @@ def projector_state_dict(projector_params: dict,
     """The phi3v projector's torch keys (``artifact.py:153-164``)."""
     if model_type != "phi3v":
         raise NotImplementedError(
-            f"the {model_type!r} projector keys wait for their ROADMAP slice (5: qwen, 6: llava)"
+            f"the {model_type!r} projector keys come with its training (ROADMAP: qwen "
+            "training, queue item 1; llava, slice 6)"
         )
     pre = "model.vision_embed_tokens.img_projection"
     return {

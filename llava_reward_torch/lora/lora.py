@@ -100,7 +100,8 @@ def _delta(t: dict) -> torch.Tensor:
 
 def merge_lora(base_layers: dict, lora: dict) -> dict:
     """Fold adapters into the frozen stacked phi3 weights (``lora.py:126-140``;
-    the ``{'kernel', ...}`` leaves of the Qwen layers wait for their slice)."""
+    the ``{'kernel', ...}`` leaves of the Qwen layers come with Qwen training,
+    ROADMAP queue item 1)."""
     merged = dict(base_layers)
     for name, t in lora.items():
         merged[name] = base_layers[name] + _delta(t).to(base_layers[name].dtype)

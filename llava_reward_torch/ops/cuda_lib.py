@@ -31,8 +31,7 @@ NVCC_FLAGS = [
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "lrt_fa_direct": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "lrt_fa_hm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_I, _I, _I, _F, _P],
+    "lrt_fa_hm": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _P],
     "lrt_rope_transpose": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     "lrt_rms_quant": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "lrt_silu_mul_quant": [_P, _P, _P, _I, _I, _I, _P],

@@ -36,8 +36,16 @@ B8. B8 is two launches (a dq pass and a dk/dv pass), counted as one
 grad is enabled (``cuda_lib.refuse_grad``): the tensors it returns have no
 ``grad_fn``, so outside these Functions it would cut the gradient silently.
 
+B3 takes the JAX package's three mask layouts (``flash_attention:778-834``):
+left pad (``kv_start``), an arbitrary key mask (``"arbitrary"``, Qwen2.5-VL's
+vision windows) and segment ids (``"segments"``, its full-attention blocks:
+key k counts for query q iff ``seg[k] != 0 and seg[k] == seg[q]``), with
+head_dim 80 beside 64, 96 and 128. Their backward (B8's mask modes) comes
+with Qwen training; ``_FlashAttentionCore`` raises on it.
+
 Semantics kept from the TPU kernels: masked scores take the finite fill
-``-1e30`` (so a fully masked left-pad row is finite, never NaN); roped q/k
+``-1e30`` (so a fully masked row, a left-pad query or a pad patch, is
+finite, never NaN); roped q/k
 are rounded to the input dtype before the dot; the scale multiplies the fp32
 dot; probabilities are rounded to the input dtype before P.V, which
 accumulates in fp32. Pad rows are finite but their values depend on which
@@ -59,6 +67,7 @@ from ..core.device import on_card
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 96, 128)
+HM_HEAD_DIMS = (64, 80, 96, 128)  # B3 also takes Qwen2.5-VL's vision head_dim
 
 LAUNCHES: Dict[str, int] = {"fa_direct": 0, "prep": 0, "fa_hm": 0, "fa_bwd": 0}
 PLAIN_CALLS: Dict[str, int] = {"fa_direct": 0, "prep": 0, "fa_hm": 0, "fa_bwd": 0}
@@ -108,6 +117,8 @@ def _attention_core_plain(
     sliding_window: Optional[int],
     scale: float,
     q_len: int,
+    key_mask: Optional[torch.Tensor] = None,  # (B, S): 1 = valid key, or segment ids
+    segments: bool = False,
 ) -> torch.Tensor:
     """Full-row masked softmax attention, one batch row at a time (bounds
     the fp32 (H, S, S) scores). Returns (B, H, S, D) in q's dtype."""
@@ -123,6 +134,11 @@ def _attention_core_plain(
         vb = v[b].repeat_interleave(n_rep, dim=0).float()
         s = torch.matmul(q[b].float(), kb.transpose(-1, -2)) * scale
         mask = base & (k_pos >= kv_start[b])
+        if key_mask is not None:  # _fa_kernel:96-111
+            row = key_mask[b].to(dev)
+            mask = mask & (row[None, :] != 0)
+            if segments:
+                mask = mask & (row[None, :] == row[:, None])
         s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))
         p = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
@@ -162,12 +178,15 @@ def rope_transpose_plain(x, cos, sin, *, col_offset, n_heads, head_dim):
     return h.permute(0, 2, 1, 3).contiguous()
 
 
-def flash_fwd_hm_plain(qt, kt, vt, kv_start, *, causal, sliding_window, scale, q_len):
-    """Plain version of B3: head-major (B, H, S, D) -> (B, H, S, D)."""
+def flash_fwd_hm_plain(qt, kt, vt, kv_start, *, causal, sliding_window, scale, q_len,
+                       key_mask=None, segments=False):
+    """Plain version of B3: head-major (B, H, S, D) -> (B, H, S, D); with
+    ``key_mask`` (B, S) the key-mask mode, or with ``segments`` the
+    segment-id mode."""
     PLAIN_CALLS["fa_hm"] += 1
     return _attention_core_plain(
         qt, kt, vt, kv_start, causal=causal, sliding_window=sliding_window,
-        scale=scale, q_len=q_len,
+        scale=scale, q_len=q_len, key_mask=key_mask, segments=segments,
     )
 
 
@@ -227,9 +246,9 @@ def _check_bf16_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
 
 
-def _check_head_dim(name: str, D: int) -> None:
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {KERNEL_HEAD_DIMS}")
+def _check_head_dim(name: str, D: int, dims=KERNEL_HEAD_DIMS) -> None:
+    if D not in dims:
+        raise ValueError(f"{name}: head_dim {D} not in {dims}")
 
 
 def _kv_start_i32(kv_start: torch.Tensor, B: int, device) -> torch.Tensor:
@@ -295,7 +314,8 @@ def _launch_rope_transpose(x, cos, sin, col_offset, n_heads, D):
     return out
 
 
-def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len):
+def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=None,
+                  segments=False):
     from . import cuda_lib
 
     cuda_lib.refuse_grad(
@@ -305,7 +325,7 @@ def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len):
     )
     B, H, S, D = qt.shape
     Hk = kt.shape[1]
-    _check_head_dim("fa_hm", D)
+    _check_head_dim("fa_hm", D, HM_HEAD_DIMS)
     if H % Hk or kt.shape != vt.shape or kt.shape[0] != B or kt.shape[2] != S:
         raise ValueError(f"fa_hm: shapes {tuple(qt.shape)} {tuple(kt.shape)} {tuple(vt.shape)}")
     _check_bf16_cuda("fa_hm", qt, kt, vt)
@@ -313,13 +333,20 @@ def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError("fa_hm: needs unit last-dim stride and 8-aligned strides")
     kv = _kv_start_i32(kv_start, B, qt.device)
+    mode, mp = 0, None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (B, S):
+            raise ValueError(f"fa_hm: key_mask must be ({B}, {S}), got {tuple(key_mask.shape)}")
+        key_mask = key_mask.to(device=qt.device, dtype=torch.int32).contiguous()
+        mode, mp = (2 if segments else 1), key_mask.data_ptr()  # lrt_fa_hm's mask_mode
     # written as (B, S, H, D) storage: the (B, S, H*D) view the decoder's
     # o_proj reads is then free
     out = torch.empty(B, S, H, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
     strides = [s for t in (qt, kt, vt, out) for s in t.stride()[:3]]
     err = cuda_lib.load().lrt_fa_hm(
-        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), kv.data_ptr(), out.data_ptr(),
-        B, H, Hk, S, D, *strides, q_len, int(causal), window or 0, float(scale), _stream(),
+        qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), kv.data_ptr(), mp, out.data_ptr(),
+        B, H, Hk, S, D, *strides, q_len, int(causal), window or 0, mode, float(scale),
+        _stream(),
     )
     cuda_lib.check(err, "lrt_fa_hm")
     LAUNCHES["fa_hm"] += 1
@@ -396,19 +423,18 @@ def rope_transpose(x, cos, sin, *, col_offset, n_heads, head_dim):
     return _launch_rope_transpose(x, cos, sin, col_offset, n_heads, head_dim)
 
 
-def _flash_fwd_hm(qt, kt, vt, kv_start, key_mask, causal, sliding_window, scale, q_len):
+def _flash_fwd_hm(qt, kt, vt, kv_start, key_mask, causal, sliding_window, scale, q_len,
+                  segments=False):
     """B3 (``flash_attention.py:262``): head-major (B, H, S, D) q and
-    (B, Hk, S, D) k/v -> (B, H, S, D)."""
-    if key_mask is not None:
-        raise NotImplementedError(
-            "key-mask / segment-id attention is ROADMAP slice 5 (Qwen2.5-VL)"
-        )
+    (B, Hk, S, D) k/v -> (B, H, S, D). ``key_mask`` (B, S) or None: a key
+    mask (1 = valid), or segment ids (0 = pad) with ``segments``."""
     if not on_card(qt):
         return flash_fwd_hm_plain(
             qt, kt, vt, kv_start, causal=causal, sliding_window=sliding_window,
-            scale=scale, q_len=q_len,
+            scale=scale, q_len=q_len, key_mask=key_mask, segments=segments,
         )
-    return _launch_fa_hm(qt, kt, vt, kv_start, causal, sliding_window, scale, q_len)
+    return _launch_fa_hm(qt, kt, vt, kv_start, causal, sliding_window, scale, q_len,
+                         key_mask, segments)
 
 
 def flash_bwd(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len):
@@ -423,48 +449,65 @@ def flash_bwd(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len)
 class _FlashAttentionCore(torch.autograd.Function):
     """``_flash_attention_core`` (``flash_attention.py:684-775``) on
     (B, S, H, D) q and (B, S, Hk, D) k/v: forward B3, backward B8. With
-    ``plain`` both directions call the plain versions, on any device."""
+    ``plain`` both directions call the plain versions, on any device. The
+    key-mask and segment modes are forward only: their backward is B8's
+    mask modes, which come with Qwen training."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_start, causal, sliding_window, scale, plain):
+    def forward(ctx, q, k, v, kv_start, key_mask, causal, sliding_window, scale, plain,
+                segments):
         kw = dict(causal=causal, sliding_window=sliding_window, scale=scale, q_len=q.shape[1])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if plain:
-            out = flash_fwd_hm_plain(qt, kt, vt, kv_start, **kw)
+            out = flash_fwd_hm_plain(qt, kt, vt, kv_start, key_mask=key_mask,
+                                     segments=segments, **kw)
         else:
-            out = _flash_fwd_hm(qt, kt, vt, kv_start, None, **kw)
-        ctx.save_for_backward(q, k, v, kv_start)
+            out = _flash_fwd_hm(qt, kt, vt, kv_start, key_mask, segments=segments, **kw)
+        ctx.save_for_backward(q, k, v, kv_start, key_mask)
         ctx.kw, ctx.plain = kw, plain
         return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kv_start = ctx.saved_tensors
+        q, k, v, kv_start, key_mask = ctx.saved_tensors
+        if key_mask is not None:
+            raise NotImplementedError(
+                "the backward of B3's key-mask / segment-id modes is B8's mask modes, "
+                "which come with Qwen2.5-VL training (ROADMAP A10, queue item 1)"
+            )
         bwd = flash_bwd_plain if ctx.plain else flash_bwd
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         dq, dk, dv = bwd(qt, kt, vt, g.contiguous().transpose(1, 2), kv_start, **ctx.kw)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def flash_attention(
     q, k, v, *, causal=False, key_padding_mask=None, sliding_window=None, scale=None,
     mask_layout="leftpad", plain: bool = False,
 ):
-    """(B, S, H, D) entry of B3 / B8 (``flash_attention.py:778``), left-pad
-    masks, differentiable in q, k and v; ``plain`` calls the plain versions
-    on any device."""
+    """(B, S, H, D) entry of B3 / B8 (``flash_attention.py:778-834``);
+    ``plain`` calls the plain versions on any device. ``mask_layout``:
+    "leftpad" (valid keys form a suffix: one ``kv_start`` per row,
+    differentiable in q, k and v), "arbitrary" (any key-valid pattern) or
+    "segments" (``key_padding_mask`` holds segment ids, 0 = pad); the last
+    two are forward only."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if mask_layout != "leftpad":
-        raise NotImplementedError(
-            f"mask_layout={mask_layout!r} is ROADMAP slice 5 (Qwen2.5-VL)"
-        )
-    kv_start = _kv_start_from_mask(key_padding_mask, B, q.device)
+    kv_start = torch.zeros(B, dtype=torch.int32, device=q.device)
+    key_mask = None
+    if key_padding_mask is not None:
+        if mask_layout in ("arbitrary", "segments"):
+            key_mask = key_padding_mask.to(torch.int32)
+        elif mask_layout == "leftpad":
+            kv_start = _kv_start_from_mask(key_padding_mask, B, q.device)
+        else:
+            raise ValueError(f"unknown mask_layout {mask_layout!r}")
     if sliding_window is not None and sliding_window >= S:
         sliding_window = None
-    return _FlashAttentionCore.apply(q, k, v, kv_start, causal, sliding_window, scale, plain)
+    return _FlashAttentionCore.apply(q, k, v, kv_start, key_mask, causal, sliding_window, scale,
+                                     plain, key_mask is not None and mask_layout == "segments")
 
 
 def _kv_start_from_mask(mask, B, device):
@@ -537,7 +580,8 @@ def _fused_qkv_attention_fwd_impl(
     """``flash_attention.py:1200-1246``: B1 when MHA and B*(H/g) >= 32,
     otherwise B2 three times and B3. ``plain`` calls the three kernels'
     plain versions instead of their wrappers, on any device. Left-pad
-    masks only (``kv_start``); the key-mask mode waits for slice 5."""
+    masks only (``kv_start``): the decoders' masks. The key-mask and segment
+    modes reach B3 through ``flash_attention``."""
     B, S, _ = qkv.shape
     D = head_dim
     qsz, kvsz = n_heads * D, n_kv_heads * D

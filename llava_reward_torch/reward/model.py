@@ -1,9 +1,9 @@
 """The reward model: backbone forward + SkipCA + value head read-out
-(``llava_reward_tpu/reward/model.py``), phi3v branch.
+(``llava_reward_tpu/reward/model.py``), phi3v and Qwen2.5-VL branches.
 
 The pair (chosen, rejected) is scored by stacking along the batch axis in
-one forward. The Qwen2.5-VL and LLaVA-NeXT branches, and the u8 device-pixel
-path, wait for their ROADMAP slices.
+one forward. The LLaVA-NeXT branch (ROADMAP slice 6) and phi3v's u8
+device-pixel path (ROADMAP A8b) raise.
 """
 
 from __future__ import annotations
@@ -12,23 +12,44 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.config import Phi3VConfig, RewardConfig
+from ..core.config import Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..models import phi3v
+from ..models import phi3v, qwen25_vl
 from . import heads, skipca
 
 
+def _is_qwen(cfg) -> bool:
+    return isinstance(cfg, Qwen25VLConfig)
+
+
+def hidden_size_of(cfg) -> int:
+    return cfg.text.hidden_size if hasattr(cfg, "text") else cfg.decoder.hidden_size
+
+
+def num_layers_of(cfg) -> int:
+    return cfg.text.num_layers if hasattr(cfg, "text") else cfg.decoder.num_layers
+
+
+def rms_eps_of(cfg) -> float:
+    return cfg.text.rms_norm_eps if hasattr(cfg, "text") else cfg.decoder.rms_norm_eps
+
+
 class RewardBatch(NamedTuple):
-    """Static-shape phi3v batch (the first six fields of the JAX package's
-    ``RewardBatch``; the Qwen and device-pixel fields come with slices 5
-    and 3)."""
+    """Static-shape batch: the first ten fields of the JAX package's
+    ``RewardBatch`` (phi3v's device-pixel fields come with ROADMAP A8b).
+    Qwen2.5-VL puts its windowed patch array in ``pixel_values`` (f32 / bf16,
+    or uint8 normalised on the device) and adds the qwen fields."""
 
     input_ids: torch.Tensor  # (B, S)
     attention_mask: torch.Tensor  # (B, S)
-    pixel_values: Optional[torch.Tensor]  # (B, crops+1, 336, 336, 3)
-    img_gather_idx: Optional[torch.Tensor]  # (B, T_img)
+    pixel_values: Optional[torch.Tensor]  # phi3v: (B, crops+1, 336, 336, 3); qwen: (B, P, patch_dim)
+    img_gather_idx: Optional[torch.Tensor]  # (B, T_img) phi3v feature-bank gather
     splice_idx: Optional[torch.Tensor]  # (B, S)
     num_img_tokens: Optional[torch.Tensor]  # (B,)
+    position_ids: Optional[torch.Tensor] = None  # qwen M-RoPE (3, B, S)
+    patch_valid: Optional[torch.Tensor] = None  # qwen (B, P) segment ids, 0 = pad
+    rot_pos: Optional[torch.Tensor] = None  # qwen (B, P, 2)
+    unit_gather: Optional[torch.Tensor] = None  # qwen (B, U)
 
 
 class RewardOutput(NamedTuple):
@@ -38,7 +59,7 @@ class RewardOutput(NamedTuple):
 
 
 def init_head_params(
-    cfg: Phi3VConfig,
+    cfg,
     rcfg: RewardConfig,
     generator: torch.Generator,
     dtype: torch.dtype = torch.float32,
@@ -47,7 +68,7 @@ def init_head_params(
     """Value head, optional SkipCA and the optional MoE prompt head
     (``model.py:83-96``)."""
     dev = resolve_device(device)
-    H = cfg.decoder.hidden_size
+    H = hidden_size_of(cfg)
     dim = rcfg.value_head_dim if rcfg.is_general_preference else 1
     p = {"value_head": heads.init_value_head(H, dim, generator, dtype, dev)}
     if rcfg.add_cross_attention:
@@ -57,17 +78,17 @@ def init_head_params(
     return p
 
 
-def _check_phi3v(cfg) -> None:
-    if not isinstance(cfg, Phi3VConfig):
+def _check_ported(cfg) -> None:
+    if not isinstance(cfg, (Phi3VConfig, Qwen25VLConfig)):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: only Phi-3.5-vision is ported; Qwen2.5-VL is "
-            "ROADMAP slice 5 and LLaVA-NeXT slice 6"
+            f"{type(cfg).__name__}: Phi-3.5-vision and Qwen2.5-VL are ported; "
+            "LLaVA-NeXT is ROADMAP slice 6"
         )
 
 
 def reward_forward(
-    params: dict,  # {'backbone': phi3v tree, 'head': head tree}
-    cfg: Phi3VConfig,
+    params: dict,  # {'backbone': phi3v / qwen tree, 'head': head tree}
+    cfg,
     rcfg: RewardConfig,
     batch: RewardBatch,
     *,
@@ -79,30 +100,46 @@ def reward_forward(
     prompt_end_index: Optional[torch.Tensor] = None,
     skipca_batch_max: Optional[torch.Tensor] = None,
 ) -> RewardOutput:
-    _check_phi3v(cfg)
+    _check_ported(cfg)
     attention_mask = batch.attention_mask
-    collect = None if rcfg.layer_id >= cfg.decoder.num_layers else rcfg.layer_id
+    collect = None if rcfg.layer_id >= num_layers_of(cfg) else rcfg.layer_id
 
-    # position_ids = cumsum(mask)-1 with pads forced to 1 (model.py:154-156)
-    position_ids = torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1
-    position_ids = torch.where(attention_mask == 0, torch.ones_like(position_ids), position_ids)
-    pixel_values = batch.pixel_values
-    if pixel_values is not None and pixel_values.dtype == torch.uint8:
-        raise NotImplementedError(
-            "u8 device-side pixel preparation (ops/pixels.py) is ROADMAP slice 3"
+    if _is_qwen(cfg):
+        if batch.position_ids is None:
+            raise ValueError("qwen needs M-RoPE position_ids")
+        if vision_lora is not None:
+            raise NotImplementedError("vision LoRA is phi3v's (--train_vision)")
+        out = qwen25_vl.forward(
+            params["backbone"], cfg, batch.input_ids, attention_mask, batch.position_ids,
+            batch.pixel_values, batch.patch_valid, batch.rot_pos, batch.unit_gather,
+            batch.splice_idx, batch.num_img_tokens, collect_layer_id=collect,
+            attn_impl=attn_impl, remat=remat, lora=lora,
         )
-    out = phi3v.forward(
-        params["backbone"], cfg, batch.input_ids, attention_mask, position_ids,
-        pixel_values, batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
-        collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora,
-        vision_lora=vision_lora,
-    )
+        skipca_mode = "qwen"  # per-sample -1e4 mask
+    else:
+        # position_ids = cumsum(mask)-1 with pads forced to 1 (model.py:154-156)
+        position_ids = torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1
+        position_ids = torch.where(attention_mask == 0, torch.ones_like(position_ids),
+                                   position_ids)
+        pixel_values = batch.pixel_values
+        if pixel_values is not None and pixel_values.dtype == torch.uint8:
+            raise NotImplementedError(
+                "phi3v's u8 device-side pixel preparation (ops/pixels.py) is ROADMAP A8b "
+                "(serving slice 3)"
+            )
+        out = phi3v.forward(
+            params["backbone"], cfg, batch.input_ids, attention_mask, position_ids,
+            pixel_values, batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
+            collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora,
+            vision_lora=vision_lora,
+        )
+        skipca_mode = "phi3v"
 
     hidden = out.last_hidden_state if collect is None else out.collected_hidden_state
     if rcfg.add_cross_attention and out.vision_embedding is not None:
         hidden = skipca.apply(
             params["head"]["skipca"], hidden, out.vision_embedding, batch.num_img_tokens,
-            rms_eps=cfg.decoder.rms_norm_eps, mode="phi3v", batch_max=skipca_batch_max,
+            rms_eps=rms_eps_of(cfg), mode=skipca_mode, batch_max=skipca_batch_max,
         )
 
     if rcfg.mean_hidden_state:
@@ -122,7 +159,7 @@ def reward_forward(
 
 def paired_forward(
     params: dict,
-    cfg: Phi3VConfig,
+    cfg,
     rcfg: RewardConfig,
     chosen: RewardBatch,
     rejected: RewardBatch,
@@ -135,16 +172,21 @@ def paired_forward(
     prompt_end_index: Optional[torch.Tensor] = None,
 ):
     """Score (chosen, rejected) in one stacked forward (``model.py:235-303``).
-    Each half's SkipCA zero-pad width is that half's own max image-token
-    count, as in the reference's two separate forwards."""
-    _check_phi3v(cfg)
+    Qwen's M-RoPE ``position_ids`` (3, B, S) stack on axis 1. phi3v: each
+    half's SkipCA zero-pad width is that half's own max image-token count,
+    as in the reference's two separate forwards (qwen masks per sample)."""
+    _check_ported(cfg)
 
-    def cat(a, b):
-        return None if a is None else torch.cat([a, b], dim=0)
+    def cat(name, a, b):
+        if a is None:
+            return None
+        return torch.cat([a, b], dim=1 if name == "position_ids" else 0)
 
-    stacked = RewardBatch(*[cat(a, b) for a, b in zip(chosen, rejected)])
+    stacked = RewardBatch(*[cat(n, a, b) for n, a, b in
+                            zip(RewardBatch._fields, chosen, rejected)])
     skipca_bm = None
-    if rcfg.add_cross_attention and chosen.num_img_tokens is not None:
+    if (rcfg.add_cross_attention and not _is_qwen(cfg)
+            and chosen.num_img_tokens is not None):
         Bc = chosen.input_ids.shape[0]
         skipca_bm = torch.cat([
             torch.max(chosen.num_img_tokens).expand(Bc),
@@ -152,9 +194,8 @@ def paired_forward(
         ])
     out = reward_forward(
         params, cfg, rcfg, stacked, training=training, attn_impl=attn_impl, remat=remat,
-        lora=lora, vision_lora=vision_lora, prompt_end_index=(
-            cat(prompt_end_index, prompt_end_index) if prompt_end_index is not None else None
-        ),
+        lora=lora, vision_lora=vision_lora, prompt_end_index=cat(
+            "prompt_end_index", prompt_end_index, prompt_end_index),
         skipca_batch_max=skipca_bm,
     )
     B = chosen.input_ids.shape[0]

@@ -5,7 +5,8 @@ the vision embedding, with residual + RMSNorm
 phi3v mode applies no mask over zero-padded vision slots up to the batch
 max image-token count (their scores are exactly 0 but still take softmax
 weight); columns at or beyond ``batch_max`` never existed in the reference
-and are masked with -inf.
+and are masked with -inf. qwen mode masks each sample's invalid slots with
+the reference's finite -1e4 fill (``skipca.py:71-73``).
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def apply(
     mode: str = "phi3v",
     batch_max: Optional[torch.Tensor] = None,  # () or (B,) zero-pad width per sample
 ) -> torch.Tensor:
-    if mode != "phi3v":
-        raise NotImplementedError("SkipCA qwen mode is ROADMAP slice 5 (Qwen2.5-VL)")
+    if mode not in ("phi3v", "qwen"):
+        raise ValueError(f"unknown SkipCA mode {mode!r}")
     H = vision.shape[-1]
     q = mm(hidden, params["W_q"]["kernel"])
     k = mm(vision, params["W_k"]["kernel"])
@@ -62,11 +63,15 @@ def apply(
         torch.tensor(float(H), device=hidden.device)
     )
     slot = torch.arange(vision.shape[1], device=hidden.device)[None, :]
-    if batch_max is None:
-        batch_max = torch.max(num_img_tokens)
-    batch_max = torch.as_tensor(batch_max, device=hidden.device).expand(vision.shape[0])
-    invalid = slot >= batch_max[:, None]
-    scores = scores.masked_fill(invalid[:, None, :], float("-inf"))
+    if mode == "phi3v":
+        if batch_max is None:
+            batch_max = torch.max(num_img_tokens)
+        batch_max = torch.as_tensor(batch_max, device=hidden.device).expand(vision.shape[0])
+        invalid = slot >= batch_max[:, None]
+        scores = scores.masked_fill(invalid[:, None, :], float("-inf"))
+    else:
+        invalid = slot >= num_img_tokens[:, None]
+        scores = scores.masked_fill(invalid[:, None, :], -1e4)
     probs = torch.softmax(scores, dim=-1).to(hidden.dtype)
     out = einsum("bst,bth->bsh", probs, v)
     return rms_norm(hidden + out, params["ca_layernorm"]["weight"], rms_eps)

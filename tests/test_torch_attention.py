@@ -124,10 +124,22 @@ def test_head_major_kernel_matches_pallas(case):
 
 
 def test_head_major_key_mask_waits_for_qwen_slice():
-    x = torch.zeros(1, 2, 64, 64)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tfa._flash_fwd_hm(x, x, x, torch.zeros(1, dtype=torch.int32),
-                          torch.ones(1, 64), False, None, 0.125, q_len=64)
+    """The key-mask mode arrived with the Qwen2.5-VL slice: interleaved pad
+    keys, non-causal, against the interpreted Pallas kernel. Every query has
+    valid keys, so every row is compared."""
+    rng = np.random.default_rng(5)
+    B, H, S, D = 2, 2, 128, 64
+    qt, kt, vt = _np(rng, B, H, S, D), _np(rng, B, H, S, D), _np(rng, B, H, S, D)
+    key_mask = np.ones((B, S), np.int32)
+    key_mask[1, 20:37] = 0
+    key_mask[1, 90:] = 0
+    kv0 = np.zeros(B, np.int32)
+    ref = jfa._flash_fwd_hm(jnp.asarray(qt), jnp.asarray(kt), jnp.asarray(vt),
+                            jnp.asarray(kv0), jnp.asarray(key_mask), False, None, D ** -0.5,
+                            q_len=S, block_q=64)
+    out = tfa._flash_fwd_hm(_t(qt), _t(kt), _t(vt), _t(kv0), _t(key_mask), False, None,
+                            D ** -0.5, q_len=S).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize(

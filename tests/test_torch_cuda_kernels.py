@@ -7,7 +7,10 @@ tests/test_torch_quant_kernels.py).
 ``chip_smoke.py`` checks the kernels at the main paths' shapes; these
 tests cover the options those paths do not reach. Attention: sliding
 window, GQA (n_rep > 1), head_dim 128, a ``valid_len`` / ``q_len`` tail, S
-not a multiple of the 64-row tile, a query tile of pure left pad. The
+not a multiple of the 64-row tile, a query tile of pure left pad; B3's
+key-mask mode with interleaved pads, segment ids 1, 2, 3 and 0 in one row
+(video frames), segments with GQA, head_dim 80 causal with a window, and
+rows whose every key is masked (finite). The
 backward (B8): the same options and GQA n_rep 4, with g zeroed on fully
 masked rows as on the training path, and finite outputs when g is not zero
 there. Every raw launch refuses an input that requires grad. W8A8:
@@ -149,9 +152,68 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fa.rope_transpose(_randn(gen, 1, 64, 128).float(), None, None, col_offset=0,
                           n_heads=2, head_dim=64)
     hm = _randn(gen, 1, 2, 64, 64)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        fa._flash_fwd_hm(hm, hm, hm, kv, torch.ones(1, 64, device="cuda"), False, None,
-                         0.125, q_len=64)
+    with pytest.raises(ValueError, match="key_mask must be"):
+        fa._flash_fwd_hm(hm, hm, hm, kv, torch.ones(1, 63, device="cuda"), False, None,
+                         0.125, q_len=64, segments=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        hm48 = _randn(gen, 1, 2, 64, 48)
+        fa._flash_fwd_hm(hm48, hm48, hm48, kv, None, False, None, 0.125, q_len=64)
+
+
+def _mask_row(S, pattern):
+    """(S,) int32: 'pads' ones with interleaved pad runs; 'frames' segment
+    ids 1, 2, 3 in runs, with pad slots (0) among them; 'none' all zero."""
+    row = torch.ones(S, dtype=torch.int32)
+    if pattern == "frames":
+        row[: S // 3], row[S // 3 : 2 * S // 3], row[2 * S // 3 :] = 1, 2, 3
+    if pattern in ("pads", "frames"):
+        for start in torch.randint(0, S - 16, (4,), generator=torch.Generator().manual_seed(S)):
+            row[start : start + 11] = 0
+    if pattern == "none":
+        row[:] = 0
+    return row
+
+
+MASK_CASES = {
+    # name: (B, S, H, Hk, D, causal, window, mask layout, pattern per batch row)
+    "key_mask_pads_d80": (2, 320, 2, 2, 80, False, None, "arbitrary", ("pads", "pads")),
+    "segments_frames_d80": (2, 256, 2, 2, 80, False, None, "segments", ("frames", "pads")),
+    "segments_gqa_d64": (2, 192, 4, 2, 64, False, None, "segments", ("frames", "pads")),
+    "segments_d128_ragged": (1, 200, 2, 1, 128, False, None, "segments", ("frames",)),
+    "key_mask_causal_window_d96": (2, 256, 4, 4, 96, True, 40, "arbitrary", ("pads", "pads")),
+    "d80_causal_window_no_mask": (2, 256, 2, 1, 80, True, 50, None, ()),
+    "all_keys_masked_row": (2, 128, 2, 2, 80, False, None, "segments", ("none", "pads")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_masked_head_major_kernel_matches_plain(gen, case):
+    """B3's key-mask and segment modes (and head_dim 80) against the plain
+    version on the query rows that have a key to attend to; every row,
+    fully masked ones included, finite."""
+    B, S, H, Hk, D, causal, window, layout, patterns = MASK_CASES[case]
+    qt, kt, vt = _randn(gen, B, H, S, D), _randn(gen, B, Hk, S, D), _randn(gen, B, Hk, S, D)
+    kv = torch.zeros(B, dtype=torch.int32, device="cuda")
+    seg = layout == "segments"
+    pos = torch.arange(S, device="cuda")
+    ok = torch.ones(B, S, S, dtype=torch.bool, device="cuda")  # (b, query, key)
+    key_mask = None
+    if layout is not None:
+        key_mask = torch.stack([_mask_row(S, p) for p in patterns]).cuda()
+        ok &= key_mask[:, None, :] != 0
+        if seg:
+            ok &= key_mask[:, None, :] == key_mask[:, :, None]
+    if causal:
+        ok &= pos[None, None, :] <= pos[None, :, None]
+        if window is not None:
+            ok &= pos[None, None, :] > pos[None, :, None] - window
+    kw = dict(causal=causal, sliding_window=window, scale=D ** -0.5, q_len=S)
+    fa.reset_counters()
+    out = fa._flash_fwd_hm(qt, kt, vt, kv, key_mask, segments=seg, **kw)
+    assert fa.LAUNCHES["fa_hm"] == 1 and fa.PLAIN_CALLS["fa_hm"] == 0
+    ref = fa.flash_fwd_hm_plain(qt, kt, vt, kv, key_mask=key_mask, segments=seg, **kw)
+    torch.cuda.synchronize()
+    _assert_close_on(ok.any(-1), out.transpose(1, 2), ref.transpose(1, 2))
 
 
 BWD_RTOL, BWD_ATOL_SHARE = 2 ** -7, 2 ** -8

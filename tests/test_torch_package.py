@@ -100,6 +100,23 @@ def test_training_entry_points_raise_without_cuda():
                          "splice_idx": z, "num_img_tokens": None})
 
 
+def test_qwen_entry_points_raise_without_cuda():
+    """The Qwen2.5-VL slice's entry points follow the same device rule."""
+    _no_cuda()
+    from llava_reward_torch.core.config import RewardConfig, qwen_tiny_config
+    from llava_reward_torch.evalx.adaptor import RewardAdaptor
+    from llava_reward_torch.models import qwen25_vl
+    from llava_reward_torch.reward.model import init_head_params
+
+    cfg = qwen_tiny_config()
+    with pytest.raises(RuntimeError, match="cuda"):
+        RewardAdaptor(cfg, RewardConfig(), {}, model_type="qwen")
+    with pytest.raises(RuntimeError, match="cuda"):
+        qwen25_vl.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_head_params(cfg, RewardConfig(), torch.Generator())
+
+
 def test_card_tensor_never_takes_the_plain_version(monkeypatch):
     """With the tensor reported as on the card, the wrapper goes to its
     launch path, which rejects a CPU tensor; no plain call is counted."""

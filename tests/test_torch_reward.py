@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from llava_reward_tpu.core.config import RewardConfig as JRewardConfig
 from llava_reward_tpu.core.config import phi3v_tiny_config, qwen_tiny_config
 from llava_reward_tpu.models import phi3v as jphi3v
+from llava_reward_tpu.models import qwen25_vl as jqwen
 from llava_reward_tpu.preprocess.phi3v_processor import build_img_gather_idx
 from llava_reward_tpu.reward import skipca as jskipca
 from llava_reward_tpu.reward.model import RewardBatch as JBatch
@@ -169,9 +170,31 @@ def test_lane_aligned_slice_through_plain_kernels_matches_pallas():
 
 
 def test_other_families_and_u8_pixels_wait_for_their_slices(tiny):
+    """Qwen2.5-VL is ported (its parity tests: tests/test_torch_qwen_*.py): a
+    text-only qwen batch scores like the JAX package's. LLaVA-NeXT (slice 6)
+    and phi3v's u8 device pixels (slice 3) still raise."""
     jcfg, tcfg, jr, tr, jtree, ttree = tiny
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        t_reward(ttree, qwen_tiny_config(), tr, _tb(_batch(jcfg, [0], [N_IMG])))
+    qj = qwen_tiny_config(vision_depth=2)
+    qt = tconfig.qwen_tiny_config(vision_depth=2)
+    qr = _rcfgs(qj.text.num_layers)
+    qtree = jax.tree_util.tree_map(np.asarray, {
+        "backbone": jqwen.init_params(jax.random.PRNGKey(2), qj),
+        "head": j_init_head(jax.random.PRNGKey(3), qj, qr[0]),
+    })
+    rng = np.random.default_rng(9)
+    ids = rng.integers(2, 400, (2, 24)).astype(np.int32)
+    mask = np.ones((2, 24), np.int32)
+    mask[1, :5] = 0
+    pos = np.where(mask == 0, 1, np.cumsum(mask, -1) - 1).astype(np.int32)
+    fields = (ids, mask, None, None, np.full((2, 24), -1, np.int32), None,
+              np.stack([pos] * 3))
+    j = j_reward(_jp(qtree), qj, qr[0], JBatch(*[None if f is None else jnp.asarray(f)
+                                                for f in fields]), training=False)
+    t = t_reward(to_torch(qtree, device="cpu"), qt, qr[1],
+                 TBatch(*[None if f is None else torch.from_numpy(f) for f in fields]))
+    np.testing.assert_allclose(t.reward.numpy(), np.asarray(j.reward), rtol=0, atol=PARITY_BAR)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        t_reward(ttree, object(), tr, _tb(_batch(jcfg, [0], [N_IMG])))
     fields = list(_batch(jcfg, [0], [N_IMG]))
     fields[2] = np.zeros(fields[2].shape, np.uint8)
     with pytest.raises(NotImplementedError, match="slice 3"):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's reward-scoring path on one CUDA card.
+"""Drive the PyTorch port's reward scoring and training paths on one CUDA card.
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch / CUDA versions;
@@ -8,7 +8,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      bf16, at the serving path's shapes (with left-padded rows), and time
      kernel, plain version and one library call beside the card's bound;
      The W8A8 kernels (B4-B7) are checked the same way at the W8A8 path's
-     B=8 shapes (M = 20480 rows);
+     B=8 shapes (M = 20480 rows); the LayerNorm quantizing epilogue (B9) and
+     the GEMM at the CLIP tower's shapes (87040 and 21760 rows of 1024 / 4096);
+     the backward (B8) in its segment and key-mask modes at the Qwen2.5-VL
+     vision tower's full blocks (2, 16, 1280, 80; 272 pad patches in one row,
+     g kept on the pad queries) and in left-pad mode at its decoder's GQA
+     shape (2, 28/4, 1792, 128);
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -18,7 +23,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain versions;
   5. the same requests with the decoder quantized W8A8 on the card
      (--load_in_8bit; CLIP stays bf16): B4 x2, B5, B6 and four int8 GEMMs per
-     decoder layer, counted and checked the same way;
+     decoder layer, counted and checked the same way; then with the CLIP
+     tower quantized W8A8 as well (quantize_stacked_layers on clip["layers"]):
+     per request B9 x2, two pre-quantized GEMMs (one fused qkv, fc1) and two
+     dynamic ones (out, fc2: B6 + GEMM) in each of the 23 active layers, B1
+     as before; and the tower alone from one input through the kernels
+     against the plain versions, worst crop;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -47,7 +57,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      one 4-pair step (B=8, seq 2944: B1 in the decoder), one --train_vision
      step (CLIP LoRA: B3 + B8 in the tower; 4 decoder layers), and a
      RewardTrainer.fit of two steps whose artifact is read back;
+  6q. Qwen2.5-VL-7B training on the separate q/k/v, gate/up layout (LoRA rides
+     there). LoRA at full width and depth: fp32 heads, LoRA r=128 on
+     QWEN_TARGETS and the merger as --ft_projector's projector, remat on; the
+     phase 5q pair (B=2, seq 1792, the rejected side left-padded by 40, 272 pad
+     slots among its patches). One step through the kernels, the plain versions
+     and the reference attention from one state; decoder layer 0 and one full
+     vision block alone (gradients of the input and of the layer's own
+     trainable leaves, kernels against plain versions); five make_train_step
+     steps (counted: B3 in the four full vision blocks, B3 forward and remat
+     recompute and B8 in left-pad mode at GQA 28/4 in each of the 28 layers, no
+     B2: the separate layout ropes in torch); one B=8 step; a two-step
+     RewardTrainer.fit(model_type="qwen") whose artifact (heads, merger,
+     QWEN_TARGETS adapters) is read back, merged, fused and scored through
+     phase 5q's route. Then full fine-tuning through the vision tower: no LoRA,
+     the whole backbone trainable, the decoder cut to 4 layers (the 7.8 B model
+     with AdamW's moments does not fit one card), the tower at its 32 blocks
+     and every width: B8's segment mode in the four full blocks, compared with
+     the plain route the same way, then one make_train_step step;
   7. one JSON line listing every kernel, then the result line.
+
+Depths and repetitions are as in the earlier slices; the script's time has
+room for the added phases (see PERF.md for the measured total).
 
 Usage: python3 chip_smoke.py
 """
@@ -68,10 +99,11 @@ import os
 import tempfile
 
 from llava_reward_torch.core.config import RewardConfig, phi35_vision_config, qwen25_vl_7b_config
-from llava_reward_torch.evalx.adaptor import RewardAdaptor
+from llava_reward_torch.evalx.adaptor import RewardAdaptor, merge_for_scoring
 from llava_reward_torch.io import artifact
-from llava_reward_torch.lora.lora import init_lora, init_vision_lora, peft_state_to_stacked
-from llava_reward_torch.models import phi3, phi3v, qwen25_vl
+from llava_reward_torch.lora.lora import (QWEN_TARGETS, init_lora, init_vision_lora,
+                                          peft_state_to_stacked)
+from llava_reward_torch.models import clip_vit, phi3, phi3v, qwen25_vl
 from llava_reward_torch.models.clip_vit import layer_slice
 from llava_reward_torch.ops import cuda_lib
 from llava_reward_torch.ops import flash_attention as fa
@@ -81,10 +113,11 @@ from llava_reward_torch.ops.rope import rope_cos_sin_for_config
 from llava_reward_torch.preprocess.collate import collate_qwen_samples, to_reward_batch
 from llava_reward_torch.preprocess.phi3v_processor import build_img_gather_idx
 from llava_reward_torch.preprocess.qwen_vision import sample_from_patches, windowize
-from llava_reward_torch.reward.model import RewardBatch, init_head_params
+from llava_reward_torch.reward.model import RewardBatch, init_head_params, reward_forward
 from llava_reward_torch.reward.preference import preference_prob
 from llava_reward_torch.train.optim import make_optimizer, tree_leaves, tree_map
-from llava_reward_torch.train.train_step import (init_train_state, make_pairwise_loss_fn,
+from llava_reward_torch.train.train_step import (PROJECTOR_PATHS, assemble_params,
+                                                 init_train_state, make_pairwise_loss_fn,
                                                  make_train_step)
 from llava_reward_torch.train.trainer import RewardTrainer
 from llava_reward_torch.utils.quantize import quantize_stacked_layers
@@ -122,7 +155,22 @@ QWEN_SEQ, QWEN_PATCHES, QWEN_UNITS = 1792, 1280, 320
 # B4 sums x^2 in another order than its plain version: a value at a rounding
 # boundary may take the neighbouring code. B5: the JAX package's rule for
 # sigmoid's rounding (tests/test_quant_epilogue.py). B6 and B7 are exact.
-CODE_SHARE = {"rms_quant": 1e-3, "silu_mul_quant": 0.02, "row_quant": 0.0}
+# B9 sums x and xc^2 in another order, like B4.
+CODE_SHARE = {"rms_quant": 1e-3, "silu_mul_quant": 0.02, "row_quant": 0.0, "ln_quant": 1e-3}
+# Phi-3.5-vision with the CLIP tower W8A8 too: 23 more layers requantize their
+# activations four times each, and a flipped code in the tower moves an image
+# feature that every decoder layer then reads. The end-to-end bound is set at
+# the rewards' own size (~2e-2), as for Qwen's W8A8 decoder; the drift floor
+# is printed beside the gap, and the sharp check is the tower alone from one
+# input (worst crop's relative L2 error of the patch features).
+TOWER_REWARD_TOL, TOWER_PART_TOL = 2e-2, 0.1
+# a trained Qwen artifact read back, merged into the bf16 weights, fused and
+# scored through the serving route (B2 x3 + B3, rope in the kernel, bf16 heads)
+# against the trained tree's inline adapters on the training layout (rope in
+# torch, fp32 heads): two bf16 routes through 60 layers, so the bound is the
+# rewards' own size; the merge itself is held to 2e-5 in fp32 on the CPU
+# (tests/test_torch_lora.py)
+ARTIFACT_SCORE_TOL = 2e-2
 # B8: |kernel - plain| <= BWD_RTOL*|plain| + BWD_ATOL_SHARE*max|plain| per gradient
 # (dq on live rows): one bf16 ulp of the output, plus the rare bf16 rounding
 # of p or ds that the two take on either side of a boundary
@@ -142,6 +190,8 @@ BWD_TOL_TEXT = f"{BWD_RTOL:g}*|plain| + {BWD_ATOL_SHARE:g}*max|plain|"
 # versions (bf16 noise: ~5e-3 on the tensors, up to ~3e-2 on a LoRA scale
 # leaf, a single sum of 2 x 2560 x 3072 terms with cancellation).
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_SLICE_TOL, LAYER_GRAD_TOL = 5e-3, 0.25, 0.3, 5e-2
+LAYER_SCALE_TOL = 0.25  # phase 6q's one-layer check: the one-number LoRA scale leaves
+FLOOR_FACTOR = 1.5  # phase 6q: a leaf's bound is at least this times its own drift floor
 LORA_R, LORA_ALPHA, LR, TOTAL_STEPS = 128, 256, 2e-4, 100
 
 KERNELS = {
@@ -169,6 +219,9 @@ KERNELS = {
     "fa_bwd": dict(
         route="cuda", source="llava_reward_torch/csrc/flash_attention_bwd.cu",
         replaces="llava_reward_tpu/ops/flash_attention.py:375"),
+    "ln_quant": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:32"),
 }
 
 
@@ -484,6 +537,7 @@ def _report(title, name, err, tol_text, within, finite, ms, plain_ms, lib_ms, b_
 
 W8A8_M = 8 * 2560  # decoder rows of a phi3v B=8 request
 QWEN_M = 8 * QWEN_SEQ  # ... and of a qwen one
+CLIP_M8, CLIP_M2 = 136 * 640, 34 * 640  # CLIP rows (crops x padded tokens) at B=8 and B=2
 
 
 def _zero_rows(x):
@@ -534,6 +588,20 @@ def check_quant_epilogues(gen, dcfg, M):
     return rows
 
 
+def check_ln_quant(gen, vcfg, M):
+    """B9 at the CLIP tower's B=8 shape: 136 crops x 640 padded tokens."""
+    H, eps, bf = vcfg.hidden_size, vcfg.layer_norm_eps, torch.bfloat16
+    x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf).mul_(2))
+    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
+    b = (0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
+    return _codes_report(
+        f"B9 ln_quant ({M},{H}) bf16", "ln_quant", qe.ln_quant(x, w, b, eps),
+        qe.ln_quant_plain(x, w, b, eps), time_ms(lambda: qe.ln_quant(x, w, b, eps)),
+        time_ms(lambda: qe.ln_quant_plain(x, w, b, eps), iters=3, warmup=1),
+        M * H * 2 + 2 * H * 2 + M * H + M * 4, 12 * M * H,
+        f"zero rows every {M // 4} (LayerNorm of a zero row is the bias)")
+
+
 def _int_mm_scaled(codes, amax, wq, ws):
     """The library yardstick: cuBLASLt's s8 x s8 -> s32 plus the epilogue."""
     return (torch._int_mm(codes, wq).float() * (amax / 127.0) * ws).to(torch.bfloat16)
@@ -541,6 +609,22 @@ def _int_mm_scaled(codes, amax, wq, ws):
 
 def check_int8_matmul(gen, dcfg, M):
     H, I, qkv = dcfg.hidden_size, dcfg.intermediate_size, dcfg.q_size + 2 * dcfg.kv_size
+    return _check_gemm_shapes(gen, M, (H, qkv), (("qkv", H, qkv), ("o", H, H), ("down", I, H),
+                                                 ("gate_up", H, 2 * I)))
+
+
+def check_int8_matmul_clip(gen, vcfg, M8, M2):
+    """The GEMM at the W8A8 CLIP tower's shapes, B=8 (87040 rows) and the two
+    extreme shapes at B=2 (21760 rows), bit-exact before the request runs."""
+    H, I = vcfg.hidden_size, vcfg.intermediate_size
+    rows = _check_gemm_shapes(gen, M8, None, (("clip qkv", H, 3 * H), ("clip fc1", H, I),
+                                              ("clip out", H, H), ("clip fc2", I, H)))
+    return rows + _check_gemm_shapes(gen, M2, (I, H), (("clip qkv", H, 3 * H),))
+
+
+def _check_gemm_shapes(gen, M, dynamic, shapes):
+    """The dynamic form (B6, then the GEMM) at ``dynamic`` = (K, N) if given,
+    then the pre-quantized form at each (tag, K, N) of ``shapes``."""
     bf = torch.bfloat16
     rows = []
 
@@ -548,19 +632,21 @@ def check_int8_matmul(gen, dcfg, M):
         wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
         return wq, torch.rand(1, N, generator=gen, device="cuda") * 1e-3 + 1e-4
 
-    # the dynamic form at the qkv shape: B6's kernel, then the GEMM
-    wq, ws = weights(H, qkv)
-    x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
-    out, ref = im.w8a8_matmul(x, wq, ws), im.w8a8_matmul_plain(x, wq, ws)
-    codes, amax = qe.row_quant_plain(x)
-    rows.append(_gemm_report(f"B7 dynamic qkv ({M},{H})x({H},{qkv})", out, ref,
-                             lambda: im.w8a8_matmul(x, wq, ws),
-                             lambda: im.w8a8_matmul_plain(x, wq, ws),
-                             lambda: _int_mm_scaled(codes, amax, wq, ws), M, H, qkv, 2,
-                             "x bf16 -> B6 codes -> GEMM; library: _int_mm on the codes"))
-    # the pre-quantized form at the four decoder shapes (gate_up last: the
-    # kernels line reports it)
-    for tag, K, N in (("qkv", H, qkv), ("o", H, H), ("down", I, H), ("gate_up", H, 2 * I)):
+    if dynamic is not None:
+        K, N = dynamic
+        wq, ws = weights(K, N)
+        x = _zero_rows(torch.randn(M, K, generator=gen, device="cuda", dtype=bf))
+        out, ref = im.w8a8_matmul(x, wq, ws), im.w8a8_matmul_plain(x, wq, ws)
+        codes, amax = qe.row_quant_plain(x)
+        rows.append(_gemm_report(f"B7 dynamic ({M},{K})x({K},{N})", out, ref,
+                                 lambda: im.w8a8_matmul(x, wq, ws),
+                                 lambda: im.w8a8_matmul_plain(x, wq, ws),
+                                 lambda: _int_mm_scaled(codes, amax, wq, ws), M, K, N, 2,
+                                 "x bf16 -> B6 codes -> GEMM; library: _int_mm on the codes"))
+        del x, out, ref, codes, amax
+    # the pre-quantized form at each shape (the last one is the row the
+    # kernels line reports)
+    for tag, K, N in shapes:
         wq, ws = weights(K, N)
         codes = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                               dtype=torch.int8)
@@ -598,26 +684,45 @@ def _gemm_report(title, out, ref, run, plain, lib, M, K, N, x_bytes, detail):
                    f"{detail}; {2 * M * K * N / ms / 1e9:.1f} TOPS")
 
 
-def check_bwd(title, gen, B, H, S, D, causal, kv_start):
-    """B8 against its plain version at a path shape, g zeroed on the fully
-    masked (left-pad) query rows as on the training path."""
+def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segments=False):
+    """B8 against its plain version at a path shape. Left-pad mode: g zeroed
+    on the fully masked (left-pad) query rows as on the training path. Mask
+    modes (``mask`` (B, S): a key mask, or segment ids with ``segments``;
+    non-causal): g is KEPT on the pad queries, whose uniform p reaches dk and
+    dv of every key; dq is compared on the queries that have a key, dk and dv
+    on every valid key."""
     dev = "cuda"
-    q, k, v, g = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
-                  for _ in range(4))
-    live = _leftpad_rows(kv_start, S, dev) if causal else torch.ones(B, S, dtype=torch.bool,
-                                                                      device=dev)
-    g = g * live[:, None, :, None].to(g.dtype)
+    Hk = Hk or H
+    q, g = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    k, v = (torch.randn(B, Hk, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
     kv = torch.tensor(kv_start, dtype=torch.int32, device=dev)
-    kw = dict(causal=causal, sliding_window=None, scale=D ** -0.5, q_len=S)
+    if mask is None:
+        live = _leftpad_rows(kv_start, S, dev) if causal else torch.ones(
+            B, S, dtype=torch.bool, device=dev)
+        keys = torch.ones(B, S, dtype=torch.bool, device=dev)
+        g = g * live[:, None, :, None].to(g.dtype)
+        pairs = _pairs_allowed(S, kv_start, S, causal)
+        sdpa_mask = _sdpa_mask(kv_start, S, S, causal, dev) if causal else None
+    else:
+        ok = (mask[:, None, :] != 0).expand(B, S, S)  # (b, query, key)
+        if segments:
+            ok = ok & (mask[:, None, :] == mask[:, :, None])
+        live, keys, pairs = ok.any(-1), mask != 0, int(ok.sum())
+        # the library call's rows need a key: a pad query sees itself there
+        sdpa_mask = (ok | (torch.eye(S, dtype=torch.bool, device=dev) & ~live[:, :, None]))[:, None]
+        del ok
+    kw = dict(causal=causal, sliding_window=None, scale=D ** -0.5, q_len=S, key_mask=mask,
+              segments=segments)
     run = lambda: fa.flash_bwd(q, k, v, g, kv, **kw)  # noqa: E731
     out = run()
     ref = fa.flash_bwd_plain(q, k, v, g, kv, **kw)
     torch.cuda.synchronize()
     errs, within, rel = [], True, []
     for name, o, r in zip(("dq", "dk", "dv"), out, ref):
-        if name == "dq":  # a fully masked row's dq depends on the keys visited
-            o, r = o.transpose(1, 2)[live], r.transpose(1, 2)[live]
-        o, r = o.float(), r.float()
+        rows = live if name == "dq" else keys  # a keyless row's dq depends on the keys visited
+        o, r = o.transpose(1, 2)[rows].float(), r.transpose(1, 2)[rows].float()
         d = (o - r).abs()
         errs.append(d.max().item())
         rel.append(((o - r).norm() / r.norm()).item())
@@ -628,17 +733,24 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start):
     plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, g, kv, **kw), iters=2, warmup=1)
     # library yardstick: SDPA's backward through autograd on the same inputs
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    mask = _sdpa_mask(kv_start, S, S, causal, dev) if causal else None
-    o = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                         scale=D ** -0.5)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=sdpa_mask, scale=D ** -0.5, enable_gqa=Hk != H)
     lib_ms = time_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), g, retain_graph=True))
     del o
-    flops = 10 * D * H * _pairs_allowed(S, kv_start, S, causal)  # five products
-    b_ms, b_by = bound_ms(flops, 7 * 2 * B * H * S * D)  # q k v g read, dq dk dv written
+    flops = 10 * D * H * pairs  # five products
+    # q g read, dq written at H heads; k v read, dk dv written at Hk; the mask row
+    nbytes = 2 * B * S * D * (3 * H + 4 * Hk) + (4 * B * S if mask is not None else 0)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    mode = "left pad" if mask is None else ("segment ids" if segments else "key mask")
+    pads = "" if mask is None else (f", valid keys per row {keys.sum(1).tolist()}, "
+                                    f"g kept on {int((~live).sum())} keyless queries")
     return _report(title, "fa_bwd", max(errs), BWD_TOL_TEXT, within, finite, ms, plain_ms,
                    lib_ms, b_ms, b_by,
-                   f"causal={causal} kv_start={kv_start if B < 4 else f'[{kv_start[0]}]*{B}'}; "
-                   f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; two launches")
+                   f"{mode}, causal={causal} "
+                   f"kv_start={kv_start if B < 4 else f'[{kv_start[0]}]*{B}'}{pads}; "
+                   f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; two launches; "
+                   f"library: SDPA backward{', enable_gqa' if Hk != H else ''}"
+                   f"{', boolean mask' if sdpa_mask is not None else ''}")
 
 
 def phase_kernels(cfg, qcfg):
@@ -651,12 +763,29 @@ def phase_kernels(cfg, qcfg):
     ]
     rows += check_prep_and_hm(gen, cfg)
     torch.cuda.empty_cache()
-    # B8 at the training path's shapes (the decoder's last: the kernels line
-    # reports it)
+    # B8 at the training paths' shapes (the phi3v decoder's last: the kernels
+    # line reports it): the Qwen2.5-VL vision tower's full blocks in segment
+    # and key-mask mode (B=2, the second image 28 x 36 patches: 272 pad slots),
+    # its decoder's GQA shape in left-pad mode, then phi3v's
+    seg = torch.from_numpy(np.stack([windowize(g)[1] for g in QWEN_GRIDS]).astype(np.int32)).cuda()
+    tc = qcfg.text
+    rows.append(check_bwd(f"B8 fa_bwd segments qwen vision (2,16,{QWEN_PATCHES},80)", gen, 2, 16,
+                          QWEN_PATCHES, 80, False, [0, 0], mask=seg, segments=True))
+    rows.append(check_bwd(f"B8 fa_bwd key mask (2,16,{QWEN_PATCHES},80)", gen, 2, 16,
+                          QWEN_PATCHES, 80, False, [0, 0], mask=(seg != 0).to(torch.int32)))
+    rows.append(check_bwd(f"B8 fa_bwd GQA qwen decoder (2,{tc.num_heads}/{tc.num_kv_heads},"
+                          f"{QWEN_SEQ},{tc.head_dim})", gen, 2, tc.num_heads, QWEN_SEQ,
+                          tc.head_dim, True, [0, 40], Hk=tc.num_kv_heads))
+    torch.cuda.empty_cache()
     rows.append(check_bwd("B8 fa_bwd CLIP (34,16,577,64)", gen, 34, 16, 577, 64, False,
                           [0] * 34))
     rows.append(check_bwd("B8 fa_bwd decoder (2,32,2560,96)", gen, 2, 32, 2560, 96, True,
                           [0, 40]))
+    torch.cuda.empty_cache()
+    # the W8A8 CLIP tower's shapes first (the kernels line reports B6 and the
+    # GEMM at the decoders' shapes, which come after)
+    rows.append(check_ln_quant(gen, cfg.vision, CLIP_M8))
+    rows += check_int8_matmul_clip(gen, cfg.vision, CLIP_M8, CLIP_M2)
     torch.cuda.empty_cache()
     rows += check_quant_epilogues(gen, cfg.decoder, W8A8_M)
     torch.cuda.empty_cache()
@@ -830,7 +959,58 @@ def phase_serve(cfg, rcfg, reps=3):
             f"bf16 {rb.float().cpu().numpy().round(6).tolist()} (same weights; for information)")
     for name in ("B=2", "B=8"):
         say("w8a8", f"{name}: W8A8 {w8_t[name]:.4f} s/request beside bf16 {bf16_t[name]:.4f}")
-    return {k: bf16_launches[k] + w8_launches[k] for k in bf16_launches}
+
+    # the CLIP tower W8A8 as well, as the JAX package's tests build it: no
+    # adaptor option quantizes the tower
+    t0 = time.perf_counter()
+    clip = qparams["backbone"]["vision"]["clip"]
+    qclip = {**clip, "layers": quantize_stacked_layers(clip["layers"], scheme="w8a8")}
+    tparams = {**qparams, "backbone": {**qparams["backbone"], "vision": {
+        **qparams["backbone"]["vision"], "clip": qclip}}}
+    torch.cuda.synchronize()
+    quantized = sorted(n for g in ("attn", "mlp") for n, v in qclip["layers"][g].items()
+                       if isinstance(v["kernel"], dict))
+    say("w8a8-tower", f"CLIP tower quantized in {time.perf_counter() - t0:.1f} s: {quantized}")
+    # per active CLIP layer: B9 x2, one fused qkv GEMM and fc1 on its codes,
+    # out and fc2 on the dynamic form (B6 + GEMM)
+    tw = {**w8, "ln_quant": 2 * n_clip, "row_quant": n_dec + 2 * n_clip,
+          "int8_matmul": 4 * n_dec + 4 * n_clip}
+    tw_launches, tw_r, tw_t = serve_and_check(
+        "w8a8-tower", cfg, rcfg, tparams, req2, req8, {**attn2, **tw}, {**attn8, **tw}, reps,
+        tol=TOWER_REWARD_TOL)
+    for name, rq, rt in (("B=2", w8_r[0], tw_r[0]), ("B=8", w8_r[1], tw_r[1])):
+        say("w8a8-tower", f"{name} rewards tower+decoder W8A8 "
+            f"{rt.float().cpu().numpy().round(6).tolist()} beside decoder W8A8 "
+            f"{rq.float().cpu().numpy().round(6).tolist()} (same weights; for information); "
+            f"{tw_t[name]:.4f} s/request beside {w8_t[name]:.4f} and bf16 {bf16_t[name]:.4f}")
+    _clip_tower_check(cfg, clip, qclip, req2, req8)
+    return {k: bf16_launches[k] + w8_launches[k] + tw_launches[k] for k in bf16_launches}
+
+
+@torch.inference_mode()
+def _clip_tower_check(cfg, clip, qclip, req2, req8):
+    """The W8A8 CLIP tower alone from the B=2 request's 34 crops: its patch
+    features through the kernels (B9, B6, the GEMM, B1) against the plain
+    versions, as the worst crop's relative L2 error, beside the reference
+    attention's; and the B=8 tower's time, W8A8 beside bf16."""
+    vc = cfg.vision
+    pix = req2.pixel_values.reshape(-1, *req2.pixel_values.shape[2:]).to(torch.bfloat16)
+    outs = {i: clip_vit.extract_patch_features(qclip, vc, pix, attn_impl=i)
+            for i in ("auto", "plain", "xla")}
+    err, floor = (max(_rel_err(a, b) for a, b in zip(outs[i], outs["plain"]))
+                  for i in ("auto", "xla"))
+    finite = bool(torch.isfinite(outs["auto"]).all())
+    say("w8a8-tower", f"CLIP tower W8A8 {tuple(pix.shape)} -> {tuple(outs['auto'].shape)}, "
+        f"kernels vs plain versions: worst crop's relative L2 error {err:.3e} (tol "
+        f"{TOWER_PART_TOL:g}); reference attention vs plain {floor:.3e}; finite {finite}")
+    if err > TOWER_PART_TOL or not finite:
+        fail("w8a8-tower: the CLIP tower through the kernels disagrees with the plain versions")
+    del outs
+    pix8 = req8.pixel_values.reshape(-1, *req8.pixel_values.shape[2:]).to(torch.bfloat16)
+    ms = {tag: time_ms(lambda: clip_vit.extract_patch_features(tree, vc, pix8), iters=3, warmup=1)
+          for tag, tree in (("bf16", clip), ("W8A8", qclip))}
+    say("w8a8-tower", f"B=8 CLIP tower alone (136 crops): W8A8 {ms['W8A8']:.2f} ms beside bf16 "
+        f"{ms['bf16']:.2f} ms")
 
 
 def qwen_request(qcfg, rng, grids, left_pad):
@@ -996,8 +1176,14 @@ def _leaves(tree):
 
 
 def _halves(batch, pairs):
-    """A stacked request as its chosen and rejected halves."""
-    return tuple(RewardBatch(*[None if t is None else t[sl] for t in batch])
+    """A stacked request as its chosen and rejected halves (qwen's M-RoPE
+    position_ids carry the batch on axis 1)."""
+    def cut(name, t, sl):
+        if t is None:
+            return None
+        return t[:, sl] if name == "position_ids" else t[sl]
+
+    return tuple(RewardBatch(*[cut(n, t, sl) for n, t in zip(RewardBatch._fields, batch)])
                  for sl in (slice(None, pairs), slice(pairs, None)))
 
 
@@ -1026,14 +1212,19 @@ def _rel_err(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def _grad_errors(names, got, ref):
+def _lora_factor(name):
+    return name.startswith("lora/") and name.endswith(("/a", "/b"))
+
+
+def _grad_errors(names, got, ref, stacked=_lora_factor):
     """Relative L2 errors of ``got`` against ``ref``, per leaf and per layer
-    slice of the stacked LoRA ``a`` / ``b`` leaves (a ``scale`` slice is one
-    number). Returns (worst leaf, {leaf: error}), (worst slice, {slice: error})."""
+    slice of the leaves that ``stacked(name)`` picks (by default the stacked
+    LoRA ``a`` / ``b`` leaves; a ``scale`` slice is one number). Returns
+    (worst leaf, {leaf: error}), (worst slice, {slice: error})."""
     leaves, slices = {}, {}
     for n, a, b in zip(names, got, ref):
         leaves[n] = _rel_err(a, b)
-        if n.startswith("lora/") and n.endswith(("/a", "/b")):
+        if stacked(n):
             slices.update({f"{n}[{i}]": _rel_err(a[i], b[i]) for i in range(a.shape[0])})
     return (max(leaves, key=leaves.get), leaves), (max(slices, key=slices.get), slices)
 
@@ -1112,35 +1303,10 @@ def phase_train(cfg, rcfg, steps=5):
 
     # one step's loss and gradients through the kernels, through the plain
     # versions and through the reference attention, from the same state
+    _route_parity("train", lambda impl: make_pairwise_loss_fn(cfg, rcfg, attn_impl=impl,
+                                                              remat=True),
+                  trainable, frozen, chosen, rejected, _lora_factor, "LoRA layer slices", 0.0)
     kern_fn = make_pairwise_loss_fn(cfg, rcfg, attn_impl="auto", remat=True)
-    lk, gk = _loss_and_grads(kern_fn, trainable, frozen, chosen, rejected)
-    before = launches()
-    lp, gp = _loss_and_grads(make_pairwise_loss_fn(cfg, rcfg, attn_impl="plain", remat=True),
-                             trainable, frozen, chosen, rejected)
-    lx, gx = _loss_and_grads(make_pairwise_loss_fn(cfg, rcfg, attn_impl="xla", remat=True),
-                             trainable, frozen, chosen, rejected)
-    torch.cuda.synchronize()
-    if launches() != before:
-        fail("train: the plain-route or reference step launched a kernel")
-    names = [n for n, _ in _named_leaves(trainable)]
-    finite = all(bool(torch.isfinite(g).all()) for g in gk)
-    (leaf, errs), (piece, slice_errs) = _grad_errors(names, gk, gp)
-    (fleaf, floor), (fpiece, floor_slices) = _grad_errors(names, gx, gp)
-    gap = abs(lk.item() - lp.item())
-    say("train", f"kernels vs plain versions, one step: loss {lk.item():.6f} vs {lp.item():.6f} "
-        f"(gap {gap:.3e}, tol {TRAIN_LOSS_TOL:g}); worst relative L2 gradient error "
-        f"{errs[leaf]:.3e} at {leaf} (tol {TRAIN_GRAD_TOL:g}) over {len(gk)} leaves, "
-        f"{slice_errs[piece]:.3e} at {piece} (tol {TRAIN_SLICE_TOL:g}) over "
-        f"{len(slice_errs)} LoRA layer slices; grads finite {finite}")
-    say("train", f"drift floor, reference attention (attn_impl='xla') vs plain versions, the "
-        f"same step: loss gap {abs(lx.item() - lp.item()):.3e}; worst {floor[fleaf]:.3e} at "
-        f"{fleaf}, {floor_slices[fpiece]:.3e} at {fpiece}")
-    say("train", "relative L2 gradient error per leaf, kernels (reference): " + ", ".join(
-        f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])))
-    if (gap > TRAIN_LOSS_TOL or errs[leaf] > TRAIN_GRAD_TOL
-            or slice_errs[piece] > TRAIN_SLICE_TOL or not finite):
-        fail("train: the kernel route's loss or gradients disagree with the plain versions")
-    del gk, gp, gx
     torch.cuda.empty_cache()
     _layer_parity(cfg, frozen, trainable, chosen, gen)
 
@@ -1226,6 +1392,313 @@ def phase_train(cfg, rcfg, steps=5):
     return counts
 
 
+# ------------------------------------------------------------------ phase 6q
+
+
+def _route_parity(tag, make_loss, trainable, frozen, chosen, rejected, stacked, what,
+                  floor_factor=FLOOR_FACTOR):
+    """One step's loss and gradients through the kernels, through the plain
+    versions and through the reference attention, from one state. Each leaf
+    and each slice is held to the larger of phase 6's bound and
+    ``floor_factor`` times its own drift floor (phase 6 itself passes 0: the
+    bound alone). Through Qwen's 60 random bf16 layers the floor differs from
+    leaf to leaf: a LoRA ``scale`` leaf (28 numbers, each one sum over 2 x 1792
+    x N terms with cancellation) sits at 0.37 where the factors sit at 0.11;
+    there the kernels may stand no further from the plain versions than the
+    reference attention does, with a half on top."""
+    lk, gk = _loss_and_grads(make_loss("auto"), trainable, frozen, chosen, rejected)
+    before = launches()
+    lp, gp = _loss_and_grads(make_loss("plain"), trainable, frozen, chosen, rejected)
+    lx, gx = _loss_and_grads(make_loss("xla"), trainable, frozen, chosen, rejected)
+    torch.cuda.synchronize()
+    if launches() != before:
+        fail(f"{tag}: the plain-route or reference step launched a kernel")
+    names = [n for n, _ in _named_leaves(trainable)]
+    finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    (leaf, errs), (piece, slice_errs) = _grad_errors(names, gk, gp, stacked)
+    (fleaf, floor), (fpiece, floor_slices) = _grad_errors(names, gx, gp, stacked)
+    gap = abs(lk.item() - lp.item())
+    say(tag, f"kernels vs plain versions, one step: loss {lk.item():.6f} vs {lp.item():.6f} "
+        f"(gap {gap:.3e}, tol {TRAIN_LOSS_TOL:g}); worst relative L2 gradient error "
+        f"{errs[leaf]:.3e} at {leaf} (tol {TRAIN_GRAD_TOL:g} or {floor_factor:g} x its floor) "
+        f"over {len(gk)} leaves, {slice_errs[piece]:.3e} at {piece} (tol {TRAIN_SLICE_TOL:g} "
+        f"or {floor_factor:g} x its floor) over {len(slice_errs)} {what}; grads finite {finite}")
+    say(tag, f"drift floor, reference attention (attn_impl='xla') vs plain versions, the "
+        f"same step: loss gap {abs(lx.item() - lp.item()):.3e}; worst {floor[fleaf]:.3e} at "
+        f"{fleaf}, {floor_slices[fpiece]:.3e} at {fpiece}")
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:12]
+    say(tag, "relative L2 gradient error per leaf, kernels (reference), the 12 largest: "
+        + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in worst))
+    over = [f"{k} {v:.3e} (floor {fl[k]:.3e})" for d, fl, tol in
+            ((errs, floor, TRAIN_GRAD_TOL), (slice_errs, floor_slices, TRAIN_SLICE_TOL))
+            for k, v in d.items() if v > max(tol, floor_factor * fl[k])]
+    if gap > TRAIN_LOSS_TOL or over or not finite:
+        fail(f"{tag}: the kernel route's loss or gradients disagree with the plain versions"
+             f"{': ' + ', '.join(over[:8]) if over else ''}")
+    return slice_errs, floor_slices
+
+
+def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
+    """At full width from one input and one upstream gradient, kernels
+    against plain versions: decoder layer 0 on the separate layout with its
+    LoRA slice (B3 / B8 in left-pad mode at GQA 28/4; the upstream gradient
+    zero on left-pad rows, as on the path), and the first full-attention
+    vision block with its own weights trainable (B3 / B8 in segment mode; the
+    upstream gradient KEPT on the 272 pad patches)."""
+    tc, vc = qcfg.text, qcfg.vision
+    mask = req.attention_mask
+    cos, sin = qwen25_vl._mrope_cos_sin(req.position_ids, tc, torch.bfloat16)
+    h = torch.randn(2, QWEN_SEQ, tc.hidden_size, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn(h.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = w * mask[:, :, None].to(w.dtype)
+    lp = layer_slice(frozen["backbone"]["text"]["layers"], 0)
+    grads = []
+    for impl in ("auto", "plain"):
+        x = h.clone().requires_grad_()
+        lora = tree_map(lambda t: t[0].detach().requires_grad_(), trainable["lora"])
+        reset_counters()
+        out = qwen25_vl._decoder_layer(x, lp, tc, cos, sin, mask, impl, lora)
+        grads.append(torch.autograd.grad((out.float() * w.float()).sum(),
+                                         [x] + tree_leaves(lora)))
+        if impl == "auto" and (fa.LAUNCHES["fa_hm"], fa.LAUNCHES["fa_bwd"]) != (1, 1):
+            fail(f"train-qwen: decoder layer launches {fa.LAUNCHES}")
+    names = ["h"] + [n for n, _ in _named_leaves(trainable["lora"])]
+    checks = [(f"decoder layer 0 {tuple(h.shape)}, LoRA on {len(trainable['lora'])} targets",
+               names, grads)]
+
+    i_full = vc.fullatt_block_indexes[0]
+    vcos, vsin = qwen25_vl._vision_rope(req.rot_pos, vc.head_dim)
+    hv = torch.randn(2, QWEN_PATCHES, vc.hidden_size, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    wv = torch.randn(hv.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    block = layer_slice(frozen["backbone"]["visual"]["blocks"], i_full)
+    grads = []
+    for impl in ("auto", "plain"):
+        x = hv.clone().requires_grad_()
+        bp = tree_map(lambda t: t.detach().clone().requires_grad_(), block)
+        reset_counters()
+        out = qwen25_vl._vision_block(x, bp, vc, vcos, vsin, req.patch_valid, True, impl)
+        grads.append(torch.autograd.grad((out.float() * wv.float()).sum(),
+                                         [x] + tree_leaves(bp)))
+        if impl == "auto" and (fa.LAUNCHES["fa_hm"], fa.LAUNCHES["fa_bwd"]) != (1, 1):
+            fail(f"train-qwen: vision block launches {fa.LAUNCHES}")
+    checks.append((f"full vision block {i_full} {tuple(hv.shape)}, segment ids, "
+                   f"{int((req.patch_valid == 0).sum())} pad patches with a gradient",
+                   ["h"] + [n for n, _ in _named_leaves(block)], grads))
+    for title, names, (gk, gp) in checks:
+        rels = {n: _rel_err(a, b) for n, a, b in zip(names, gk, gp)}
+        # a layer's LoRA scale is ONE number, a bf16 sum over 2 x 1792 x N terms
+        # with cancellation: it moves in steps of a bf16 ulp (0 to 1.3e-2 here)
+        # and by more where the sum nearly cancels (down_proj: 8.8e-2)
+        tol = lambda n: LAYER_SCALE_TOL if n.endswith("/scale") else LAYER_GRAD_TOL  # noqa: E731
+        worst = max(rels, key=lambda n: rels[n] / tol(n))
+        say("train-qwen", f"{title}, kernels vs plain versions: worst relative L2 gradient "
+            f"error {rels[worst]:.3e} at {worst} (tol {LAYER_GRAD_TOL:g}, one-number scale "
+            f"leaves {LAYER_SCALE_TOL:g}); " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+        if rels[worst] > tol(worst) or not all(bool(torch.isfinite(g).all()) for g in gk):
+            fail(f"train-qwen: the {title.split(',')[0]}'s gradients through the kernels "
+                 "disagree with the plain versions")
+
+
+def _qwen_trainable(qcfg, rcfg, gen, backbone):
+    """fp32 heads, LoRA r=128 on QWEN_TARGETS (b small and nonzero, as in
+    phase 6) and the merger in fp32 as --ft_projector's projector."""
+    tr = {"head": init_head_params(qcfg, rcfg, gen, torch.float32, "cuda"),
+          "lora": init_lora(qcfg.text, LORA_R, LORA_ALPHA, gen, targets=QWEN_TARGETS,
+                            device="cuda"),
+          "projector": tree_map(lambda t: t.float().clone(), backbone["visual"]["merger"])}
+    for t in tr["lora"].values():
+        t["b"].normal_(0.0, 1e-3, generator=gen)
+    return tr
+
+
+def phase_train_qwen(qcfg, steps=5):
+    torch.cuda.empty_cache()
+    tc, vc = qcfg.text, qcfg.vision
+    n_dec, n_full = tc.num_layers, len(vc.fullatt_block_indexes)
+    rcfg = RewardConfig(is_general_preference=True, value_head_dim=2, add_cross_attention=True,
+                        layer_id=n_dec)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the training layout: q/k/v and gate/up separate (LoRA rides on them)
+    frozen = {"backbone": qwen25_vl.init_params(qcfg, gen, torch.bfloat16, "cuda")}
+    trainable = _qwen_trainable(qcfg, rcfg, gen, frozen["backbone"])
+    n_tr = {k: sum(t.numel() for t in tree_leaves(v)) for k, v in trainable.items()}
+    say("train-qwen", f"Qwen2.5-VL-7B random bf16 backbone (separate projections) + fp32 "
+        f"trainables {({k: round(v / 1e6, 1) for k, v in n_tr.items()})} M params (LoRA "
+        f"r={LORA_R} on {list(QWEN_TARGETS)}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+        f"reckoned before the run: 15.6 GB of bf16 weights, 1.5 GB of fp32 trainables and as "
+        f"much again for each of gradients, two moments and, inside the update, their "
+        f"successors (about 9 GB), remat inputs 26 MB per layer")
+    rng = np.random.default_rng(0)
+    req2 = qwen_request(qcfg, rng, QWEN_GRIDS, {1: 40})
+    chosen, rejected = _halves(req2, 1)
+    path = PROJECTOR_PATHS["qwen"]
+
+    def make_loss(impl):
+        return make_pairwise_loss_fn(qcfg, rcfg, attn_impl=impl, remat=True,
+                                     projector_path=path)
+
+    _route_parity("train-qwen", make_loss, trainable, frozen, chosen, rejected, _lora_factor,
+                  "LoRA layer slices")
+    torch.cuda.empty_cache()
+    _qwen_layer_parity(qcfg, frozen, trainable, req2, gen)
+    torch.cuda.empty_cache()
+
+    # the main path: make_train_step, one pair per step
+    kern_fn = make_loss("auto")
+    tx = make_optimizer(LR, TOTAL_STEPS)
+    state = init_train_state(trainable, tx)
+    step = make_train_step(kern_fn, tx)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # the Qwen training path's run starts here
+    state, losses, norms, times = _timed_steps(step, state, frozen, chosen, rejected, steps)
+    counts = launches()  # ... and ends here
+    # the frozen tower is not recomputed; each decoder layer runs B3 forward
+    # and again under remat, and B8 once; the separate layout ropes in torch
+    per = {"fa_hm": n_full + 2 * n_dec, "fa_bwd": n_dec}
+    _expect(f"{steps} qwen LoRA steps B=2", counts, {k: steps * v for k, v in per.items()})
+    med = float(np.median(times[1:]))
+    say("train-qwen", f"LoRA B=2 seq {QWEN_SEQ}: loss per step {[round(x, 6) for x in losses]}, "
+        f"grad_norm {[round(x, 4) for x in norms]}; {med:.4f} s/step (median after one warm "
+        f"step, {[round(t, 4) for t in times]}), {1 / med:.3f} pairs/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # four pairs (B=8) at the same geometry, as phase 6 does for phi3v
+    c8, r8 = _halves(qwen_request(qcfg, rng, [QWEN_GRIDS[0]] * 7 + [QWEN_GRIDS[1]], {7: 40}), 4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    state, l8, n8, t8 = _timed_steps(step, state, frozen, c8, r8, 1)
+    _expect("qwen LoRA B=8 step", launches(), per)
+    say("train-qwen", f"LoRA B=8 seq {QWEN_SEQ}: loss {l8[0]:.6f} grad_norm {n8[0]:.4f}; "
+        f"{t8[0]:.4f} s/step (first call), {4 / t8[0]:.3f} pairs/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del c8, r8, state, step
+    torch.cuda.empty_cache()
+
+    # RewardTrainer.fit over two host batches; the artifact is read back,
+    # merged, fused and scored through phase 5q's route
+    host = lambda b: {k: (None if v is None else v.cpu().numpy())  # noqa: E731
+                      for k, v in b._asdict().items()}
+    loader = [(host(chosen), host(rejected), np.array([1.0]), np.array([0.0]))] * 2
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = RewardTrainer(
+            cfg=qcfg, rcfg=rcfg, frozen=frozen,
+            trainable=_qwen_trainable(qcfg, rcfg, gen, frozen["backbone"]),
+            tx=make_optimizer(LR, TOTAL_STEPS), loss_fn=kern_fn, train_loader=loader,
+            save_path=tmp, lora_rank=LORA_R, lora_alpha=LORA_ALPHA, model_type="qwen",
+            device="cuda")
+        t0 = time.perf_counter()
+        st = trainer.fit()
+        dt = time.perf_counter() - t0
+        out = os.path.join(tmp, "epoch_0")
+        head = artifact.load_head_params(out, rcfg, dtype=torch.bfloat16, device="cuda")
+        merger = artifact.load_qwen_merger_params(out, device="cuda")
+        sd = torch.load(os.path.join(out, "lora", "adapter_model.bin"), weights_only=True)
+        lora = peft_state_to_stacked(sd, tc, LORA_ALPHA, LORA_R, targets=QWEN_TARGETS,
+                                     device="cuda")
+        with open(os.path.join(out, "lora", "adapter_config.json")) as f:
+            targets = json.load(f)["target_modules"]
+        bf = lambda t: t.detach().to(torch.bfloat16).float()  # noqa: E731
+        got = st.trainable
+        same = (torch.equal(head["value_head"]["kernel"].float(),
+                            bf(got["head"]["value_head"]["kernel"]))
+                and all(torch.equal(lora[n][f], bf(got["lora"][n][f]))
+                        for n in lora for f in ("a", "b"))
+                and set(lora) == set(QWEN_TARGETS) and targets == list(QWEN_TARGETS)
+                and torch.equal(merger["ln_q"], bf(got["projector"]["ln_q"]))
+                and all(torch.equal(merger[fc][f], bf(got["projector"][fc][f]))
+                        for fc in ("fc1", "fc2") for f in ("kernel", "bias"))
+                and artifact.load_reward_config(out).to_contract_dict()
+                == rcfg.to_contract_dict()
+                and artifact.check_artifact_keys(out) == [])
+        files = sorted(os.path.relpath(os.path.join(r, f), out)
+                       for r, _, fs in os.walk(out) for f in fs)
+    say("train-qwen", f"RewardTrainer.fit(model_type='qwen'): {st.step} steps in {dt:.2f} s, "
+        f"logs {trainer.last_train_logs}; artifact {files} read back equal: {same}")
+    if st.step != 2 or not same:
+        fail("train-qwen: the trainer's artifact does not read back equal")
+    # scoring what was trained: inline adapters on the training layout against
+    # the artifact merged into bf16 weights and fused (the merge rounds each
+    # weight to bf16 once more, so the two differ by bf16 noise)
+    adaptor = RewardAdaptor(qcfg, rcfg, frozen, model_type="qwen", device="cuda")
+    scored = {"backbone": merge_for_scoring(frozen["backbone"], "qwen", lora=lora,
+                                            projector=merger), "head": head}
+    del lora, sd, trainer
+    reset_counters()
+    r_art = adaptor.make_score_fn()(scored, req2)
+    torch.cuda.synchronize()
+    art_counts = launches()
+    del scored
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        params, inline, _ = assemble_params(frozen, got, path)
+        r_inl = reward_forward(params, qcfg, rcfg, req2, lora=inline).reward
+    gap = (r_art.float() - r_inl.float()).abs().max().item()
+    say("train-qwen", f"the artifact merged and fused, scored through the serving route "
+        f"(launches {({k: v for k, v in art_counts.items() if v})}): rewards "
+        f"{r_art.float().cpu().numpy().round(6).tolist()} beside the trained tree's inline "
+        f"adapters {r_inl.float().cpu().numpy().round(6).tolist()}; max gap {gap:.3e} (tol "
+        f"{ARTIFACT_SCORE_TOL:g})")
+    if art_counts["prep"] != 3 * n_dec or gap > ARTIFACT_SCORE_TOL or not bool(
+            torch.isfinite(r_art).all()):
+        fail("train-qwen: the read-back artifact does not score like the trained tree")
+    del params, inline, got, st, trainable, adaptor
+    torch.cuda.empty_cache()
+
+    # full fine-tuning through the vision tower: the decoder cut to 4 layers,
+    # the tower whole
+    cut = 4
+    cfg4 = dataclasses.replace(qcfg, text=dataclasses.replace(tc, num_layers=cut))
+    rcfg4 = dataclasses.replace(rcfg, layer_id=cut)
+    bb = frozen["backbone"]
+    backbone4 = {"visual": tree_map(lambda t: t.clone(), bb["visual"]),
+                 "text": {**{k: v.clone() for k, v in bb["text"].items() if k != "layers"},
+                          "layers": tree_map(lambda t: t[:cut].clone(), bb["text"]["layers"])}}
+    del frozen, bb
+    torch.cuda.empty_cache()
+    full = {"head": init_head_params(cfg4, rcfg4, gen, torch.float32, "cuda"),
+            "backbone": backbone4}
+    n_full_params = sum(t.numel() for t in tree_leaves(backbone4))
+    say("train-qwen", f"full fine-tuning: the whole backbone trainable in bf16, no LoRA; cut: "
+        f"decoder {n_dec} -> {cut} layers (the 7.8 B model with AdamW's fp32 moments does not "
+        f"fit one card), vision tower {vc.depth} blocks and every width kept: "
+        f"{n_full_params / 1e9:.3f} B trainable params, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def make_loss4(impl):
+        return make_pairwise_loss_fn(cfg4, rcfg4, attn_impl=impl, remat=True,
+                                     projector_path=path)
+
+    per_layer = lambda n: "/blocks/" in n or "/layers/" in n  # noqa: E731
+    slice_errs, floor_slices = _route_parity("train-qwen-full", make_loss4, full, {}, chosen,
+                                             rejected, per_layer, "block / layer slices")
+    for i in vc.fullatt_block_indexes:  # the blocks whose backward is B8's segment mode
+        key = f"backbone/visual/blocks/qkv/kernel[{i}]"
+        say("train-qwen-full", f"full vision block {i}: qkv kernel gradient error "
+            f"{slice_errs[key]:.3e} (reference attention {floor_slices[key]:.3e})")
+    torch.cuda.empty_cache()
+    tx4 = make_optimizer(LR, TOTAL_STEPS)
+    step4 = make_train_step(make_loss4("auto"), tx4)
+    state4 = init_train_state(full, tx4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # the full fine-tuning step's run starts here
+    state4, lf, nf, tf = _timed_steps(step4, state4, {}, chosen, rejected, 1)
+    full_counts = launches()  # ... and ends here
+    # every block and layer is recomputed under remat: the four full vision
+    # blocks (segment mode) and the four decoder layers (left pad)
+    _expect("qwen full fine-tuning step", full_counts,
+            {"fa_hm": 2 * (n_full + cut), "fa_bwd": n_full + cut})
+    say("train-qwen-full", f"B=2: loss {lf[0]:.6f} grad_norm {nf[0]:.4f}; {tf[0]:.4f} s/step "
+        f"(first call); fa_bwd {full_counts['fa_bwd']} = {n_full} in segment mode at "
+        f"(2, {vc.num_heads}, {QWEN_PATCHES}, {vc.head_dim}) + {cut} in left-pad mode at (2, "
+        f"{tc.num_heads}/{tc.num_kv_heads}, {QWEN_SEQ}, {tc.head_dim}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state4, full, backbone4
+    torch.cuda.empty_cache()
+    return {k: counts[k] + full_counts[k] for k in counts}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1237,19 +1710,20 @@ def main() -> int:
                         add_cross_attention=True, layer_id=cfg.decoder.num_layers)
     qcfg = qwen25_vl_7b_config()
     rows = phase_kernels(cfg, qcfg)
-    # launches: summed over the four serving runs (phi3v and qwen, bf16 and
-    # W8A8); B8's from the training path's run
-    phi3v_counts = phase_serve(cfg, rcfg)
-    qwen_counts = phase_serve_qwen(qcfg)
-    counts = {k: phi3v_counts[k] + qwen_counts[k] for k in phi3v_counts}
-    counts["fa_bwd"] = phase_train(cfg, rcfg)["fa_bwd"]
+    # launches: summed over the main paths' runs, each counted from zero: the
+    # serving runs (phi3v bf16, decoder W8A8, tower + decoder W8A8; qwen bf16
+    # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
+    # LoRA steps and its full fine-tuning step)
+    runs = [phase_serve(cfg, rcfg), phase_serve_qwen(qcfg), phase_train(cfg, rcfg),
+            phase_train_qwen(qcfg)]
+    counts = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     kernels = []
     for name, meta in KERNELS.items():
         # one row per kernel: its last check (B1 and B8 at the phi3v
         # decoder's shapes, which dominate their time on the path; B2, B4-B7
         # at the qwen decoder's, the GEMM at gate_up; B3 in its segment mode
-        # at the qwen vision tower's)
+        # at the qwen vision tower's; B9 at the CLIP tower's B=8 shape)
         row = [r for r in rows if r["name"] == name][-1]
         kernels.append({"name": name, **meta, "launches": counts[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -9,9 +9,23 @@
 //   dq = ds.K,  dk = sum over reps of ds^T.q,  dv = sum over reps of p^T.g,
 // with ds and p rounded to bf16 before the three products, every product
 // accumulated in fp32, and dq/dk/dv rounded to bf16 once. The masks are B3's:
-// k < q_len, k >= kv_start (left pad), causal, sliding window; a masked score
-// takes the finite fill -1e30, so a query row whose keys are all masked gets
-// a finite (uniform) p and never NaN.
+// k < q_len, k >= kv_start (left pad), then by MODE (a template argument, as
+// in fa_hm_kernel) nothing more (0), a key mask != 0 (1) or segment ids,
+// seg[k] != 0 and seg[k] == seg[q] (2), read from one (B, S) int32 row, then
+// causal and sliding window. head_dim is 64, 80 (five 16-wide WMMA steps, no
+// padding to 128), 96 or 128.
+//
+// Fully masked rows. A masked score takes the finite fill -1e30, so a query
+// whose keys are all masked (a left-pad query, a pad patch with segment id 0)
+// gets p = exp(fill - fill) / l: uniform over the keys its tiles visit, never
+// NaN. As in the TPU kernel and the plain version, such a row's ds and its
+// share of dk/dv are NOT zero unless g is zero there. In the mask modes the
+// keys at or past S in a ragged last tile are left out of that row's sum, so
+// where every key tile is visited (non-causal, no left pad, q_len == S: the
+// Qwen2.5-VL vision blocks) a pad query weighs 1/S on every key, exactly as in
+// the plain version, and dk/dv agree on every valid key. Under causal or
+// left-pad tile skipping a pad row is uniform over the visited keys only; its
+// dq is never compared, and its g is zero on the training path.
 //
 // What bounds it on an H100: five products of 2*D operations per unmasked
 // (query, key) pair against 7 tensors of S*D bf16 moved once; at the
@@ -63,6 +77,7 @@ struct Args {
   float* row_inv_l;  // (B, H, S) 1 / row sum of exp(s - m), 0 if no key tile visited
   float* row_delta;  // (B, H, S) rowsum(p * dp)
   const int* kv_start;
+  const int* mask;  // (B, S) key mask or segment ids; null in MODE 0
   long long q_sb, q_sh, q_ss;  // element strides: batch, head, sequence
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -83,7 +98,8 @@ struct SmemA {
   static constexpr size_t s_off = v_off + (size_t)BK * D * 2;
   static constexpr size_t dp_off = s_off + (size_t)NWARPS * WROWS * LDS * 4;
   static constexpr size_t p_off = dp_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t bytes = p_off + (size_t)NWARPS * WROWS * LDP * 2;
+  static constexpr size_t m_off = p_off + (size_t)NWARPS * WROWS * LDP * 2;
+  static constexpr size_t bytes = m_off + (size_t)BK * 4;  // key ids of the tile
 };
 
 template <int D>
@@ -97,7 +113,8 @@ struct SmemB {
   static constexpr size_t p_off = dp_off + (size_t)NWARPS * WROWS * LDS * 4;
   static constexpr size_t ds_off = p_off + (size_t)NWARPS * WROWS * LDP * 2;
   static constexpr size_t stat_off = ds_off + (size_t)NWARPS * WROWS * LDP * 2;
-  static constexpr size_t bytes = stat_off + (size_t)3 * BQ * 4;
+  static constexpr size_t m_off = stat_off + (size_t)3 * BQ * 4;
+  static constexpr size_t bytes = m_off + (size_t)BQ * 4;  // query ids of the tile
 };
 
 // 64 rows x D columns of a row-strided bf16 matrix into shared memory (row
@@ -147,6 +164,22 @@ __device__ __forceinline__ void key_queries(const Args& a, int kpos, int kvs, in
   const bool open = kpos >= kvs && kpos < a.q_len;
   *lo = a.causal ? kpos : 0;
   *hi = !open ? 0 : (a.causal && a.window > 0) ? kpos + a.window : 0x7fffffff;
+}
+
+// Whether key column kc (position kp) counts for a query with open interval
+// [lo, hi) and segment id qseg; ids holds the tile's key-mask values or ids.
+template <int MODE>
+__device__ __forceinline__ bool key_open(int kp, int lo, int hi, const int* ids, int kc,
+                                         int qseg) {
+  bool ok = kp >= lo && kp < hi;
+  if (MODE == 1) ok = ok && ids[kc] != 0;
+  if (MODE == 2) ok = ok && ids[kc] != 0 && ids[kc] == qseg;
+  return ok;
+}
+
+// 64 entries of a (S,) int32 row into shared memory, zero past the end.
+__device__ __forceinline__ void load_ids(int* dst, const int* row, int i0, int S) {
+  for (int i = threadIdx.x; i < 64; i += NTHREADS) dst[i] = i0 + i < S ? row[i0 + i] : 0;
 }
 
 // Column j of a lane pair's half row: the pair's two lanes take the even and
@@ -221,7 +254,7 @@ __device__ __forceinline__ void store_rows(
 
 // ---------------------------------------------------------------- pass A
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   typedef SmemA<D> L;
@@ -233,6 +266,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
   float* sS = reinterpret_cast<float*>(smem + L::s_off) + warp * WROWS * LDS;
   float* sDP = reinterpret_cast<float*>(smem + L::dp_off) + warp * WROWS * LDS;
   bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off) + warp * WROWS * LDP;
+  int* sM = reinterpret_cast<int*>(smem + L::m_off);
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -254,6 +288,9 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
   const bf16* sGw = sG + warp * WROWS * D;
   int lo, hi;
   row_keys(a, qrow, kvs, &lo, &hi);
+  const int* mrow = MODE != 0 ? a.mask + (long long)b * a.S : nullptr;
+  // a query past S takes id 0, which no key matches: its row is never written
+  const int qseg = (MODE == 2 && qrow < a.S) ? mrow[qrow] : 0;
 
   // sweep 1: row max, row sum and rowsum(e * dp), rescaled online
   float m = MASK_FILL, l = 0.f, dn = 0.f;
@@ -261,6 +298,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
     __syncthreads();
     load_rows<D>(sK, kb, a.k_ss, k0, a.S);
     load_rows<D>(sV, vb, a.v_ss, k0, a.S);
+    if (MODE != 0) load_ids(sM, mrow, k0, a.S);
     __syncthreads();
     rows_times_tile_t<D>(sS, sQw, sK);
     rows_times_tile_t<D>(sDP, sGw, sV);
@@ -270,7 +308,8 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
     for (int j = 0; j < 32; ++j) {
       const int kc = lane_col(j, r, half);
       const int kp = k0 + kc;
-      const float s = kp >= lo && kp < hi ? sS[r * LDS + kc] * a.scale : MASK_FILL;
+      const float s =
+          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
       tmax = fmaxf(tmax, s);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -281,8 +320,10 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
     for (int j = 0; j < 32; ++j) {
       const int kc = lane_col(j, r, half);
       const int kp = k0 + kc;
-      const float s = kp >= lo && kp < hi ? sS[r * LDS + kc] * a.scale : MASK_FILL;
-      const float e = __expf(s - m_new);
+      const float s =
+          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
+      // mask modes: a key past S never counts, also not for a fully masked row
+      const float e = (MODE == 0 || kp < a.S) ? __expf(s - m_new) : 0.f;
       psum += e;
       dsum += e * sDP[r * LDS + kc];
     }
@@ -310,6 +351,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
     __syncthreads();
     load_rows<D>(sK, kb, a.k_ss, k0, a.S);
     load_rows<D>(sV, vb, a.v_ss, k0, a.S);
+    if (MODE != 0) load_ids(sM, mrow, k0, a.S);
     __syncthreads();
     rows_times_tile_t<D>(sS, sQw, sK);
     rows_times_tile_t<D>(sDP, sGw, sV);
@@ -318,8 +360,9 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
     for (int j = 0; j < 32; ++j) {
       const int kc = lane_col(j, r, half);
       const int kp = k0 + kc;
-      const float s = kp >= lo && kp < hi ? sS[r * LDS + kc] * a.scale : MASK_FILL;
-      const float p = __expf(s - m) * inv_l;
+      const float s =
+          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
+      const float p = (MODE == 0 || kp < a.S) ? __expf(s - m) * inv_l : 0.f;
       const float ds = p * (sDP[r * LDS + kc] - delta) * a.scale;
       sP[r * LDP + kc] = __float2bfloat16(ds);
     }
@@ -333,7 +376,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
 
 // ---------------------------------------------------------------- pass B
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   typedef SmemB<D> L;
@@ -342,6 +385,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* sG = reinterpret_cast<bf16*>(smem + L::g_off);
   float* sStat = reinterpret_cast<float*>(smem + L::stat_off);  // m, inv_l, delta
+  int* sMq = reinterpret_cast<int*>(smem + L::m_off);  // MODE 2: the q tile's segment ids
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* sS = reinterpret_cast<float*>(smem + L::s_off) + warp * WROWS * LDS;
   float* sDP = reinterpret_cast<float*>(smem + L::dp_off) + warp * WROWS * LDS;
@@ -363,6 +407,10 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
   const bf16* sVw = sV + warp * WROWS * D;
   int lo, hi;
   key_queries(a, krow, kvs, &lo, &hi);
+  const int* mrow = MODE != 0 ? a.mask + (long long)b * a.S : nullptr;
+  // this key's mask value or segment id; a zero closes the key for every query
+  const int kid = (MODE != 0 && krow < a.S) ? mrow[krow] : 0;
+  if (MODE != 0 && kid == 0) hi = 0;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[D / 16], dv[D / 16];
 #pragma unroll
@@ -390,6 +438,7 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
         sStat[BQ + threadIdx.x] = in ? a.row_inv_l[stat0 + qr] : 0.f;
         sStat[2 * BQ + threadIdx.x] = in ? a.row_delta[stat0 + qr] : 0.f;
       }
+      if (MODE == 2) load_ids(sMq, mrow, q0, a.S);
       __syncthreads();
       rows_times_tile_t<D>(sS, sKw, sQ);   // s^T: keys x queries
       rows_times_tile_t<D>(sDP, sVw, sG);  // dp^T
@@ -398,7 +447,9 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
       for (int j = 0; j < 32; ++j) {
         const int qc = lane_col(j, r, half);
         const int qp = q0 + qc;
-        const float s = qp >= lo && qp < hi ? sS[r * LDS + qc] * a.scale : MASK_FILL;
+        bool ok = qp >= lo && qp < hi;
+        if (MODE == 2) ok = ok && sMq[qc] == kid;
+        const float s = ok ? sS[r * LDS + qc] * a.scale : MASK_FILL;
         const float p = __expf(s - sStat[qc]) * sStat[BQ + qc];
         const float ds = p * (sDP[r * LDS + qc] - sStat[2 * BQ + qc]) * a.scale;
         sP[r * LDP + qc] = __float2bfloat16(p);
@@ -414,34 +465,49 @@ __global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
   store_rows<D>(dv, sS, a.dv + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, k0 + warp * WROWS, a.S);
 }
 
-template <int D>
+template <int D, int MODE>
 int launch(const Args& a, int B, int Hk, cudaStream_t stream) {
   const size_t smem_a = SmemA<D>::bytes, smem_b = SmemB<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_kernel<D, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_b);
+  e = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<D, MODE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
   if (e != cudaSuccess) return (int)e;
   const int n_t = (a.S + BQ - 1) / BQ;
-  fa_bwd_dq_kernel<D><<<dim3(n_t, a.H, B), NTHREADS, smem_a, stream>>>(a);
+  fa_bwd_dq_kernel<D, MODE><<<dim3(n_t, a.H, B), NTHREADS, smem_a, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv_kernel<D><<<dim3(n_t, Hk, B), NTHREADS, smem_b, stream>>>(a);
+  fa_bwd_dkdv_kernel<D, MODE><<<dim3(n_t, Hk, B), NTHREADS, smem_b, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mode(const Args& a, int mode, int B, int Hk, cudaStream_t st) {
+  switch (mode) {
+    case 0: return launch<D, 0>(a, B, Hk, st);
+    case 1: return launch<D, 1>(a, B, Hk, st);
+    default: return launch<D, 2>(a, B, Hk, st);
+  }
 }
 
 }  // namespace
 
 // B8: q, g (B, H, S, D) and k, v (B, Hk, S, D) bf16 with any element strides
 // and a unit last-dim stride -> dq (B, H, S, D), dk, dv (B, Hk, S, D) through
-// their own strides. ``stats`` is fp32 scratch of 3*B*H*S. Two launches on
-// ``stream``; returns cudaGetLastError() after them.
+// their own strides. ``stats`` is fp32 scratch of 3*B*H*S. mask: a contiguous
+// int32 (B, S) row read as a key mask (mask_mode 1) or segment ids (2), or
+// null with mask_mode 0. Two launches on ``stream``; returns
+// cudaGetLastError() after them.
 extern "C" int lrt_fa_bwd(const void* q, const void* k, const void* v, const void* g,
                           const void* kv_start, void* dq, void* dk, void* dv, void* stats,
-                          int B, int H, int Hk, int S, int D, const long long* strides,
-                          int q_len, int causal, int window, float scale, void* stream) {
+                          const void* mask, int B, int H, int Hk, int S, int D,
+                          const long long* strides, int q_len, int causal, int window,
+                          int mask_mode, float scale, void* stream) {
+  if ((mask_mode != 0) != (mask != nullptr) || mask_mode < 0 || mask_mode > 2)
+    return (int)cudaErrorInvalidValue;
   Args a;
+  a.mask = static_cast<const int*>(mask);
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
@@ -469,9 +535,10 @@ extern "C" int lrt_fa_bwd(const void* q, const void* k, const void* v, const voi
   a.scale = scale;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(a, B, Hk, st_);
-    case 96: return launch<96>(a, B, Hk, st_);
-    case 128: return launch<128>(a, B, Hk, st_);
+    case 64: return launch_mode<64>(a, mask_mode, B, Hk, st_);
+    case 80: return launch_mode<80>(a, mask_mode, B, Hk, st_);
+    case 96: return launch_mode<96>(a, mask_mode, B, Hk, st_);
+    case 128: return launch_mode<128>(a, mask_mode, B, Hk, st_);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,21 +8,26 @@
 //   (M, 2I) gate_up, y = g * sigmoid(g) * u in fp32 (gate in the first I
 //   columns), rounded to bf16 for bf16 input, then codes and amax.
 // row_quant_kernel replaces _row_quant_kernel (B6): codes and amax of x.
+// ln_quant_kernel replaces _ln_quant_kernel (B9): LayerNorm in fp32 (mean,
+//   centred variance, xc * 1/sqrt(var+eps) * w + b), with NO bf16 rounding of
+//   the result (ln_quant quantizes the fp32 LayerNorm output), then codes and
+//   amax. It feeds the CLIP tower's W8A8 qkv and fc1 projections.
 //
-// All three emit codes = rint(y * (127 / amax)) (round half to even) with
+// All four emit codes = rint(y * (127 / amax)) (round half to even) with
 // amax := 1 for an all-zero row, and write amax itself as the row scale.
 // The arithmetic uses the _rn intrinsics (IEEE division, sqrt, reciprocal,
 // no FMA contraction) and IEEE expf, so each element is computed as the
-// plain PyTorch version computes it. Only B4's sum of squares is taken in
-// another order than the plain version's torch.sum, which can move a code by
-// one at a rounding boundary.
+// plain PyTorch version computes it. Only the row sums of B4 (x^2) and B9 (x,
+// then xc^2) are taken in another order than the plain version's torch.sum,
+// which can move a code by one at a rounding boundary.
 //
 // What bounds them on an H100: a few operations per element against 2 bytes
 // read and 1 written (B5: 4 read, 1 written), far below the card's ~295
 // operations-per-byte ridge, so they are bound by memory bytes. One block of
 // 256 threads owns one row: it reads the row once from device memory with
 // 16-byte loads, keeps the fp32 values in shared memory (12 KB for B4 / B6
-// at H = 3072, 32 KB for B5 at I = 8192), reduces in registers and shared
+// at H = 3072, 32 KB for B5 at I = 8192, 4 KB for B9 at CLIP's H = 1024,
+// whose 87040 rows of a B=8 request make 87040 blocks), reduces in registers and shared
 // memory, and writes the codes with 8-byte stores.
 #include "common.cuh"
 
@@ -122,6 +127,45 @@ __global__ void __launch_bounds__(NT)
     } else {
       y = __fmul_rn(w[i], y);
     }
+    ys[i] = y;
+    mx = fmaxf(mx, fabsf(y));
+  }
+  mx = block_reduce<true>(mx, red);
+  write_codes(ys, H, mx, codes + row * H, amax_out + row);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, int8_t* __restrict__ codes,
+                    float* __restrict__ amax_out, int H, float eps) {
+  extern __shared__ float ys[];
+  __shared__ float red[NT / 32];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * H;
+  float s = 0.f;
+  for (int c = threadIdx.x; c < H / 8; c += NT) {
+    float v[8];
+    load8<T>(xr + c * 8, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      ys[c * 8 + e] = v[e];
+      s = __fadd_rn(s, v[e]);
+    }
+  }
+  const float mean = __fdiv_rn(block_reduce<false>(s, red), (float)H);
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < H; i += NT) {
+    const float xc = __fsub_rn(ys[i], mean);
+    ys[i] = xc;
+    ss = __fadd_rn(ss, __fmul_rn(xc, xc));
+  }
+  const float var = __fdiv_rn(block_reduce<false>(ss, red), (float)H);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < H; i += NT) {
+    // each thread rereads the elements it centred: no barrier needed
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(ys[i], inv), w[i]), b[i]);
     ys[i] = y;
     mx = fmaxf(mx, fabsf(y));
   }
@@ -231,4 +275,20 @@ extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, int M, int 
                        H);
   return launch_rows(row_quant_kernel<float>, M, H, st, static_cast<const float*>(x), cp, ap,
                      H);
+}
+
+// B9: x (M, H) bf16 or f32, weight and bias (H,) f32 -> codes (M, H) int8,
+// amax (M,) f32. H a multiple of 8; rows 16-byte aligned.
+extern "C" int lrt_ln_quant(const void* x, const void* w, const void* b, void* codes,
+                            void* amax, int M, int H, float eps, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* wp = static_cast<const float*>(w);
+  const float* bp = static_cast<const float*>(b);
+  int8_t* cp = static_cast<int8_t*>(codes);
+  float* ap = static_cast<float*>(amax);
+  if (is_bf16)
+    return launch_rows(ln_quant_kernel<bf16>, M, H, st, static_cast<const bf16*>(x), wp, bp,
+                       cp, ap, H, eps);
+  return launch_rows(ln_quant_kernel<float>, M, H, st, static_cast<const float*>(x), wp, bp,
+                     cp, ap, H, eps);
 }

@@ -6,25 +6,55 @@ memoised per ``(attn_impl, training)`` as in the JAX package.
 ``model_type`` is ``"phi3v"`` or ``"qwen"``; a qwen tree may be in the
 fused-projection layout (``models/qwen25_vl.fuse_decoder_projections``,
 as ``load_reward_adaptor`` leaves it) or the separate one.
-``load_reward_adaptor`` (base weights + LoRA merge + artifact heads) waits
-for ROADMAP slice 3.
+``merge_for_scoring`` is the tail of the JAX package's
+``load_reward_adaptor`` (``adaptor.py:380-489``): a trained LoRA folded into
+the decoder, a trained projector put in its slot, and for qwen the
+projections fused, so that the scoring route reads what training wrote.
+Loading base weights from a checkpoint directory waits for ROADMAP A8b.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..core.config import Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..lora.lora import merge_lora
+from ..models.qwen25_vl import fuse_decoder_projections
 from ..reward.model import RewardBatch, reward_forward
+from ..train.optim import tree_map
 
 
 def batch_to_device(batch: RewardBatch, device: torch.device) -> RewardBatch:
     """Numpy / tensor batch fields -> tensors on ``device``."""
     return RewardBatch(*[None if x is None else torch.as_tensor(x).to(device) for x in batch])
+
+
+def merge_for_scoring(backbone: dict, model_type: str, lora: Optional[dict] = None,
+                      projector: Optional[dict] = None) -> dict:
+    """The backbone tree a trained artifact scores with: ``lora`` (a stacked
+    tree, e.g. ``peft_state_to_stacked`` of the artifact's adapter) merged
+    into the decoder's layers in their dtype, ``projector`` (phi3v's
+    ``img_projection`` or qwen's merger) in its slot, and a qwen decoder in
+    the fused inference layout, which takes no adapters and so comes after
+    the merge. The input tree is not modified."""
+    vis, dec = {"phi3v": ("vision", "decoder"), "qwen": ("visual", "text")}[model_type]
+    out = dict(backbone)
+    layers = out[dec]["layers"]
+    if lora is not None:
+        layers = merge_lora(layers, lora)
+    if model_type == "qwen":
+        layers = fuse_decoder_projections(layers)
+    out[dec] = {**out[dec], "layers": layers}
+    if projector is not None:
+        slot = "img_projection" if model_type == "phi3v" else "merger"
+        like = out[vis][slot]["fc1"]["kernel"]  # the slot's device and dtype
+        out[vis] = {**out[vis], slot: tree_map(
+            lambda t: t.to(device=like.device, dtype=like.dtype), projector)}
+    return out
 
 
 @dataclass

@@ -4,8 +4,10 @@ written and read unchanged:
   pm_path/
     pytorch_model.bin      value_head.weight, W_q/W_k/W_v.weight,
                            ca_layernorm.weight, prompt_head.weight and the
-                           projector keys (model.vision_embed_tokens.
-                           img_projection.{0,2}.{weight,bias}), bf16
+                           projector keys (phi3v: model.vision_embed_tokens.
+                           img_projection.{0,2}.{weight,bias}; qwen:
+                           visual.merger.ln_q.weight and
+                           visual.merger.mlp.{0,2}.{weight,bias}), bf16
     lora/                  PEFT adapter: adapter_config.json + adapter_model.bin
     reward_config.yaml     {add_cross_attention, general_preference_tau,
                             is_general_preference, value_head_dim}
@@ -108,19 +110,23 @@ def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def projector_state_dict(projector_params: dict,
                          model_type: str = "phi3v") -> Dict[str, torch.Tensor]:
-    """The phi3v projector's torch keys (``artifact.py:153-164``)."""
-    if model_type != "phi3v":
+    """A trained projector's torch keys per family (``artifact.py:153-180``):
+    phi3v's ``img_projection`` MLP, qwen's merger (``ln_q`` + the MLP)."""
+    if model_type == "phi3v":
+        pre, sd = "model.vision_embed_tokens.img_projection", {}
+    elif model_type == "qwen":
+        pre = "visual.merger.mlp"
+        sd = {"visual.merger.ln_q.weight": projector_params["ln_q"].detach().cpu()}
+    else:
         raise NotImplementedError(
-            f"the {model_type!r} projector keys come with its training (ROADMAP: qwen "
-            "training, queue item 1; llava, slice 6)"
-        )
-    pre = "model.vision_embed_tokens.img_projection"
-    return {
+            f"the {model_type!r} projector keys come with its port (ROADMAP: LLaVA-NeXT)")
+    sd.update({
         f"{pre}.0.weight": _t(projector_params["fc1"]["kernel"]),
         f"{pre}.0.bias": projector_params["fc1"]["bias"].detach().cpu(),
         f"{pre}.2.weight": _t(projector_params["fc2"]["kernel"]),
         f"{pre}.2.bias": projector_params["fc2"]["bias"].detach().cpu(),
-    }
+    })
+    return sd
 
 
 def save_reward_artifact(
@@ -200,17 +206,33 @@ def load_head_params(pm_path: str, rcfg: RewardConfig, dtype=torch.float32,
     return head
 
 
-def load_projector_params(pm_path: str, dtype=torch.float32,
-                          device=DEFAULT_DEVICE) -> Optional[dict]:
-    """The phi3v ``img_projection`` subtree from the artifact, or None
-    (``artifact.py:101-112``)."""
-    dev = resolve_device(device)
+def _load_mlp(pm_path: str, family: str, dtype, dev):
+    """(keys of ``family`` re-keyed by their last two path parts, the
+    ``{fc1, fc2}`` tree of its ``{0,2}.{weight,bias}`` entries), or (None, None)."""
     sd = _load_state_dict(os.path.join(pm_path, "pytorch_model.bin"))
-    proj = {".".join(k.split(".")[-2:]): v for k, v in sd.items() if "img_projection" in k}
+    proj = {".".join(k.split(".")[-2:]): v for k, v in sd.items() if family in k}
     if not proj:
-        return None
-    return {
+        return None, None
+    return proj, {
         fc: {"kernel": _to(proj[f"{i}.weight"].T.contiguous(), dtype, dev),
              "bias": _to(proj[f"{i}.bias"], dtype, dev)}
         for fc, i in (("fc1", 0), ("fc2", 2))
     }
+
+
+def load_projector_params(pm_path: str, dtype=torch.float32,
+                          device=DEFAULT_DEVICE) -> Optional[dict]:
+    """The phi3v ``img_projection`` subtree from the artifact, or None
+    (``artifact.py:101-112``)."""
+    return _load_mlp(pm_path, "img_projection", dtype, resolve_device(device))[1]
+
+
+def load_qwen_merger_params(pm_path: str, dtype=torch.float32,
+                            device=DEFAULT_DEVICE) -> Optional[dict]:
+    """The qwen ``visual.merger`` subtree (``ln_q``, ``fc1``, ``fc2``) from the
+    artifact, or None (``artifact.py:115-127``)."""
+    dev = resolve_device(device)
+    proj, mlp = _load_mlp(pm_path, "merger", dtype, dev)
+    if proj is None:
+        return None
+    return {"ln_q": _to(proj["ln_q.weight"], dtype, dev), **mlp}

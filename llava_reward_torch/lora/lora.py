@@ -11,7 +11,8 @@ PEFT keeps the scaling constant).
 PEFT on-disk keys (``lora/adapter_model.bin``):
   base_model.model.model.layers.{i}.self_attn.qkv_proj.lora_A.weight (r, in)
   base_model.model.model.layers.{i}.self_attn.qkv_proj.lora_B.weight (out, r)
-  (mlp.gate_up_proj / mlp.down_proj / self_attn.o_proj likewise; the CLIP
+  (mlp.gate_up_proj / mlp.down_proj / self_attn.o_proj likewise, and
+  Qwen2.5-VL's separate q/k/v_proj, gate_proj, up_proj; the CLIP
   tower's under vision_embed_tokens.img_processor.vision_model.encoder).
 """
 
@@ -25,6 +26,8 @@ import torch
 from ..core.device import DEFAULT_DEVICE, resolve_device
 
 DEFAULT_TARGETS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+# Qwen2.5-VL keeps q/k/v and gate/up separate under LoRA (``lora.py:34-36``)
+QWEN_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 CLIP_TARGETS = ("q", "k", "v", "out", "fc1", "fc2")
 
 _PEFT_PATH = {
@@ -32,6 +35,11 @@ _PEFT_PATH = {
     "o_proj": "self_attn.o_proj",
     "gate_up_proj": "mlp.gate_up_proj",
     "down_proj": "mlp.down_proj",
+    "q_proj": "self_attn.q_proj",
+    "k_proj": "self_attn.k_proj",
+    "v_proj": "self_attn.v_proj",
+    "gate_proj": "mlp.gate_proj",
+    "up_proj": "mlp.up_proj",
 }
 _VISION_PEFT_PATH = {
     "q": "self_attn.q_proj",
@@ -51,6 +59,11 @@ def _target_dims(cfg, name: str):
         "o_proj": (cfg.q_size, H),
         "gate_up_proj": (H, 2 * I),
         "down_proj": (I, H),
+        "q_proj": (H, cfg.q_size),
+        "k_proj": (H, cfg.kv_size),
+        "v_proj": (H, cfg.kv_size),
+        "gate_proj": (H, I),
+        "up_proj": (H, I),
     }[name]
 
 
@@ -80,7 +93,8 @@ def _init(dims, L, rank, alpha, targets, generator, dtype, device) -> dict:
 def init_lora(cfg, rank: int, alpha: float, generator: torch.Generator,
               targets: Sequence[str] = DEFAULT_TARGETS, dtype=torch.float32,
               device=DEFAULT_DEVICE) -> dict:
-    """Decoder LoRA (``lora.py:68-89``) for a ``DecoderConfig``."""
+    """Decoder LoRA (``lora.py:68-89``) for a ``DecoderConfig`` or a
+    ``QwenTextConfig`` (``targets=QWEN_TARGETS``)."""
     return _init(lambda n: _target_dims(cfg, n), cfg.num_layers, rank, alpha, targets,
                  generator, dtype, device)
 
@@ -99,12 +113,16 @@ def _delta(t: dict) -> torch.Tensor:
 
 
 def merge_lora(base_layers: dict, lora: dict) -> dict:
-    """Fold adapters into the frozen stacked phi3 weights (``lora.py:126-140``;
-    the ``{'kernel', ...}`` leaves of the Qwen layers come with Qwen training,
-    ROADMAP queue item 1)."""
+    """Fold adapters into the frozen stacked weights (``lora.py:126-140``):
+    bare stacked matrices (phi3's fused projections) and ``{'kernel', 'bias'}``
+    leaves (the Qwen layers) alike."""
     merged = dict(base_layers)
     for name, t in lora.items():
-        merged[name] = base_layers[name] + _delta(t).to(base_layers[name].dtype)
+        base = base_layers[name]
+        if isinstance(base, dict):
+            merged[name] = {**base, "kernel": base["kernel"] + _delta(t).to(base["kernel"].dtype)}
+        else:
+            merged[name] = base + _delta(t).to(base.dtype)
     return merged
 
 

@@ -5,6 +5,14 @@ patch features with the CLS token dropped; the patch "conv" is a reshape and
 one matmul; layers stacked on a leading axis (a Python loop takes the place
 of ``lax.scan``); only ``num_active_layers`` layers run.
 
+Projection leaves may be W8A8 (``quantize_stacked_layers(clip["layers"],
+scheme="w8a8")``; no entry point quantizes the tower, in the JAX package
+neither): they run through the int8 GEMM. With no LoRA and a 128-multiple
+width, the kernel route (on the card, or ``attn_impl="pallas"``) takes the
+activation codes of qkv (fused route only) and fc1 straight from the
+LayerNorm quantizing epilogue (``ops/quant_epilogue.ln_quant``, B9);
+``out`` and ``fc2`` quantize their input dynamically (B6 + the GEMM).
+
 Param tree (linear kernels stored (in, out)):
   {'class_embedding': (H,), 'patch_proj': (P*P*C, H),
    'position_embedding': (577, H), 'pre_layernorm': {'weight','bias'},
@@ -23,10 +31,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import VisionConfig
 from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
+from ..ops import quant_epilogue as qe
 from ..ops.activations import ACT2FN
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
-from ..utils.quantize import is_w8a8
+from ..utils.quantize import int8_linear_pre, is_w8a8, qmatmul
 
 
 def init_params(
@@ -90,24 +99,49 @@ def _lora_delta(x, lora_layer, name):
     return (x @ t["a"].to(x.dtype)) @ t["b"].to(x.dtype) * t["scale"].to(x.dtype)
 
 
-def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, valid_len=None):
-    """One encoder layer (``clip_vit.py:108-216``, bf16 path)."""
+def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, valid_len=None,
+                   quant_route: bool = False):
+    """One encoder layer (``clip_vit.py:108-216``). ``quant_route``: the
+    caller asked for the kernel route by name (``attn_impl="pallas"`` /
+    ``"plain"``), which turns the LayerNorm quantizing epilogue on off the
+    card too; ``attn_impl`` itself may already read ``"fused"``."""
     act = ACT2FN[cfg.hidden_act]
     nh, hd = cfg.num_heads, cfg.head_dim
     N, S, H = h.shape
     a = lp["attn"]
+    eps = cfg.layer_norm_eps
+    # the plain route sends the epilogue and the int8 GEMM to their plain
+    # versions too, as models/phi3.decoder_layer does
+    plain = attn_impl in ("plain", "fused_plain")
+    fused = attn_impl in ("fused", "fused_plain")
+    use_ln_quant = lora_layer is None and (quant_route or on_card(h)) and qe.supported(h)
+    ln_q = qe.ln_quant_plain if plain else qe.ln_quant
 
     residual = h
-    x = layer_norm(h, lp["ln1"]["weight"], lp["ln1"]["bias"], cfg.layer_norm_eps)
-    if attn_impl in ("fused", "fused_plain"):
+    x = None
+    if use_ln_quant and is_w8a8(a["q"]["kernel"]) and fused:
+        x_codes, x_rs = ln_q(h, lp["ln1"]["weight"], lp["ln1"]["bias"], eps)
+    else:
+        x = layer_norm(h, lp["ln1"]["weight"], lp["ln1"]["bias"], eps)
+    if fused:
         # fused qkv matmul + the direct kernel (B1), or its plain version on
         # any device: output comes back as (N, S, H); pad keys at or beyond
         # valid_len are masked in-kernel
         from ..ops.flash_attention import direct_attention, fa_direct_plain
 
-        wk = torch.cat([a["q"]["kernel"], a["k"]["kernel"], a["v"]["kernel"]], dim=1)
+        if is_w8a8(a["q"]["kernel"]):
+            # codes and per-channel scales concatenated on the out axis, so the
+            # fused projection is ONE int8 GEMM; per layer and call, as in the
+            # JAX package (3 MB of codes at ViT-L)
+            wk = {key: torch.cat([a[n]["kernel"][key] for n in ("q", "k", "v")], dim=-1)
+                  for key in a["q"]["kernel"]}
+        else:
+            wk = torch.cat([a["q"]["kernel"], a["k"]["kernel"], a["v"]["kernel"]], dim=1)
         wb = torch.cat([a["q"]["bias"], a["k"]["bias"], a["v"]["bias"]])
-        qkv = x @ wk + wb
+        if x is None:
+            qkv = int8_linear_pre(x_codes, x_rs, wk, h.dtype, plain) + wb
+        else:
+            qkv = qmatmul(x, wk, plain) + wb
         if lora_layer is not None:
             deltas = [_lora_delta(x, lora_layer, n) for n in ("q", "k", "v")]
             if any(not isinstance(d, float) for d in deltas):
@@ -115,33 +149,33 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
                     [torch.zeros_like(x) if isinstance(d, float) else d for d in deltas],
                     dim=-1,
                 )
-        direct = fa_direct_plain if attn_impl == "fused_plain" else direct_attention
+        direct = fa_direct_plain if plain else direct_attention
         attn = direct(
             qkv, None, None, torch.zeros(N, dtype=torch.int32, device=h.device),
             n_heads=nh, head_dim=hd, causal=False, sliding_window=None,
             scale=hd ** -0.5, valid_len=valid_len,
         )
     else:
-        q = x @ a["q"]["kernel"] + a["q"]["bias"] + _lora_delta(x, lora_layer, "q")
-        k = x @ a["k"]["kernel"] + a["k"]["bias"] + _lora_delta(x, lora_layer, "k")
-        v = x @ a["v"]["kernel"] + a["v"]["bias"] + _lora_delta(x, lora_layer, "v")
-        q = q.reshape(N, S, nh, hd)
-        k = k.reshape(N, S, nh, hd)
-        v = v.reshape(N, S, nh, hd)
+        q, k, v = (
+            (qmatmul(x, a[n]["kernel"], plain) + a[n]["bias"]
+             + _lora_delta(x, lora_layer, n)).reshape(N, S, nh, hd)
+            for n in ("q", "k", "v")
+        )
         attn = mha(q, k, v, causal=False, impl=attn_impl).reshape(N, S, H)
-    attn_out = attn @ a["out"]["kernel"] + a["out"]["bias"] + _lora_delta(attn, lora_layer, "out")
+    attn_out = (qmatmul(attn, a["out"]["kernel"], plain) + a["out"]["bias"]
+                + _lora_delta(attn, lora_layer, "out"))
     h = residual + attn_out
 
     residual = h
-    x = layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"], cfg.layer_norm_eps)
-    x1 = act(
-        x @ lp["mlp"]["fc1"]["kernel"] + lp["mlp"]["fc1"]["bias"]
-        + _lora_delta(x, lora_layer, "fc1")
-    )
-    x2 = (
-        x1 @ lp["mlp"]["fc2"]["kernel"] + lp["mlp"]["fc2"]["bias"]
-        + _lora_delta(x1, lora_layer, "fc2")
-    )
+    fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
+    if use_ln_quant and is_w8a8(fc1["kernel"]):
+        x_codes, x_rs = ln_q(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps)
+        x1 = act(int8_linear_pre(x_codes, x_rs, fc1["kernel"], h.dtype, plain) + fc1["bias"])
+    else:
+        x = layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps)
+        x1 = act(qmatmul(x, fc1["kernel"], plain) + fc1["bias"]
+                 + _lora_delta(x, lora_layer, "fc1"))
+    x2 = qmatmul(x1, fc2["kernel"], plain) + fc2["bias"] + _lora_delta(x1, lora_layer, "fc2")
     return residual + x2
 
 
@@ -151,17 +185,6 @@ def layer_slice(tree, i):
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
-
-
-def _refuse_w8a8(tree) -> None:
-    if isinstance(tree, dict):
-        if is_w8a8(tree):
-            raise NotImplementedError(
-                "W8A8 CLIP weights need the LayerNorm quantizing epilogue "
-                "(_ln_quant_kernel), which is ROADMAP B9; the tower runs in bf16"
-            )
-        for v in tree.values():
-            _refuse_w8a8(v)
 
 
 def extract_patch_features(
@@ -174,13 +197,12 @@ def extract_patch_features(
     lora: Optional[dict] = None,
 ) -> torch.Tensor:
     """Penultimate-layer patch features, CLS dropped: (N, num_patches, H)
-    (``clip_vit.py:226-279``). W8A8 weights raise (ROADMAP B9). With a
+    (``clip_vit.py:226-279``). With a
     vision LoRA tree the tower stays on the differentiable ``mha`` route
     (B3 forward, B8 backward on the card): the direct kernel (B1) has no
     backward, in the JAX package neither (``clip_vit.py:256-258``). With
     ``remat`` each layer runs under ``torch.utils.checkpoint``
     (``clip_vit.py:270-272``)."""
-    _refuse_w8a8(params["layers"])
     h = embed_patches(params, cfg, pixel_values)
     h = layer_norm(
         h, params["pre_layernorm"]["weight"], params["pre_layernorm"]["bias"],
@@ -192,6 +214,7 @@ def extract_patch_features(
     # qkv + direct kernel layer, pad keys masked by valid_len (:252-268)
     S = h.shape[1]
     valid_len = None
+    quant_route = attn_impl in ("pallas", "plain")
     if (
         attn_impl in ("auto", "pallas", "plain")
         and on_card(h)
@@ -208,7 +231,8 @@ def extract_patch_features(
 
     for i in range(n_active):
         lora_layer = layer_slice(lora, i) if lora is not None else None
-        args = (h, layer_slice(params["layers"], i), cfg, attn_impl, lora_layer, valid_len)
+        args = (h, layer_slice(params["layers"], i), cfg, attn_impl, lora_layer, valid_len,
+                quant_route)
         if remat:
             h = checkpoint(_encoder_layer, *args, use_reentrant=False)
         else:

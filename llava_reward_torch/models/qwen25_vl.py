@@ -238,8 +238,9 @@ def vision_forward(
     # merger in window order (Qwen2_5_VLPatchMerger)
     m = params["merger"]
     x = rms_norm(h, m["ln_q"], vc.rms_norm_eps).reshape(B, P // mm2, mm2 * vc.hidden_size)
-    x = gelu(x @ m["fc1"]["kernel"] + m["fc1"]["bias"])
-    x = x @ m["fc2"]["kernel"] + m["fc2"]["bias"]  # (B, U_w, out)
+    # mm: a trainable fp32 merger over a bf16 tower computes in fp32, as jnp
+    x = gelu(mm(x, m["fc1"]["kernel"]) + m["fc1"]["bias"])
+    x = mm(x, m["fc2"]["kernel"]) + m["fc2"]["bias"]  # (B, U_w, out)
 
     out = _take_rows(x, unit_gather)  # original merged order
     slot = torch.arange(out.shape[1], device=out.device)[None, :]

@@ -1,7 +1,8 @@
 """Attention kernels of the serving path and their dispatch.
 
 Counterpart of ``llava_reward_tpu/ops/flash_attention.py``. Three TPU
-kernels carry Phi-3.5-vision reward scoring; each is a CUDA kernel written
+kernels carry reward scoring and a fourth the attention backward of
+training; each is a CUDA kernel written
 by hand for Hopper in ``llava_reward_torch/csrc/`` (built by
 ``ops/cuda_lib.py``), with beside it here:
 
@@ -40,8 +41,11 @@ B3 takes the JAX package's three mask layouts (``flash_attention:778-834``):
 left pad (``kv_start``), an arbitrary key mask (``"arbitrary"``, Qwen2.5-VL's
 vision windows) and segment ids (``"segments"``, its full-attention blocks:
 key k counts for query q iff ``seg[k] != 0 and seg[k] == seg[q]``), with
-head_dim 80 beside 64, 96 and 128. Their backward (B8's mask modes) comes
-with Qwen training; ``_FlashAttentionCore`` raises on it.
+head_dim 80 beside 64, 96 and 128. B8 takes the same three layouts and head
+dims: ``_FlashAttentionCore`` is differentiable in q, k and v in every mode
+(``_core_bwd``, :700-713). The segment mode's backward runs when Qwen2.5-VL's
+vision tower is trained (full fine-tuning); ``_FusedCore`` is left pad only,
+as in the JAX package.
 
 Semantics kept from the TPU kernels: masked scores take the finite fill
 ``-1e30`` (so a fully masked row, a left-pad query or a pad patch, is
@@ -49,7 +53,11 @@ finite, never NaN); roped q/k
 are rounded to the input dtype before the dot; the scale multiplies the fp32
 dot; probabilities are rounded to the input dtype before P.V, which
 accumulates in fp32. Pad rows are finite but their values depend on which
-keys a kernel visits, so only valid rows are compared.
+keys a kernel visits, so only valid rows are compared. In the backward a
+fully masked query row has a uniform ``p`` (from the same fill), so its
+``ds`` and its share of dk/dv are not zero unless ``g`` is zero there; the
+plain version and the kernel agree on that share wherever every key tile is
+visited (non-causal, no left pad), which the tests hold them to.
 
 The routing gates are the JAX package's (``fused_path_supported``,
 ``_direct_path_supported``, ``_direct_group``, the ``B*(H/g) >= 32`` rule,
@@ -67,7 +75,7 @@ from ..core.device import on_card
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 96, 128)
-HM_HEAD_DIMS = (64, 80, 96, 128)  # B3 also takes Qwen2.5-VL's vision head_dim
+HM_HEAD_DIMS = (64, 80, 96, 128)  # B3 and B8 also take Qwen2.5-VL's vision head_dim
 
 LAUNCHES: Dict[str, int] = {"fa_direct": 0, "prep": 0, "fa_hm": 0, "fa_bwd": 0}
 PLAIN_CALLS: Dict[str, int] = {"fa_direct": 0, "prep": 0, "fa_hm": 0, "fa_bwd": 0}
@@ -190,14 +198,17 @@ def flash_fwd_hm_plain(qt, kt, vt, kv_start, *, causal, sliding_window, scale, q
     )
 
 
-def flash_bwd_plain(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len):
+def flash_bwd_plain(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len,
+                    key_mask=None, segments=False):
     """Plain version of B8: head-major q, g (B, H, S, D) and k, v (B, Hk, S, D)
     -> (dq, dk, dv) in q's dtype, one batch row at a time in the kernel's
     order and rounding (``flash_attention.py:415-488``): fp32 masked scores
-    and full-row softmax, ``dp = g.V^T``, ``delta = rowsum(p * dp)`` from
+    (``key_mask`` (B, S): a key mask, or segment ids with ``segments``) and
+    full-row softmax, ``dp = g.V^T``, ``delta = rowsum(p * dp)`` from
     fp32 p, ``ds = p * (dp - delta) * scale``; ds and p rounded to the input
     dtype before the three products, which accumulate in fp32; GQA reps
-    summed into their kv head before the one rounding."""
+    summed into their kv head before the one rounding. A fully masked query
+    row keeps the uniform p the fill gives it, as in the TPU kernel."""
     PLAIN_CALLS["fa_bwd"] += 1
     B, H, S, D = qt.shape
     Hk = kt.shape[1]
@@ -215,6 +226,11 @@ def flash_bwd_plain(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, 
         vb = vt[b].repeat_interleave(n_rep, dim=0).float()
         s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
         mask = base & (k_pos >= kv_start[b])
+        if key_mask is not None:  # _fa_bwd_kernel:425-431
+            row = key_mask[b].to(dev)
+            mask = mask & (row[None, :] != 0)
+            if segments:
+                mask = mask & (row[None, :] == row[:, None])
         s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))
         del s
@@ -261,6 +277,15 @@ def _kv_start_i32(kv_start: torch.Tensor, B: int, device) -> torch.Tensor:
 def _rope_tables(cos, sin, B, S, D):
     _check_bf16_cuda("rope tables", cos, sin)
     return cos.expand(B, S, D).contiguous(), sin.expand(B, S, D).contiguous()
+
+
+def _mask_i32(name: str, key_mask, segments: bool, B: int, S: int, device):
+    """(lrt_fa_hm's / lrt_fa_bwd's mask_mode, the contiguous int32 (B, S) row or None)."""
+    if key_mask is None:
+        return 0, None
+    if tuple(key_mask.shape) != (B, S):
+        raise ValueError(f"{name}: key_mask must be ({B}, {S}), got {tuple(key_mask.shape)}")
+    return (2 if segments else 1), key_mask.to(device=device, dtype=torch.int32).contiguous()
 
 
 def _launch_fa_direct(qkv, cos, sin, kv_start, n_heads, D, causal, window, scale, q_len):
@@ -333,12 +358,8 @@ def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=N
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError("fa_hm: needs unit last-dim stride and 8-aligned strides")
     kv = _kv_start_i32(kv_start, B, qt.device)
-    mode, mp = 0, None
-    if key_mask is not None:
-        if tuple(key_mask.shape) != (B, S):
-            raise ValueError(f"fa_hm: key_mask must be ({B}, {S}), got {tuple(key_mask.shape)}")
-        key_mask = key_mask.to(device=qt.device, dtype=torch.int32).contiguous()
-        mode, mp = (2 if segments else 1), key_mask.data_ptr()  # lrt_fa_hm's mask_mode
+    mode, key_mask = _mask_i32("fa_hm", key_mask, segments, B, S, qt.device)
+    mp = key_mask.data_ptr() if key_mask is not None else None
     # written as (B, S, H, D) storage: the (B, S, H*D) view the decoder's
     # o_proj reads is then free
     out = torch.empty(B, S, H, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
@@ -353,14 +374,15 @@ def _launch_fa_hm(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=N
     return out
 
 
-def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len):
+def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_mask=None,
+                   segments=False):
     from . import cuda_lib
 
     cuda_lib.refuse_grad("fa_bwd", qt, kt, vt, gt,
                          route="it runs inside the backward of _FusedCore / _FlashAttentionCore")
     B, H, S, D = qt.shape
     Hk = kt.shape[1]
-    _check_head_dim("fa_bwd", D)
+    _check_head_dim("fa_bwd", D, HM_HEAD_DIMS)
     if (H % Hk or kt.shape != vt.shape or gt.shape != qt.shape or kt.shape[0] != B
             or kt.shape[2] != S):
         raise ValueError(f"fa_bwd: shapes q {tuple(qt.shape)} k {tuple(kt.shape)} "
@@ -370,6 +392,8 @@ def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]):
             raise ValueError("fa_bwd: needs unit last-dim stride and 8-aligned strides")
     kv = _kv_start_i32(kv_start, B, qt.device)
+    mode, key_mask = _mask_i32("fa_bwd", key_mask, segments, B, S, qt.device)
+    mp = key_mask.data_ptr() if key_mask is not None else None
     # written as (B, S, H, D) storage, like B3's output: the callers' (B, S, ...)
     # layouts are then free
     dq = torch.empty(B, S, H, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
@@ -381,9 +405,9 @@ def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len):
     )
     err = cuda_lib.load().lrt_fa_bwd(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), gt.data_ptr(), kv.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        B, H, Hk, S, D, strides.data_ptr(), q_len, int(causal), window or 0, float(scale),
-        _stream(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), mp,
+        B, H, Hk, S, D, strides.data_ptr(), q_len, int(causal), window or 0, mode,
+        float(scale), _stream(),
     )
     cuda_lib.check(err, "lrt_fa_bwd")
     LAUNCHES["fa_bwd"] += 1
@@ -437,21 +461,24 @@ def _flash_fwd_hm(qt, kt, vt, kv_start, key_mask, causal, sliding_window, scale,
                          key_mask, segments)
 
 
-def flash_bwd(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len):
+def flash_bwd(qt, kt, vt, gt, kv_start, *, causal, sliding_window, scale, q_len,
+              key_mask=None, segments=False):
     """B8 (``flash_attention.py:502``): head-major q, g (B, H, S, D) and
-    k, v (B, Hk, S, D) -> (dq, dk, dv) head-major."""
+    k, v (B, Hk, S, D) -> (dq, dk, dv) head-major. ``key_mask`` (B, S) or
+    None: a key mask (1 = valid), or segment ids (0 = pad) with ``segments``."""
     if not on_card(qt):
         return flash_bwd_plain(qt, kt, vt, gt, kv_start, causal=causal,
-                               sliding_window=sliding_window, scale=scale, q_len=q_len)
-    return _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, sliding_window, scale, q_len)
+                               sliding_window=sliding_window, scale=scale, q_len=q_len,
+                               key_mask=key_mask, segments=segments)
+    return _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, sliding_window, scale, q_len,
+                          key_mask, segments)
 
 
 class _FlashAttentionCore(torch.autograd.Function):
     """``_flash_attention_core`` (``flash_attention.py:684-775``) on
-    (B, S, H, D) q and (B, S, Hk, D) k/v: forward B3, backward B8. With
-    ``plain`` both directions call the plain versions, on any device. The
-    key-mask and segment modes are forward only: their backward is B8's
-    mask modes, which come with Qwen training."""
+    (B, S, H, D) q and (B, S, Hk, D) k/v: forward B3, backward B8, in
+    every mask mode. With ``plain`` both directions call the plain versions,
+    on any device."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_start, key_mask, causal, sliding_window, scale, plain,
@@ -464,20 +491,16 @@ class _FlashAttentionCore(torch.autograd.Function):
         else:
             out = _flash_fwd_hm(qt, kt, vt, kv_start, key_mask, segments=segments, **kw)
         ctx.save_for_backward(q, k, v, kv_start, key_mask)
-        ctx.kw, ctx.plain = kw, plain
+        ctx.kw, ctx.plain, ctx.segments = kw, plain, segments
         return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_start, key_mask = ctx.saved_tensors
-        if key_mask is not None:
-            raise NotImplementedError(
-                "the backward of B3's key-mask / segment-id modes is B8's mask modes, "
-                "which come with Qwen2.5-VL training (ROADMAP A10, queue item 1)"
-            )
         bwd = flash_bwd_plain if ctx.plain else flash_bwd
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        dq, dk, dv = bwd(qt, kt, vt, g.contiguous().transpose(1, 2), kv_start, **ctx.kw)
+        dq, dk, dv = bwd(qt, kt, vt, g.contiguous().transpose(1, 2), kv_start,
+                         key_mask=key_mask, segments=ctx.segments, **ctx.kw)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
                 None, None, None, None, None, None, None)
 
@@ -488,10 +511,9 @@ def flash_attention(
 ):
     """(B, S, H, D) entry of B3 / B8 (``flash_attention.py:778-834``);
     ``plain`` calls the plain versions on any device. ``mask_layout``:
-    "leftpad" (valid keys form a suffix: one ``kv_start`` per row,
-    differentiable in q, k and v), "arbitrary" (any key-valid pattern) or
-    "segments" (``key_padding_mask`` holds segment ids, 0 = pad); the last
-    two are forward only."""
+    "leftpad" (valid keys form a suffix: one ``kv_start`` per row),
+    "arbitrary" (any key-valid pattern) or "segments" (``key_padding_mask``
+    holds segment ids, 0 = pad). Differentiable in q, k and v in all three."""
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)

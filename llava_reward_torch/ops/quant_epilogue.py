@@ -1,8 +1,8 @@
-"""Quantizing epilogues of the W8A8 decoder: int8 codes + per-row amax.
+"""Quantizing epilogues of the W8A8 path: int8 codes + per-row amax.
 
-Counterpart of ``llava_reward_tpu/ops/quant_epilogue.py``. Three TPU
-kernels feed the int8 GEMM (``ops/int8_matmul.py``) on the
-``--load_in_8bit`` path; each is a CUDA kernel written by hand for Hopper
+Counterpart of ``llava_reward_tpu/ops/quant_epilogue.py``. Four TPU
+kernels feed the int8 GEMM (``ops/int8_matmul.py``): three on the
+``--load_in_8bit`` decoder, the LayerNorm one on a W8A8 CLIP tower; each is a CUDA kernel written by hand for Hopper
 in ``llava_reward_torch/csrc/quant_epilogue.cu``, with beside it here:
 
 - a plain PyTorch version (``*_plain``), which repeats the TPU kernel's
@@ -21,10 +21,12 @@ name                TPU kernel replaced                         codes of
 ``rms_quant``       ``_rms_quant_kernel`` (B4), :46-66           Phi-3 RMSNorm(x)
 ``silu_mul_quant``  ``_silu_mul_quant_kernel`` (B5), :126-140    silu(gate) * up
 ``row_quant``       ``_row_quant_kernel`` (B6), :183-188         x
+``ln_quant``        ``_ln_quant_kernel`` (B9), :32-43            LayerNorm(x), fp32
 ==================  ==========================================  =======================
 
-The LayerNorm epilogue (``_ln_quant_kernel``, B9) fires only on W8A8 CLIP
-weights, which no entry point makes; it waits for its ROADMAP entry.
+B9 quantizes the fp32 LayerNorm output (no bf16 rounding in between, unlike
+B4). It fires in ``models/clip_vit.py`` on W8A8 CLIP weights, which a
+caller builds with ``quantize_stacked_layers(clip["layers"], scheme="w8a8")``.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import torch
 
 from ..core.device import on_card
 
-LAUNCHES: Dict[str, int] = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 0}
-PLAIN_CALLS: Dict[str, int] = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 0}
+_NAMES = ("rms_quant", "silu_mul_quant", "row_quant", "ln_quant")
+LAUNCHES: Dict[str, int] = {n: 0 for n in _NAMES}
+PLAIN_CALLS: Dict[str, int] = {n: 0 for n in _NAMES}
 
 Codes = Tuple[torch.Tensor, torch.Tensor]  # int8 (..., n), f32 amax (..., 1)
 
@@ -94,6 +97,20 @@ def rms_quant_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) ->
     return row_codes(y)
 
 
+def ln_quant_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> Codes:
+    """Plain version of B9: LayerNorm in fp32 (mean, centred variance,
+    ``xc * 1/sqrt(var + eps) * w + b``) quantized without a rounding to the
+    input dtype in between (``quant_epilogue.py:32-43, 112-118``)."""
+    PLAIN_CALLS["ln_quant"] += 1
+    xf = x.float()
+    n = float(x.shape[-1])
+    xc = xf - ieee_div(torch.sum(xf, dim=-1, keepdim=True), n)
+    var = ieee_div(torch.sum(xc * xc, dim=-1, keepdim=True), n)
+    y = xc * torch.reciprocal(torch.sqrt(var + eps))
+    return row_codes(y * weight.float() + bias.float())
+
+
 def silu_mul_quant_plain(gate_up: torch.Tensor) -> Codes:
     """Plain version of B5: gate in the first I columns of (..., 2I);
     ``g * sigmoid(g) * u`` in fp32, rounded to bf16 for bf16 input."""
@@ -118,8 +135,8 @@ def row_quant_plain(x: torch.Tensor) -> Codes:
 
 _INFERENCE_ONLY = (
     "the quantizing epilogues are inference-only: under LoRA the use_rq gate in "
-    "models/phi3.decoder_layer is off, and a differentiable W8A8 matmul goes through "
-    "utils/quantize.int8_linear (_Int8LinearCore)"
+    "models/phi3.decoder_layer (use_ln_quant in models/clip_vit) is off, and a "
+    "differentiable W8A8 matmul goes through utils/quantize.int8_linear (_Int8LinearCore)"
 )
 
 
@@ -170,6 +187,27 @@ def _launch_rms_quant(x, weight, eps):
     return codes.view(*x.shape[:-1], H), amax.view(*x.shape[:-1], 1)
 
 
+def _launch_ln_quant(x, weight, bias, eps):
+    from . import cuda_lib
+
+    H = x.shape[-1]
+    cuda_lib.refuse_grad("ln_quant", weight, bias, route=_INFERENCE_ONLY)
+    x2, M = _rows("ln_quant", x, H)
+    if weight.shape != (H,) or bias.shape != (H,):
+        raise ValueError(f"ln_quant: weight and bias must be ({H},), got "
+                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
+    w = weight.to(device=x.device, dtype=torch.float32).contiguous()  # exact for bf16
+    b = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    codes, amax = _outputs(x, M, H)
+    err = cuda_lib.load().lrt_ln_quant(
+        x2.data_ptr(), w.data_ptr(), b.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H,
+        float(eps), int(x.dtype == torch.bfloat16), _stream(),
+    )
+    cuda_lib.check(err, "lrt_ln_quant")
+    LAUNCHES["ln_quant"] += 1
+    return codes.view(*x.shape[:-1], H), amax.view(*x.shape[:-1], 1)
+
+
 def _launch_silu_mul_quant(gate_up):
     from . import cuda_lib
 
@@ -211,6 +249,14 @@ def rms_quant(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> Codes
     if not on_card(x):
         return rms_quant_plain(x, weight, eps)
     return _launch_rms_quant(x, weight, eps)
+
+
+def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             eps: float = 1e-5) -> Codes:
+    """B9 (``quant_epilogue.py:112``): LayerNorm (fp32) + row int8."""
+    if not on_card(x):
+        return ln_quant_plain(x, weight, bias, eps)
+    return _launch_ln_quant(x, weight, bias, eps)
 
 
 def silu_mul_quant(gate_up: torch.Tensor) -> Codes:

@@ -15,7 +15,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.config import Phi3VConfig, RewardConfig
+from ..core.config import RewardConfig
 from ..models.phi3 import logits as lm_logits
 from ..reward import losses
 from ..reward.heads import eos_index_from_mask, prompt_skew_block_matrices
@@ -49,8 +49,12 @@ def select_loss_name(rcfg: RewardConfig, cls_based: bool, add_img_eos: bool = Fa
     return "bt"
 
 
-# where the phi3v forward reads the projector from the backbone tree
-PROJECTOR_PATHS = {"phi3v": ("vision", "img_projection")}
+# where each family's forward reads the projector from the backbone tree
+# (``train_step.py:59-66``); LLaVA-NeXT's entry comes with its port
+PROJECTOR_PATHS = {
+    "phi3v": ("vision", "img_projection"),
+    "qwen": ("visual", "merger"),  # ln_q, fc1, fc2
+}
 
 
 def assemble_params(frozen: dict, trainable: dict,
@@ -71,7 +75,7 @@ def assemble_params(frozen: dict, trainable: dict,
 
 
 def make_pairwise_loss_fn(
-    cfg: Phi3VConfig,
+    cfg,  # Phi3VConfig or Qwen25VLConfig
     rcfg: RewardConfig,
     *,
     cls_based: bool = False,
@@ -84,7 +88,9 @@ def make_pairwise_loss_fn(
     add_img_eos: bool = False,
     projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"],
 ) -> Callable:
-    """``train_step.py:97-188``. ``add_pretrain_loss`` mixes the SFTSum ptx
+    """``train_step.py:97-188``. For Qwen2.5-VL pass
+    ``projector_path=PROJECTOR_PATHS["qwen"]`` (the merger is the trainable
+    projector) and qwen ``RewardBatch``es. ``add_pretrain_loss`` mixes the SFTSum ptx
     regulariser over the chosen sequence's LM logits: loss = (1 - coef) *
     preference + coef * ptx; the frozen backbone tree must hold 'lm_head'."""
     loss_name = select_loss_name(rcfg, cls_based, add_img_eos)
@@ -140,7 +146,7 @@ def make_pairwise_loss_fn(
     return loss_fn
 
 
-def make_cls_loss_fn(cfg: Phi3VConfig, rcfg: RewardConfig, *, compute_fp32_loss: bool = False,
+def make_cls_loss_fn(cfg, rcfg: RewardConfig, *, compute_fp32_loss: bool = False,
                      attn_impl: str = "auto", remat: bool = True,
                      projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"]) -> Callable:
     """Pointwise classification objective (``train_step.py:191-215``)."""

@@ -20,13 +20,13 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..core.config import Phi3VConfig, RewardConfig
+from ..core.config import RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.logging import init_logger
 from ..evalx.metrics import pairwise_metrics, pointwise_metrics
 from ..io.artifact import save_reward_artifact
-from ..lora.lora import (DEFAULT_TARGETS, peft_adapter_config, stacked_to_peft_state,
-                         vision_stacked_to_peft_state)
+from ..lora.lora import (DEFAULT_TARGETS, QWEN_TARGETS, peft_adapter_config,
+                         stacked_to_peft_state, vision_stacked_to_peft_state)
 from ..preprocess.collate import to_reward_batch
 from ..reward.model import reward_forward
 from ..reward.preference import preference_prob
@@ -41,7 +41,7 @@ class RewardTrainer:
     def __init__(
         self,
         *,
-        cfg: Phi3VConfig,
+        cfg,  # Phi3VConfig, or Qwen25VLConfig with model_type="qwen"
         rcfg: RewardConfig,
         frozen: dict,
         trainable: dict,
@@ -83,8 +83,13 @@ class RewardTrainer:
         # --save_best_model tracks eval accuracy and keeps <save_path>/best
         self.save_best_model = save_best_model
         self.best_eval_acc = float("-inf")
+        if model_type not in PROJECTOR_PATHS:
+            raise NotImplementedError(f"model_type {model_type!r}: phi3v and qwen train here")
         self.model_type = model_type
-        self.lora_targets = lora_targets
+        # the trained target list rides into adapter_config.json, so a qwen
+        # run never advertises phi3's fused targets (``trainer.py:102-105``)
+        self.lora_targets = lora_targets or (
+            QWEN_TARGETS if model_type == "qwen" else DEFAULT_TARGETS)
         self.ckpt_path, self.ckpt_steps = ckpt_path, ckpt_steps
         self.last_train_logs: Dict[str, float] = {}
         if save_best_model and eval_loader is None and eval_steps == -1:
@@ -211,9 +216,10 @@ class RewardTrainer:
                 "exporting a full fine-tuned backbone needs the HF-layout writer (ROADMAP A8)")
         lora_state = lora_config = None
         if trainable.get("lora") is not None and self.lora_rank > 0:
-            lora_state = stacked_to_peft_state(trainable["lora"], self.cfg.decoder)
+            dec_cfg = self.cfg.text if self.model_type == "qwen" else self.cfg.decoder
+            lora_state = stacked_to_peft_state(trainable["lora"], dec_cfg)
             lora_config = peft_adapter_config(self.lora_rank, self.lora_alpha, self.lora_dropout,
-                                              targets=tuple(self.lora_targets or DEFAULT_TARGETS))
+                                              targets=tuple(self.lora_targets))
         if trainable.get("vision_lora") is not None:
             # the CLIP adapters ride in the same PEFT file
             if lora_state is None:

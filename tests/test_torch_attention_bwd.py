@@ -15,6 +15,15 @@ CPU.
   plain versions run), against ``jax.value_and_grad`` of
   ``fused_rope_attention(impl="pallas")`` and ``flash_attention`` (the
   interpreted kernels), in fp32 to TOL_F32.
+- B8's key-mask and segment-id modes (``MASK_BWD_CASES``; head_dim 80 is
+  Qwen2.5-VL's vision head, which the JAX kernel pads to 128 lanes and the
+  port does not), g NOT zeroed on pad queries where every key tile is visited
+  (non-causal): dq is compared on the query rows that have a key, dk and dv
+  on every valid key, so a pad query (uniform p from the -1e30 fill) leaking
+  into a valid key's dk/dv differently from the JAX kernel would show. S is
+  one JAX q block (256), so both weigh a pad query's keys by 1/S.
+- ``flash_attention(mask_layout="segments" | "arbitrary")`` gradients against
+  ``jax.grad`` of the JAX entry.
 - The raw launches refuse a grad-requiring input.
 """
 
@@ -110,6 +119,126 @@ def test_plain_bwd_fully_masked_rows_stay_finite_with_nonzero_g():
     g = _np(np.random.default_rng(9), *q.shape)  # nonzero on the pad rows too
     for out in _torch_bwd(q, k, v, g, kv_start, q_len, causal, window, scale):
         assert np.isfinite(out).all()
+
+
+def _mask_rows(B, S, rng, n_seg):
+    """(B, S) int32 segment ids in ``n_seg`` runs; from batch row 1 on, pad
+    slots (0) interleaved in runs of 4 to 12, as windowized images leave them."""
+    rows = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S), n_seg - 1, replace=False))
+        for i, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, S])):
+            rows[b, lo:hi] = i + 1
+        if b > 0:
+            for start in rng.choice(S - 12, 4, replace=False):
+                rows[b, start : start + rng.integers(4, 13)] = 0
+    return rows
+
+
+def _allowed(rows, seg, causal, window):
+    """(B, query, key) bool: which keys count for which queries."""
+    S = rows.shape[1]
+    ok = np.broadcast_to((rows != 0)[:, None, :], (rows.shape[0], S, S)).copy()
+    if seg:
+        ok &= rows[:, None, :] == rows[:, :, None]
+    pos = np.arange(S)
+    if causal:
+        ok &= pos[None, None, :] <= pos[None, :, None]
+        if window is not None:
+            ok &= pos[None, None, :] > pos[None, :, None] - window
+    return ok
+
+
+MASK_BWD_CASES = {
+    # name: (B, S, H, Hk, D, causal, window, layout, segments per row)
+    "segments_d80_pads": (2, 256, 2, 2, 80, False, None, "segments", 1),
+    "segments_frames_gqa_d64": (2, 256, 4, 2, 64, False, None, "segments", 3),
+    "key_mask_d80_pads": (2, 256, 2, 2, 80, False, None, "arbitrary", 1),
+    "key_mask_gqa_d128": (2, 256, 4, 1, 128, False, None, "arbitrary", 1),
+    "key_mask_causal_window_d96": (2, 256, 4, 4, 96, True, 40, "arbitrary", 1),
+}
+
+
+def _mask_bwd_inputs(case):
+    B, S, H, Hk, D, causal, window, layout, n_seg = MASK_BWD_CASES[case]
+    rng = np.random.default_rng(21)
+    q, g = _np(rng, B, S, H, D), _np(rng, B, S, H, D)
+    k, v = _np(rng, B, S, Hk, D), _np(rng, B, S, Hk, D)
+    rows = _mask_rows(B, S, rng, n_seg)
+    seg = layout == "segments"
+    mask = rows if seg else (rows != 0).astype(np.int32)
+    has_key = _allowed(rows, seg, causal, window).any(-1)  # (B, S) queries with a key
+    if causal:  # tile skipping: a keyless row's p depends on the keys visited
+        g = g * has_key[:, :, None, None]
+    return (q, k, v, g), mask, has_key, rows != 0, (causal, window, D ** -0.5, seg)
+
+
+@pytest.mark.parametrize("case", sorted(MASK_BWD_CASES))
+def test_plain_bwd_mask_modes_match_interpreted_pallas(case):
+    (q, k, v, g), mask, has_key, key_valid, (causal, window, scale, seg) = _mask_bwd_inputs(case)
+    B, S = mask.shape
+    if seg:
+        assert not has_key.all()  # pad queries with g != 0 are in the case
+    kv0 = np.zeros(B, np.int32)
+    ref = jfa._flash_bwd(*map(jnp.asarray, (q, k, v, g)), jnp.asarray(kv0), jnp.asarray(mask),
+                         causal, window, scale, segments=seg)
+    hm = lambda x: torch.from_numpy(x).transpose(1, 2)  # noqa: E731
+    tfa.reset_counters()
+    got = tfa.flash_bwd(hm(q), hm(k), hm(v), hm(g), torch.from_numpy(kv0), causal=causal,
+                        sliding_window=window, scale=scale, q_len=S,
+                        key_mask=torch.from_numpy(mask), segments=seg)
+    assert tfa.PLAIN_CALLS["fa_bwd"] == 1 and tfa.LAUNCHES["fa_bwd"] == 0
+    for name, t, j, rows in zip("qkv", got, ref, (has_key, key_valid, key_valid)):
+        t, j = t.transpose(1, 2).numpy(), np.asarray(j)
+        assert np.isfinite(t).all(), name
+        np.testing.assert_allclose(t[rows], j[rows], rtol=TOL_F32, atol=TOL_F32,
+                                   err_msg=f"d{name}")
+
+
+def test_plain_bwd_segment_pad_queries_stay_finite_with_nonzero_g():
+    """A pad patch (segment id 0) has no key: its p is uniform from the
+    -1e30 fill, never NaN, also in a row that is all pad."""
+    rng = np.random.default_rng(22)
+    B, S, H, D = 2, 128, 2, 80
+    q, k, v, g = (torch.from_numpy(_np(rng, B, H, S, D)) for _ in range(4))
+    seg = torch.from_numpy(_mask_rows(B, S, rng, 2))
+    seg[0] = 0
+    out = tfa.flash_bwd(q, k, v, g, torch.zeros(B, dtype=torch.int32), causal=False,
+                        sliding_window=None, scale=D ** -0.5, q_len=S, key_mask=seg,
+                        segments=True)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+
+
+@pytest.mark.parametrize("layout", ["segments", "arbitrary"])
+def test_flash_attention_mask_layout_grads_match_jax(layout):
+    """``_FlashAttentionCore`` in the segment and key-mask modes (forward B3,
+    backward B8) against ``jax.value_and_grad`` of the JAX ``flash_attention``,
+    at Qwen2.5-VL's vision head_dim."""
+    B, S, H, D = 2, 256, 2, 80
+    rng = np.random.default_rng(23)
+    q, k, v, w = (_np(rng, B, S, H, D) for _ in range(4))
+    rows = _mask_rows(B, S, rng, 2 if layout == "segments" else 1)
+    mask = rows if layout == "segments" else (rows != 0).astype(np.int32)
+    if layout == "segments":
+        w = w * (rows != 0)[:, :, None, None]  # a pad query's output is not part of the loss
+
+    def jloss(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, key_padding_mask=jnp.asarray(mask),
+                                  mask_layout=layout)
+        return jnp.sum(out * w)
+
+    jval, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tfa.reset_counters()
+    out = tfa.flash_attention(*ts, key_padding_mask=torch.from_numpy(mask), mask_layout=layout)
+    tval = (out * torch.from_numpy(w)).sum()
+    tval.backward()
+    assert tfa.PLAIN_CALLS["fa_hm"] == 1 and tfa.PLAIN_CALLS["fa_bwd"] == 1
+    np.testing.assert_allclose(tval.item(), float(jval), rtol=TOL_F32)
+    valid = rows != 0
+    for name, t, j in zip("qkv", ts, jgrads):
+        np.testing.assert_allclose(t.grad.numpy()[valid], np.asarray(j)[valid], rtol=TOL_F32,
+                                   atol=TOL_F32, err_msg=f"d{name}")
 
 
 def _rope_tables(B, S, D):

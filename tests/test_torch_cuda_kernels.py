@@ -11,10 +11,16 @@ not a multiple of the 64-row tile, a query tile of pure left pad; B3's
 key-mask mode with interleaved pads, segment ids 1, 2, 3 and 0 in one row
 (video frames), segments with GQA, head_dim 80 causal with a window, and
 rows whose every key is masked (finite). The
-backward (B8): the same options and GQA n_rep 4, with g zeroed on fully
+backward (B8): the same options and GQA n_rep 4 and 7 (Qwen2.5-VL's 28/4
+at head_dim 128), with g zeroed on fully
 masked rows as on the training path, and finite outputs when g is not zero
-there. Every raw launch refuses an input that requires grad. W8A8:
-B4-B6 on f32 input, B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM at a
+there; its key-mask and segment modes (one and several segments per row,
+head_dim 80, GQA, ragged S) with g NOT zeroed on pad queries where every key
+tile is visited: dq on the queries that have a key, dk and dv on every valid
+key, so a pad query leaking into a valid key otherwise than in the plain
+version shows. Every raw launch refuses an input that requires grad. W8A8:
+B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
+B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM at a
 ragged M, at M < 16, at K and N that the 64 x 128 tiles do not divide and
 with f32 output; the weight quantizers on the card against the CPU's. And
 the wrappers' refusals. Inputs come from a seeded CUDA
@@ -26,9 +32,9 @@ points); pad rows must be finite. B8: |kernel - plain| <= 2^-7 |plain| +
 2^-8 max|plain| per gradient (one bf16 ulp of the output, plus the rare
 bf16 rounding of p or ds that the two take on either side of a boundary).
 B2 (RoPE + relayout), B6 (row quantize) and B7 (the int8 GEMM, integer
-sums) must be bit-exact. B4 sums x^2 in
-another order than its plain version: codes within one on under 0.1 % of
-elements, amax within one bf16 ulp. B5: codes within one on under 2 % of
+sums) must be bit-exact. B4 and B9 take
+their row sums in another order than their plain versions: codes within one
+on under 0.1 % of elements, amax within one bf16 ulp. B5: codes within one on under 2 % of
 elements (the JAX package's rule for sigmoid's rounding).
 
 Run on a machine with the card; these tests need no JAX, so the suite's
@@ -155,9 +161,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="key_mask must be"):
         fa._flash_fwd_hm(hm, hm, hm, kv, torch.ones(1, 63, device="cuda"), False, None,
                          0.125, q_len=64, segments=True)
+    hm48 = _randn(gen, 1, 2, 64, 48)
     with pytest.raises(ValueError, match="head_dim"):
-        hm48 = _randn(gen, 1, 2, 64, 48)
         fa._flash_fwd_hm(hm48, hm48, hm48, kv, None, False, None, 0.125, q_len=64)
+    bwd_kw = dict(causal=False, sliding_window=None, scale=0.125, q_len=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_bwd(hm48, hm48, hm48, hm48, kv, **bwd_kw)
+    with pytest.raises(ValueError, match="key_mask must be"):
+        fa.flash_bwd(hm, hm, hm, hm, kv, key_mask=torch.ones(2, 64, device="cuda"), **bwd_kw)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_bwd(hm, hm, hm, hm.float(), kv, **bwd_kw)
 
 
 def _mask_row(S, pattern):
@@ -226,6 +239,9 @@ BWD_CASES = {
     "gqa_rep4_noncausal_d128": (1, 192, 4, 1, 128, False, [0], 192, None),
     "ragged_s_qlen_tail_d64": (2, 200, 2, 2, 64, False, [0, 0], 170, None),
     "pad_tile_ragged_d128": (2, 200, 2, 1, 128, True, [0, 70], 200, None),
+    "gqa_rep7_leftpad_d128": (2, 448, 14, 2, 128, True, [0, 40], 448, None),
+    "d80_causal_window": (2, 256, 2, 1, 80, True, [0, 9], 256, 50),
+    "d80_noncausal_ragged": (1, 200, 2, 2, 80, False, [0], 200, None),
 }
 
 
@@ -258,6 +274,81 @@ def test_attention_bwd_kernel_matches_plain(gen, case):
         tol = BWD_RTOL * r.abs() + BWD_ATOL_SHARE * r.abs().max()
         err = (o - r).abs()
         assert bool((err <= tol).all()), f"{name}: max abs err {err.max().item():.3e}"
+
+
+MASK_BWD_CASES = {
+    # name: (B, S, H, Hk, D, causal, window, mask layout, pattern per batch row)
+    "key_mask_pads_d80": (2, 320, 2, 2, 80, False, None, "arbitrary", ("pads", "pads")),
+    "key_mask_gqa_rep4_d128": (2, 256, 4, 1, 128, False, None, "arbitrary", ("pads", "pads")),
+    "key_mask_causal_window_d96": (2, 256, 4, 4, 96, True, 40, "arbitrary", ("pads", "pads")),
+    "segments_one_d80": (2, 256, 2, 2, 80, False, None, "segments", ("pads", "pads")),
+    "segments_frames_d80": (2, 256, 2, 2, 80, False, None, "segments", ("frames", "pads")),
+    "segments_gqa_d64": (2, 192, 4, 2, 64, False, None, "segments", ("frames", "pads")),
+    "segments_d128_ragged": (1, 200, 2, 1, 128, False, None, "segments", ("frames",)),
+    "segments_all_pad_row_d80": (2, 128, 2, 2, 80, False, None, "segments", ("none", "pads")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASK_BWD_CASES))
+def test_masked_attention_bwd_kernel_matches_plain(gen, case):
+    """B8's key-mask and segment modes against the plain version. Non-causal
+    cases keep g on the pad queries: their uniform p reaches dk and dv of
+    every key, and must do so as in the plain version."""
+    B, S, H, Hk, D, causal, window, layout, patterns = MASK_BWD_CASES[case]
+    qt, gt = _randn(gen, B, H, S, D), _randn(gen, B, H, S, D)
+    kt, vt = _randn(gen, B, Hk, S, D), _randn(gen, B, Hk, S, D)
+    kv = torch.zeros(B, dtype=torch.int32, device="cuda")
+    seg = layout == "segments"
+    key_mask = torch.stack([_mask_row(S, p) for p in patterns]).cuda()
+    pos = torch.arange(S, device="cuda")
+    ok = (key_mask[:, None, :] != 0).expand(B, S, S).clone()  # (b, query, key)
+    if seg:
+        ok &= key_mask[:, None, :] == key_mask[:, :, None]
+    if causal:
+        ok &= pos[None, None, :] <= pos[None, :, None]
+        if window is not None:
+            ok &= pos[None, None, :] > pos[None, :, None] - window
+    has_key, key_valid = ok.any(-1), key_mask != 0
+    if causal:  # tile skipping: a keyless row's p depends on the keys visited
+        gt = gt * has_key[:, None, :, None].to(gt.dtype)
+    elif seg:
+        assert not bool(has_key.all())
+    kw = dict(causal=causal, sliding_window=window, scale=D ** -0.5, q_len=S,
+              key_mask=key_mask, segments=seg)
+    fa.reset_counters()
+    got = fa.flash_bwd(qt, kt, vt, gt, kv, **kw)
+    assert fa.LAUNCHES["fa_bwd"] == 1 and fa.PLAIN_CALLS["fa_bwd"] == 0
+    ref = fa.flash_bwd_plain(qt, kt, vt, gt, kv, **kw)
+    torch.cuda.synchronize()
+    for name, o, r, rows in zip(("dq", "dk", "dv"), got, ref, (has_key, key_valid, key_valid)):
+        assert bool(torch.isfinite(o).all()), name
+        if not bool(rows.any()):
+            continue
+        o, r = o.transpose(1, 2)[rows].float(), r.transpose(1, 2)[rows].float()
+        tol = BWD_RTOL * r.abs() + BWD_ATOL_SHARE * r.abs().max()
+        err = (o - r).abs()
+        assert bool((err <= tol).all()), f"{name}: max abs err {err.max().item():.3e}"
+
+
+def test_masked_flash_attention_runs_both_kernels_under_autograd(gen):
+    """``flash_attention(mask_layout="segments")`` on the card: B3 forward,
+    B8 backward in segment mode, gradients close to the plain route's."""
+    B, S, H, D = 2, 256, 2, 80
+    seg = torch.stack([_mask_row(S, "frames"), _mask_row(S, "pads")]).cuda()
+    w = _randn(gen, B, S, H, D) * (seg != 0)[:, :, None, None]
+    base = [_randn(gen, B, S, H, D) for _ in range(3)]
+    grads = []
+    for plain in (False, True):
+        ts = [t.clone().requires_grad_() for t in base]
+        fa.reset_counters()
+        out = fa.flash_attention(*ts, key_padding_mask=seg, mask_layout="segments", plain=plain)
+        (out.float() * w.float()).sum().backward()
+        counted = fa.PLAIN_CALLS if plain else fa.LAUNCHES
+        assert counted["fa_hm"] == 1 and counted["fa_bwd"] == 1
+        grads.append([t.grad.float() for t in ts])
+    torch.cuda.synchronize()
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 2 ** -6 * b.abs().max().item()
 
 
 @pytest.mark.parametrize("case", ["causal_leftpad_d96", "pad_tile_ragged_d128"])
@@ -312,6 +403,9 @@ def test_raw_launches_refuse_inputs_that_require_grad(gen):
         "fa_hm": lambda: fa._launch_fa_hm(hm, hm, hm, kv, True, None, 0.125, 64),
         "fa_bwd": lambda: fa._launch_fa_bwd(hm, hm, hm, hm, kv, True, None, 0.125, 64),
         "rms_quant": lambda: qe._launch_rms_quant(x, torch.ones(256, device="cuda"), 1e-5),
+        "ln_quant": lambda: qe._launch_ln_quant(
+            x.detach(), torch.ones(256, device="cuda", requires_grad=True),
+            torch.zeros(256, device="cuda"), 1e-5),
         "silu_mul_quant": lambda: qe._launch_silu_mul_quant(x),
         "row_quant": lambda: qe._launch_row_quant(x),
         "int8_matmul": lambda: im._launch(
@@ -345,12 +439,14 @@ def _check_codes(name, got, ref):
     if name == "row_quant":
         assert torch.equal(c, rc) and torch.equal(a, ra)
     else:
-        assert d.max().item() <= 1 and share < (1e-3 if name == "rms_quant" else 0.02), share
+        limit = 1e-3 if name in ("rms_quant", "ln_quant") else 0.02
+        assert d.max().item() <= 1 and share < limit, share
         assert torch.allclose(a, ra, rtol=2 ** -7, atol=0)
-    assert float(a[c.shape[0] // 2]) == 1.0 and not bool(c[c.shape[0] // 2].any())
+    if name != "ln_quant":  # LayerNorm of a zero row is the bias
+        assert float(a[c.shape[0] // 2]) == 1.0 and not bool(c[c.shape[0] // 2].any())
 
 
-@pytest.mark.parametrize("name", ["rms_quant", "silu_mul_quant", "row_quant"])
+@pytest.mark.parametrize("name", ["rms_quant", "silu_mul_quant", "row_quant", "ln_quant"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_quant_epilogue_kernels_match_plain(gen, name, dtype):
     M, H = 77, 384
@@ -359,6 +455,11 @@ def test_quant_epilogue_kernels_match_plain(gen, name, dtype):
         x = _rows(gen, M, H, dtype)
         w = torch.randn(H, generator=gen, device="cuda").to(dtype)
         got, ref = qe.rms_quant(x, w, 1e-5), qe.rms_quant_plain(x, w, 1e-5)
+    elif name == "ln_quant":
+        x = _rows(gen, M, H, dtype)
+        w = torch.randn(H, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(H, generator=gen, device="cuda").mul_(0.1).to(dtype)
+        got, ref = qe.ln_quant(x, w, b, 1e-5), qe.ln_quant_plain(x, w, b, 1e-5)
     elif name == "silu_mul_quant":
         x = _rows(gen, M, 2 * H, dtype)
         got, ref = qe.silu_mul_quant(x), qe.silu_mul_quant_plain(x)
@@ -368,6 +469,23 @@ def test_quant_epilogue_kernels_match_plain(gen, name, dtype):
     assert qe.LAUNCHES[name] == 1 and qe.PLAIN_CALLS[name] == 1
     torch.cuda.synchronize()
     _check_codes(name, got, ref)
+
+
+def test_ln_quant_kernel_zero_row_and_leading_axes(gen):
+    """B9 at CLIP's width on a (crops, tokens, H) input with an odd row
+    count; a zero row under a zero bias takes amax := 1 and zero codes."""
+    N, S, H = 3, 37, 1024
+    x = _rows(gen, N * S, H, torch.bfloat16).reshape(N, S, H)
+    w = torch.randn(H, generator=gen, device="cuda").bfloat16()
+    b = torch.zeros(H, device="cuda", dtype=torch.bfloat16)
+    codes, amax = qe.ln_quant(x, w, b, 1e-5)
+    assert tuple(codes.shape) == (N, S, H) and tuple(amax.shape) == (N, S, 1)
+    torch.cuda.synchronize()
+    rc, ra = qe.ln_quant_plain(x, w, b, 1e-5)
+    _check_codes("ln_quant", (codes.reshape(-1, H), amax.reshape(-1, 1)),
+                 (rc.reshape(-1, H), ra.reshape(-1, 1)))
+    zero = (N * S) // 2
+    assert float(amax.reshape(-1)[zero]) == 1.0 and not bool(codes.reshape(-1, H)[zero].any())
 
 
 @pytest.mark.parametrize("I", [256, 18944])
@@ -438,3 +556,8 @@ def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(gen):
         qe.row_quant(attn.reshape(2, 4, 64 * 128)[:, :, :256])
     with pytest.raises(ValueError, match="not contiguous"):
         qe.row_quant(attn)
+    x = _randn(gen, 8, 1024)
+    with pytest.raises(ValueError, match="weight and bias"):
+        qe.ln_quant(x, torch.ones(1024, device="cuda"), torch.zeros(512, device="cuda"))
+    with pytest.raises(ValueError, match="f32/bf16"):
+        qe.ln_quant(x.half(), torch.ones(1024, device="cuda"), torch.zeros(1024, device="cuda"))

@@ -1,4 +1,4 @@
-"""The plain versions of the port's W8A8 kernels (B4-B7) against the JAX
+"""The plain versions of the port's W8A8 kernels (B4-B7, B9) against the JAX
 package's Pallas kernels run in interpret mode, and the W8A8 decoder and
 reward forward against the JAX package's, on the CPU. Inputs come from a
 numpy seed and include a zero row and a row count (200) that no power of
@@ -10,6 +10,9 @@ Rules, kernel by kernel:
   (torch and XLA may sum x^2 in other orders, which can move a value across
   a rounding boundary), amax within rtol 1e-6 (f32 input) or one bf16 ulp
   (bf16 input, where y is rounded to bf16 before the max);
+- B9 ``ln_quant``: B4's code rule (the row mean and the centred variance are
+  sums too); amax within rtol 1e-6 for f32 and for bf16 input, because y is
+  NOT rounded to bf16 before the max; a zero row quantizes the bias;
 - B5 ``silu_mul_quant``: within one code on under 2 % of elements
   (``tests/test_quant_epilogue.py``: sigmoid rounds differently between
   backends);
@@ -97,6 +100,44 @@ def test_rms_quant_plain_matches_pallas(dtype, M):
     assert _np(ts)[5, 0] == 1.0
 
 
+@pytest.mark.parametrize("M", [64, 200, 37])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ln_quant_plain_matches_pallas(dtype, M):
+    xj, xt = _inputs(8, M, 384, dtype)
+    rng = np.random.default_rng(9)
+    w, b = (rng.standard_normal(384).astype(np.float32) * s for s in (1.0, 0.1))
+    wj, bj = (jnp.asarray(a).astype(DTYPES[dtype]) for a in (w, b))
+    wt, bt = (to_torch({"a": np.asarray(a)}, device="cpu")["a"] for a in (wj, bj))
+    jc, js = jqe.ln_quant(xj, wj, bj, 1e-5, interpret=True)
+    tqe.reset_counters()
+    tc, ts = tqe.ln_quant(xt, wt, bt, 1e-5)
+    assert tqe.PLAIN_CALLS["ln_quant"] == 1 and tqe.LAUNCHES["ln_quant"] == 0
+    assert tc.dtype == torch.int8 and tuple(ts.shape) == (M, 1) and ts.dtype == torch.float32
+    dmax, share = _codes_gap(tc, jc)
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+    np.testing.assert_allclose(_np(ts), np.asarray(js), rtol=1e-6, atol=0)
+    # the zero row is LayerNorm's bias, quantized
+    bias = np.asarray(bj, np.float32)
+    assert _np(ts)[5, 0] == np.abs(bias).max()
+    np.testing.assert_array_equal(_np(tc)[5], np.round(bias * (127.0 / np.abs(bias).max())))
+
+
+def test_ln_quant_plain_zero_row_zero_bias_and_leading_axes():
+    """amax := 1 and zero codes for a row LayerNorm maps to zero; leading
+    axes are kept, as the tower's (crops, tokens, H) input has them."""
+    x = np.random.default_rng(10).standard_normal((3, 7, 256)).astype(np.float32)
+    x[1, 2] = 0.0
+    w, b = np.ones(256, np.float32), np.zeros(256, np.float32)
+    jc, js = jqe.ln_quant(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5, interpret=True)
+    tc, ts = tqe.ln_quant(*map(torch.from_numpy, (x, w, b)), 1e-5)
+    assert tuple(tc.shape) == (3, 7, 256) and tuple(ts.shape) == (3, 7, 1)
+    assert float(ts[1, 2, 0]) == 1.0 and not bool(tc[1, 2].any())
+    dmax, share = _codes_gap(tc, jc)
+    assert dmax <= 1 and share < 1e-3, (dmax, share)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+    assert tqe.supported(torch.zeros(2, 256)) and not tqe.supported(torch.zeros(2, 200))
+
+
 @pytest.mark.parametrize("M", [64, 200])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_silu_mul_quant_plain_matches_pallas(dtype, M):
@@ -144,14 +185,12 @@ def test_int8_matmul_plain_matches_pallas_and_xla(dtype, M, K, N):
 
 N_IMG = 313  # 1x1 crop grid: (1+1)*144 + 1 + 2*12
 CFG_KW = dict(hidden_size=128, intermediate_size=256)  # 128-multiples: the epilogue gate
+TOWER_KW = dict(CFG_KW, vision_hidden=128)  # the CLIP tower at a 128-multiple too
 
 
-@pytest.fixture(scope="module")
-def w8a8():
-    """The tiny reward tree with its decoder quantized W8A8 by the JAX
-    package, as numpy; the port gets the same tree through io.convert."""
-    jcfg = phi3v_tiny_config(**CFG_KW)
-    tcfg = tconfig.phi3v_tiny_config(**CFG_KW)
+def _w8a8_tree(cfg_kw, tower: bool):
+    jcfg = phi3v_tiny_config(**cfg_kw)
+    tcfg = tconfig.phi3v_tiny_config(**cfg_kw)
     kw = dict(is_general_preference=True, value_head_dim=2, add_cross_attention=True,
               layer_id=jcfg.decoder.num_layers)
     jr, tr = JRewardConfig(**kw), tconfig.RewardConfig(**kw)
@@ -162,7 +201,24 @@ def w8a8():
     tree = jax.tree_util.tree_map(np.asarray, tree)
     dec = tree["backbone"]["decoder"]
     dec["layers"] = jq.quantize_stacked_layers(dec["layers"], scheme="w8a8", min_size=0)
+    if tower:
+        clip = tree["backbone"]["vision"]["clip"]
+        clip["layers"] = jq.quantize_stacked_layers(clip["layers"], scheme="w8a8", min_size=0)
     return jcfg, tcfg, jr, tr, tree, to_torch(tree, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def w8a8():
+    """The tiny reward tree with its decoder quantized W8A8 by the JAX
+    package, as numpy; the port gets the same tree through io.convert."""
+    return _w8a8_tree(CFG_KW, tower=False)
+
+
+@pytest.fixture(scope="module")
+def w8a8_tower():
+    """The same with the CLIP tower (hidden 128) quantized W8A8 as well, as
+    the JAX package's tests build that configuration."""
+    return _w8a8_tree(TOWER_KW, tower=True)
 
 
 def _jtree(tree):
@@ -208,9 +264,9 @@ def test_w8a8_decoder_matches_jax(w8a8, route, monkeypatch):
                       torch.from_numpy(mask), torch.from_numpy(pos), attn_impl=impl)
     L = jcfg.decoder.num_layers
     if route == "epilogue":
-        want = {"rms_quant": 2 * L, "silu_mul_quant": L, "row_quant": L}
+        want = {"rms_quant": 2 * L, "silu_mul_quant": L, "row_quant": L, "ln_quant": 0}
     else:  # the dynamic form quantizes each projection's input by rows
-        want = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 4 * L}
+        want = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 4 * L, "ln_quant": 0}
     assert tqe.PLAIN_CALLS == want and tim.PLAIN_CALLS == {"int8_matmul": 4 * L}
     assert not any(tqe.LAUNCHES.values()) and not any(tim.LAUNCHES.values())
     valid = mask.astype(bool)
@@ -233,10 +289,8 @@ def _batch(cfg, pads, nimgs, S=384, seed=0):
     return (ids, mask, pix, gidx, splice, np.asarray(nimgs, np.int32))
 
 
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_w8a8_reward_slice_matches_jax(w8a8, route, monkeypatch):
-    """Two pairs, chosen rows first, through RewardAdaptor.make_score_fn."""
-    jcfg, tcfg, jr, tr, tree, ttree = w8a8
+def _reward_slice(fixture, route, monkeypatch):
+    jcfg, tcfg, jr, tr, tree, ttree = fixture
     impl, patch = ROUTES[route]
     fields = _batch(jcfg, [0, 30, 12, 0], [N_IMG, N_IMG - 40, N_IMG - 7, N_IMG], seed=7)
     if patch:
@@ -253,3 +307,22 @@ def test_w8a8_reward_slice_matches_jax(w8a8, route, monkeypatch):
     pj = np.asarray(j_pref(jnp.asarray(j[:2]), jnp.asarray(j[2:]), **kw))
     pt = t_pref(torch.from_numpy(t[:2]), torch.from_numpy(t[2:]), **kw).numpy()
     assert ((pj > 0.5) == (pt > 0.5)).all()
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_w8a8_reward_slice_matches_jax(w8a8, route, monkeypatch):
+    """Two pairs, chosen rows first, through RewardAdaptor.make_score_fn."""
+    _reward_slice(w8a8, route, monkeypatch)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_w8a8_tower_and_decoder_reward_slice_matches_jax(w8a8_tower, route, monkeypatch):
+    """The same request with the CLIP tower W8A8 too: on the epilogue route
+    ln2 -> fc1 goes through ``ln_quant`` in both packages (JAX's runs
+    interpreted). The tower's flipped codes (see HIDDEN_TOL above) add to the
+    decoder's: the rewards differed by up to 7.6e-4 over both routes, within the
+    same REWARD_TOL, and the decisions agree."""
+    tqe.reset_counters()
+    _reward_slice(w8a8_tower, route, monkeypatch)
+    L = w8a8_tower[0].vision.num_active_layers
+    assert tqe.PLAIN_CALLS["ln_quant"] == (L if route == "epilogue" else 0)

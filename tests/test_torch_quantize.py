@@ -8,7 +8,8 @@
 - the straight-through backward of ``int8_linear`` matches ``jax.grad``
   within 1e-5 relative (fp32 sums in another order);
 - quantized trees cross ``io.convert`` in both directions bit for bit;
-- a W8A8 leaf in the CLIP tower raises (ROADMAP B9).
+- a quantized CLIP tower tree (``{'kernel', 'bias'}`` leaves) likewise; the
+  W8A8 tower's forward is held to JAX's in tests/test_torch_models.py.
 Weights and inputs come from a numpy seed."""
 
 import ml_dtypes
@@ -20,9 +21,9 @@ import jax
 import jax.numpy as jnp
 
 from llava_reward_tpu.core.config import phi3v_tiny_config
+from llava_reward_tpu.models import clip_vit as jclip
 from llava_reward_tpu.models import phi3 as jphi3
 from llava_reward_tpu.utils import quantize as jq
-from llava_reward_torch.core import config as tconfig
 from llava_reward_torch.io.convert import to_numpy, to_torch
 from llava_reward_torch.models import clip_vit as tclip
 from llava_reward_torch.utils import quantize as tq
@@ -155,11 +156,27 @@ def test_quantized_trees_cross_convert_both_ways(name):
         assert ft[k].dtype == fb[k].dtype and torch.equal(ft[k], fb[k]), k
 
 
-def test_w8a8_clip_weights_raise():
-    cfg = tconfig.phi3v_tiny_config()
-    params = tclip.init_params(cfg.vision, torch.Generator().manual_seed(0), device="cpu")
-    fc1 = params["layers"]["mlp"]["fc1"]
-    fc1["kernel"] = tq.quantize_array_w8a8(fc1["kernel"])
-    pix = torch.zeros(1, 336, 336, 3)
-    with pytest.raises(NotImplementedError, match="B9"):
-        tclip.extract_patch_features(params, cfg.vision, pix)
+def _clip_layers():
+    cfg = phi3v_tiny_config(vision_hidden=128).vision
+    tree = jclip.init_params(jax.random.PRNGKey(2), cfg, jnp.float32)["layers"]
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("name", ["w8a8", "int8"])
+def test_quantized_clip_trees_cross_convert_both_ways(name):
+    """The CLIP tower's ``{'kernel', 'bias'}`` leaves quantize to the JAX
+    package's codes and scales and cross ``io.convert`` bit for bit; norms
+    and biases stay dense."""
+    scheme, bits = SCHEMES[name]
+    kw = dict(bits=bits, scheme=scheme, min_size=0)
+    jl = jq.quantize_stacked_layers(_clip_layers(), **kw)
+    tl = tq.quantize_stacked_layers(to_torch(_clip_layers(), device="cpu"), **kw)
+    _assert_trees_equal(tl, jl)
+    _assert_trees_equal(to_torch(jl, device="cpu"), jl)
+    back = to_torch(to_numpy(tl), device="cpu")
+    ft, fb = _flat(tl), _flat(back)
+    assert ft.keys() == fb.keys()
+    for k in ft:
+        assert ft[k].dtype == fb[k].dtype and torch.equal(ft[k], fb[k]), k
+    assert (tq.is_w8a8 if name == "w8a8" else tq.is_quantized)(tl["attn"]["q"]["kernel"])
+    assert not isinstance(tl["attn"]["q"]["bias"], dict) and not isinstance(tl["ln1"]["weight"], dict)

@@ -121,15 +121,21 @@ def test_fully_masked_rows_are_finite():
 
 
 def test_masked_modes_have_no_backward_yet():
-    """B8's mask modes come with Qwen training: the backward raises, the
-    left-pad layout keeps its gradient."""
+    """Until B8 had its mask modes this backward raised; now the segment and
+    key-mask layouts are differentiable like the left-pad one (their
+    gradients are held to JAX's in tests/test_torch_attention_bwd.py), and
+    an unknown layout still raises."""
     rng = np.random.default_rng(14)
     q, k, v = (_t(_np(rng, 1, 64, 2, 64)).requires_grad_() for _ in range(3))
     mask = torch.ones(1, 64, dtype=torch.int32)
-    out = tfa.flash_attention(q, k, v, key_padding_mask=mask, mask_layout="segments")
-    with pytest.raises(NotImplementedError, match="Qwen2.5-VL training"):
-        out.sum().backward()
-    tfa.flash_attention(q, k, v, key_padding_mask=mask).sum().backward()
-    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    mask[0, 7:19] = 0
+    for layout in ("segments", "arbitrary", "leftpad"):
+        tfa.reset_counters()
+        m = mask if layout != "leftpad" else torch.ones_like(mask)
+        tfa.flash_attention(q, k, v, key_padding_mask=m, mask_layout=layout).sum().backward()
+        assert tfa.PLAIN_CALLS["fa_bwd"] == 1
+        for t in (q, k, v):
+            assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+            t.grad = None
     with pytest.raises(ValueError, match="mask_layout"):
         tfa.flash_attention(q, k, v, key_padding_mask=mask, mask_layout="ragged")

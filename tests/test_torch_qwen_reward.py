@@ -198,9 +198,9 @@ def test_w8a8_score_fn_matches_jax(route, monkeypatch):
     j, t = _score_both(setup, fields, "pallas" if route == "epilogue" else "auto", "xla", 2)
     L = setup[1].text.num_layers
     if route == "epilogue":  # B4 x2, B5 and o_proj's dynamic form (B6 + GEMM)
-        want = {"rms_quant": 2 * L, "silu_mul_quant": L, "row_quant": L}
+        want = {"rms_quant": 2 * L, "silu_mul_quant": L, "row_quant": L, "ln_quant": 0}
     else:
-        want = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 4 * L}
+        want = {"rms_quant": 0, "silu_mul_quant": 0, "row_quant": 4 * L, "ln_quant": 0}
     assert tqe.PLAIN_CALLS == want and tim.PLAIN_CALLS == {"int8_matmul": 4 * L}
     _assert_parity(j, t, 2, tol=W8A8_TOL)
 

@@ -7,6 +7,10 @@ the CPU, at a tiny text-only config.
   the artifact's bf16, so bit for bit); an artifact written by the JAX
   package (heads, SkipCA, prompt head, projector, LoRA) loads into the port
   equal to it.
+- the same both ways for a Qwen2.5-VL artifact: ``QWEN_TARGETS`` adapters, the
+  merger's five ``visual.merger.*`` keys (``--ft_projector``), read by the JAX
+  package's ``load_qwen_merger_params``, and ``merge_for_scoring`` of the read
+  back artifact scores like the trained tree.
 - ``reward_config.yaml``, written and read by hand (no PyYAML on the card),
   round-trips through ``yaml.safe_load`` / ``yaml.safe_dump`` both ways.
 - ``save_train_ckpt`` then a new trainer's ``load_train_ckpt`` + ``fit``
@@ -23,11 +27,12 @@ import torch
 import yaml
 
 from llava_reward_tpu.core.config import RewardConfig as JRewardConfig
-from llava_reward_tpu.core.config import phi3v_tiny_config
+from llava_reward_tpu.core.config import phi3v_tiny_config, qwen_tiny_config
 from llava_reward_tpu.io import artifact as jart
 from llava_reward_tpu.io.torch_io import load_torch_state_dict
 from llava_reward_tpu.lora import lora as jlora
 from llava_reward_tpu.models import phi3v as jphi3v
+from llava_reward_tpu.models import qwen25_vl as jqwen
 from llava_reward_tpu.reward.model import init_head_params as j_init_head
 from llava_reward_torch.core import config as tconfig
 from llava_reward_torch.io import artifact as tart
@@ -183,3 +188,137 @@ def test_clean_old_checkpoints_keeps_the_newest(tiny, tmp_path):
         os.utime(d, (i, i))
     trainer.clean_old_checkpoints()
     assert sorted(os.listdir(out)) == ["global_step2", "global_step3"]
+
+
+# ------------------------------------------------------------------ Qwen2.5-VL
+
+QWEN_RCFG = dict(is_general_preference=True, value_head_dim=2, add_cross_attention=True)
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    jcfg, tcfg = qwen_tiny_config(num_layers=2), tconfig.qwen_tiny_config(num_layers=2)
+    kw = dict(QWEN_RCFG, layer_id=jcfg.text.num_layers)
+    jr, tr = JRewardConfig(**kw), tconfig.RewardConfig(**kw)
+    backbone = _np(jqwen.init_params(jax.random.PRNGKey(0), jcfg))
+    head = _np(j_init_head(jax.random.PRNGKey(1), jcfg, jr))
+    lora = _np(jlora.init_lora(jax.random.PRNGKey(2), jcfg.text, 4, 8,
+                               targets=jlora.QWEN_TARGETS))
+    return jcfg, tcfg, jr, tr, backbone, head, lora
+
+
+def _qwen_loader(cfg, n, seed=0):
+    """Collated qwen pairs (one 8 x 12 and one 6 x 12 patch image, the rejected
+    side left-padded), as the host collator hands them to the trainer."""
+    from llava_reward_torch.preprocess.collate import collate_qwen_samples
+    from test_torch_qwen_model import image_sample
+
+    rng = np.random.default_rng(seed)
+
+    def side(grid, pad):
+        units = (grid[1] // 2) * (grid[2] // 2)
+        sample = image_sample(cfg, rng, grid, n_before=2, n_after=64 - 3 - units - pad)
+        return collate_qwen_samples([sample], 64, cfg.text.pad_token_id, patch_budget=128,
+                                    unit_budget=24)
+
+    return [(side((1, 8, 12), 0), side((1, 6, 12), 7), np.array([1.0]), np.array([0.0]))
+            for _ in range(n)]
+
+
+def test_qwen_fit_writes_an_artifact_the_jax_package_reads(qwen, tmp_path):
+    from llava_reward_torch.evalx.adaptor import RewardAdaptor, merge_for_scoring
+    from llava_reward_torch.preprocess.collate import to_reward_batch
+
+    jcfg, tcfg, jr, tr, backbone, head, lora = qwen
+    frozen = {"backbone": to_torch(backbone, "cpu")}
+    trainable = to_torch({"head": head, "lora": lora,
+                          "projector": backbone["visual"]["merger"]}, "cpu")
+    loader = _qwen_loader(tcfg, 2)
+    loss_fn = tts.make_pairwise_loss_fn(tcfg, tr, remat=True,
+                                        projector_path=tts.PROJECTOR_PATHS["qwen"])
+    trainer = RewardTrainer(
+        cfg=tcfg, rcfg=tr, frozen=frozen, trainable=trainable,
+        tx=toptim.make_optimizer(1e-2, 10, warmup_ratio=0.0), loss_fn=loss_fn,
+        train_loader=loader, eval_loader=loader[:1], save_path=str(tmp_path / "out"),
+        lora_rank=4, lora_alpha=8, model_type="qwen", device="cpu")
+    state = trainer.fit()
+    assert state.step == 2
+    assert set(trainer.evaluate()) >= {"eval_acc", "eval_mean_prob"}
+    path = str(tmp_path / "out" / "epoch_0")
+    assert tart.check_artifact_keys(path) == [] and jart.check_artifact_keys(path) == []
+    sd = load_torch_state_dict(os.path.join(path, "pytorch_model.bin"))
+    assert {k for k in sd if "merger" in k} == {
+        "visual.merger.ln_q.weight", "visual.merger.mlp.0.weight", "visual.merger.mlp.0.bias",
+        "visual.merger.mlp.2.weight", "visual.merger.mlp.2.bias"}
+
+    trained = state.trainable
+    merger = jart.load_qwen_merger_params(path)
+    np.testing.assert_array_equal(merger["ln_q"], _bf16(trained["projector"]["ln_q"].detach()))
+    for fc in ("fc1", "fc2"):
+        for leaf in ("kernel", "bias"):
+            np.testing.assert_array_equal(merger[fc][leaf],
+                                          _bf16(trained["projector"][fc][leaf].detach()))
+    assert not np.array_equal(merger["fc1"]["kernel"],
+                              _bf16(backbone["visual"]["merger"]["fc1"]["kernel"]))
+    adapter = load_torch_state_dict(os.path.join(path, "lora", "adapter_model.bin"))
+    back = jlora.peft_state_to_stacked(adapter, jcfg.text, 8, 4, targets=jlora.QWEN_TARGETS)
+    for name, t in trained["lora"].items():
+        np.testing.assert_array_equal(back[name]["a"], _bf16(t["a"].detach()))
+        np.testing.assert_array_equal(back[name]["b"], _bf16(t["b"].detach()))
+    with open(os.path.join(path, "lora", "adapter_config.json")) as f:
+        assert json.load(f) == jlora.peft_adapter_config(4, 8, 0.05, targets=jlora.QWEN_TARGETS)
+    assert jart.load_reward_config(path).to_contract_dict() == tr.to_contract_dict()
+
+    # what training wrote, read back, merged and fused, scores like the trained
+    # tree with its inline adapters (up to the artifact's bf16 rounding)
+    t_sd = torch.load(os.path.join(path, "lora", "adapter_model.bin"), weights_only=True)
+    t_lora = tlora.peft_state_to_stacked(t_sd, tcfg.text, 8, 4, targets=tlora.QWEN_TARGETS,
+                                         device="cpu")
+    scored = {"backbone": merge_for_scoring(
+        frozen["backbone"], "qwen", lora=t_lora,
+        projector=tart.load_qwen_merger_params(path, device="cpu")),
+        "head": tart.load_head_params(path, tr, device="cpu")}
+    assert "qkv_proj" in scored["backbone"]["text"]["layers"]
+    batch = loader[0][0]
+    got = RewardAdaptor(tcfg, tr, scored, model_type="qwen", device="cpu").make_score_fn()(
+        scored, to_reward_batch(batch, device="cpu"))
+    params, inline, _ = tts.assemble_params(frozen, trained, tts.PROJECTOR_PATHS["qwen"])
+    from llava_reward_torch.reward.model import reward_forward
+    with torch.no_grad():
+        want = reward_forward(params, tcfg, tr, to_reward_batch(batch, device="cpu"),
+                              lora=inline).reward
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=5e-3)
+
+
+def test_jax_qwen_artifact_loads_into_the_port(qwen, tmp_path):
+    jcfg, tcfg, jr, tr, backbone, head, lora = qwen
+    merger = backbone["visual"]["merger"]
+    path = str(tmp_path / "jax_qwen")
+    jart.save_reward_artifact(
+        path, jr, head, projector_params=merger, model_type="qwen",
+        lora_state=jlora.stacked_to_peft_state(lora, jcfg.text),
+        lora_config=jlora.peft_adapter_config(4, 8, 0.05, targets=jlora.QWEN_TARGETS))
+    assert tart.check_artifact_keys(path) == []
+    t_merger = tart.load_qwen_merger_params(path, device="cpu")
+    assert set(t_merger) == {"ln_q", "fc1", "fc2"}
+    np.testing.assert_array_equal(t_merger["ln_q"].numpy(), _bf16(merger["ln_q"]))
+    for fc in ("fc1", "fc2"):
+        for leaf in ("kernel", "bias"):
+            np.testing.assert_array_equal(t_merger[fc][leaf].numpy(), _bf16(merger[fc][leaf]))
+    assert tart.load_projector_params(path, device="cpu") is None  # no img_projection keys
+    sd = torch.load(os.path.join(path, "lora", "adapter_model.bin"), weights_only=True)
+    t_lora = tlora.peft_state_to_stacked(sd, tcfg.text, 8, 4, targets=tlora.QWEN_TARGETS,
+                                         device="cpu")
+    assert set(t_lora) == set(lora)
+    for name in lora:
+        np.testing.assert_array_equal(t_lora[name]["a"].numpy(), _bf16(lora[name]["a"]))
+    t_head = tart.load_head_params(path, tr, device="cpu")
+    np.testing.assert_array_equal(t_head["value_head"]["kernel"].numpy(),
+                                  _bf16(head["value_head"]["kernel"]))
+
+
+def test_trainer_refuses_a_family_it_cannot_train(qwen):
+    jcfg, tcfg, jr, tr, *_ = qwen
+    with pytest.raises(NotImplementedError, match="llava"):
+        RewardTrainer(cfg=tcfg, rcfg=tr, frozen={}, trainable={"head": {}}, tx=toptim.make_optimizer(
+            1e-3, 2), loss_fn=None, train_loader=[], model_type="llava", device="cpu")

@@ -3,7 +3,8 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card: nvidia-smi name and power limit, torch / CUDA versions;
-  2. build the hand-written CUDA kernels from llava_reward_torch/csrc/;
+  2. build the hand-written CUDA kernels from llava_reward_torch/csrc/ and
+     print each kernel's registers and spills as ptxas reports them;
   3. hold each kernel against its plain PyTorch version on the card, in
      bf16, at the serving path's shapes (with left-padded rows), and time
      kernel, plain version and one library call beside the card's bound;
@@ -13,7 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      the backward (B8) in its segment and key-mask modes at the Qwen2.5-VL
      vision tower's full blocks (2, 16, 1280, 80; 272 pad patches in one row,
      g kept on the pad queries) and in left-pad mode at its decoder's GQA
-     shape (2, 28/4, 1792, 128);
+     shape (2, 28/4, 1792, 128); B8 also runs twice on the same inputs (its
+     fp32 sums take the order blocks finish: the largest difference is
+     printed) and its three launches are timed apart with torch.profiler;
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -87,6 +90,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -290,9 +294,42 @@ def phase_build() -> None:
     cuda_lib.load()
     say("build", f"kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {cuda_lib.build_seconds if cuda_lib.build_seconds is not None else 'cached'})")
-    for line in cuda_lib.build_logs().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            say("ptxas", line.strip())
+    spilled = []
+    for line in _ptxas_lines(cuda_lib.build_logs()):
+        say("ptxas", line)
+        if "error" not in line and " 0 bytes spill stores" not in line:
+            spilled.append(line.split(":")[0])
+    say("ptxas", f"kernels that spill: {', '.join(spilled) or 'none'}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``fa_bwd_main_kernel<64,0>`` from an Itanium-mangled kernel name."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group(0))):  # the run may end a previous name
+            n = int(m.group(0)[i:])
+            ident, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+            if ident.endswith("_kernel") and len(ident) == n:
+                args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+                targs = re.findall(r"L[a-z]+(\d+)E", args.group(1)) if args else []
+                return ident + (f"<{','.join(targs)}>" if targs else "")
+    return mangled
+
+
+def _ptxas_lines(log: str):
+    """One line per kernel from ptxas -v: its name, registers, barriers and
+    shared memory, then its stack frame and spill stores / loads."""
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = _kernel_name(m.group(1)), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
+            name = None
+        elif "error" in line:
+            yield line.strip()
 
 
 # ------------------------------------------------------------------ phase 3
@@ -568,11 +605,14 @@ def check_quant_epilogues(gen, dcfg, M):
     bf = torch.bfloat16
     x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
+    # B4 is timed twice more (100 launches each) to show the spread of one run
+    spread = [time_ms(lambda: qe.rms_quant(x, w, eps), iters=100) for _ in range(2)]
     rows = [_codes_report(
         f"B4 rms_quant ({M},{H}) bf16", "rms_quant", qe.rms_quant(x, w, eps),
         qe.rms_quant_plain(x, w, eps), time_ms(lambda: qe.rms_quant(x, w, eps)),
         time_ms(lambda: qe.rms_quant_plain(x, w, eps), iters=3, warmup=1),
-        M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H, f"zero rows every {M // 4}")]
+        M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H,
+        f"zero rows every {M // 4}; 100-launch repeats {spread[0]:.4f} / {spread[1]:.4f} ms")]
     gu = _zero_rows(torch.randn(M, 2 * I, generator=gen, device="cuda", dtype=bf).mul_(2))
     rows.append(_codes_report(
         f"B5 silu_mul_quant ({M},{2 * I}) bf16", "silu_mul_quant", qe.silu_mul_quant(gu),
@@ -717,6 +757,11 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segm
               segments=segments)
     run = lambda: fa.flash_bwd(q, k, v, g, kv, **kw)  # noqa: E731
     out = run()
+    # dq (and, with GQA, dk/dv) sum in fp32 with atomics: a second launch may
+    # round a gradient differently by one bf16 step
+    again = run()
+    repeat = [(a - b).float().abs().max().item() for a, b in zip(out, again)]
+    del again
     ref = fa.flash_bwd_plain(q, k, v, g, kv, **kw)
     torch.cuda.synchronize()
     errs, within, rel = [], True, []
@@ -737,6 +782,7 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segm
         qs, ks, vs, attn_mask=sdpa_mask, scale=D ** -0.5, enable_gqa=Hk != H)
     lib_ms = time_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), g, retain_graph=True))
     del o
+    split = _launch_split(run, ("fa_bwd_stats", "fa_bwd_main", "fa_bwd_finish"))
     flops = 10 * D * H * pairs  # five products
     # q g read, dq written at H heads; k v read, dk dv written at Hk; the mask row
     nbytes = 2 * B * S * D * (3 * H + 4 * Hk) + (4 * B * S if mask is not None else 0)
@@ -748,9 +794,30 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segm
                    lib_ms, b_ms, b_by,
                    f"{mode}, causal={causal} "
                    f"kv_start={kv_start if B < 4 else f'[{kv_start[0]}]*{B}'}{pads}; "
-                   f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; two launches; "
+                   f"dq/dk/dv rel L2 {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; two runs differ by "
+                   f"max |dq1-dq2| {repeat[0]:.3e}, dk {repeat[1]:.3e}, dv {repeat[2]:.3e}; "
+                   f"ms per launch (profiler) {split}; "
                    f"library: SDPA backward{', enable_gqa' if Hk != H else ''}"
                    f"{', boolean mask' if sdpa_mask is not None else ''}")
+
+
+def _launch_split(fn, names, reps=3):
+    """Device ms per call of each kernel whose name holds one of ``names``
+    (the rest summed as "other"), from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys((*names, "other"), 0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if us and ev.key not in ("cudaDeviceSynchronize", "cudaLaunchKernel"):
+            split[next((n for n in names if n in ev.key), "other")] += us / 1e3 / reps
+    return ", ".join(f"{n} {ms:.4f}" for n, ms in split.items())
 
 
 def phase_kernels(cfg, qcfg):

@@ -34,4 +34,22 @@ __device__ __forceinline__ Vec8 rope_chunk(const Vec8& x, const Vec8& partner,
   return out;
 }
 
+// The 64-key tiles [key_tile_begin, key_tile_end) that a 64-row query tile
+// starting at q0 visits: the left pad (kv_start) and, causal, the window
+// below and the diagonal above, then the q_len tail. The attention forward
+// and both passes of its backward visit exactly these tiles, so a fully
+// masked row is uniform over the same keys in all of them.
+__device__ __forceinline__ int key_tile_begin(int q0, int kv_start, int causal, int window) {
+  int b = (kv_start / 64) * 64;
+  if (causal && window > 0) {
+    const int lo = q0 - window + 1;
+    if (lo > 0) b = max(b, (lo / 64) * 64);
+  }
+  return b;
+}
+
+__device__ __forceinline__ int key_tile_end(int q0, int S, int q_len, int causal) {
+  return min(causal ? min(q0 + 64, S) : S, q_len);
+}
+
 }  // namespace lrt

@@ -24,11 +24,32 @@
 // What bounds them on an H100: causal attention at S=2560, D=96 does about
 // 4*D*S*S/2 FLOPs per head on 2*S*D*3 bytes, ~100 FLOP/byte per head pair,
 // far past the card's ~295 FLOP/byte ridge, so they are bound by tensor-core
-// operations. The design keeps the S x S scores out of device memory (online
-// softmax over 64-key tiles, fp32 state in registers), feeds the tensor cores
-// through WMMA bf16 16x16x16 products with fp32 accumulation, and skips key
-// tiles that the masks make empty (causal tail, left pad, q_len tail).
-// wgmma, TMA and warp specialisation are left for later work.
+// operations. Both keep the S x S scores out of device memory (online softmax
+// over 64-key tiles, fp32 state in registers) and skip key tiles that the
+// masks make empty (causal tail, left pad, q_len tail).
+//
+// B1's design (fa_direct_kernel, in the style of FlashAttention-3): 128 query
+// rows per block (measured against nothing smaller: two consumer warpgroups
+// share each K/V tile), three warpgroups. Warpgroup 0 is the producer: it
+// drops to 64 registers (setmaxnreg) and keeps TMA loads of a 3-stage K/V ring
+// in flight, straight out of the fused projection through a 4-D tensor map (8
+// columns, S, column chunks, B): a ragged tile reads zeros, never the next
+// batch row. With RoPE it ropes Q once (cos/sin from the tables) and each K
+// tile in shared memory, with the tile's cos/sin rows brought by TMA into the
+// same stage (lrt::rope_chunk, bit-equal to B2); the next tile's loads go out
+// before this one is roped, and a fence.proxy.async makes the generic-proxy
+// writes visible to wgmma before the tile is released. Warpgroups 1 and 2 (216
+// registers each) own 64 query rows: S = Q.K^T by wgmma from shared memory
+// (both K-major), issued one tile ahead so that it runs during the masked
+// online softmax (registers, base 2, scale * log2(e) folded into the fp32
+// dot), then O += P.V with P as the register A operand and V as the MN-major B
+// operand. A warpgroup waits for every tile, also one outside its rows' key
+// range, before releasing its stage, so that no release runs ahead of the
+// other warpgroup's use of it. Shared memory tiles use wgmma's unswizzled
+// core-matrix layout (sm90.cuh), so head_dim 96 needs no swizzle atom of its
+// own. q tiles of one (b, h) are adjacent in the grid (K/V hit L2), heaviest
+// causal tiles first. B3 (fa_hm_kernel) is still the WMMA kernel of the first
+// slice; its rework comes next.
 //
 // Semantics kept from the TPU kernels:
 // - roped q/k are rounded to bf16 before the dot; scale is applied to the
@@ -38,16 +59,19 @@
 //   visited, and never NaN: the next window block's reference attention
 //   runs over those rows, where a NaN would reach valid rows;
 // - probabilities are rounded to bf16 before P.V, accumulated in fp32.
-//   The TPU normalises before that rounding, this kernel after P.V (online
+//   The TPU normalises before that rounding, these kernels after P.V (online
 //   softmax); the difference is within bf16 rounding of the probabilities.
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+// ------------------------------------------------------------------ B3 (WMMA)
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
@@ -62,8 +86,6 @@ struct Args {
   const bf16* k;
   const bf16* v;
   bf16* o;
-  const bf16* cos;  // (B, S, D) when RoPE is on
-  const bf16* sin;
   const int* kv_start;  // (B,) first valid key per batch row
   const int* mask;  // (B, S) key mask / segment ids (MODE 1 / 2), else null
   long long q_sb, q_sh, q_ss;  // element strides: batch, head, sequence
@@ -87,34 +109,22 @@ struct Smem {
 };
 
 // 64 rows x D columns of a (row-strided) bf16 matrix into shared memory,
-// zero past the last row, roped in fp32 when ROPE (cos/sin rows are D wide).
-template <int D, bool ROPE>
+// zero past the last row.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int row0, int n_rows, const bf16* cos,
-                                          const bf16* sin) {
+                                          int row0, int n_rows) {
   constexpr int CH = D / 8;
   for (int idx = threadIdx.x; idx < 64 * CH; idx += NTHREADS) {
     const int r = idx / CH, c = idx % CH;
     const int gr = row0 + r;
-    lrt::Vec8 val;
-    val.u = make_uint4(0, 0, 0, 0);
-    if (gr < n_rows) {
-      const bf16* row = src + (long long)gr * row_stride;
-      val.u = *reinterpret_cast<const uint4*>(row + c * 8);
-      if (ROPE) {
-        lrt::Vec8 par, cv, sv;
-        par.u = *reinterpret_cast<const uint4*>(row + ((c + CH / 2) % CH) * 8);
-        cv.u = *reinterpret_cast<const uint4*>(cos + (long long)gr * D + c * 8);
-        sv.u = *reinterpret_cast<const uint4*>(sin + (long long)gr * D + c * 8);
-        val = lrt::rope_chunk(val, par, cv, sv, c < CH / 2);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * D + c * 8) = val.u;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (gr < n_rows) val = *reinterpret_cast<const uint4*>(src + (long long)gr * row_stride + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * D + c * 8) = val;
   }
 }
 
 // MODE: 0 no mask row, 1 key mask, 2 segment ids (see the top of the file).
-template <int D, bool ROPE, int MODE>
+template <int D, int MODE>
 __device__ __forceinline__ void attn_block(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   typedef Smem<D> L;
@@ -136,10 +146,8 @@ __device__ __forceinline__ void attn_block(const Args& a) {
   const bf16* qb = a.q + b * a.q_sb + h * a.q_sh;
   const bf16* kb = a.k + b * a.k_sb + hk * a.k_sh;
   const bf16* vb = a.v + b * a.v_sb + hk * a.v_sh;
-  const bf16* cb = ROPE ? a.cos + (long long)b * a.S * D : nullptr;
-  const bf16* sb = ROPE ? a.sin + (long long)b * a.S * D : nullptr;
 
-  load_tile<D, ROPE>(sQ, qb, a.q_ss, q0, a.S, cb, sb);
+  load_tile<D>(sQ, qb, a.q_ss, q0, a.S);
 
   // key tiles that can hold an unmasked key for some row of this block
   int k_end = a.causal ? min(q0 + BQ, a.S) : a.S;
@@ -171,8 +179,8 @@ __device__ __forceinline__ void attn_block(const Args& a) {
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, ROPE>(sK, kb, a.k_ss, k0, a.S, cb, sb);
-    load_tile<D, false>(sV, vb, a.v_ss, k0, a.S, nullptr, nullptr);
+    load_tile<D>(sK, kb, a.k_ss, k0, a.S);
+    load_tile<D>(sV, vb, a.v_ss, k0, a.S);
     if (MODE != 0) {
       for (int i = threadIdx.x; i < BK; i += NTHREADS) sM[i] = k0 + i < a.S ? mrow[k0 + i] : 0;
     }
@@ -262,14 +270,9 @@ __device__ __forceinline__ void attn_block(const Args& a) {
   }
 }
 
-template <int D, bool ROPE>
-__global__ void __launch_bounds__(NTHREADS) fa_direct_kernel(Args a) {
-  attn_block<D, ROPE, 0>(a);
-}
-
 template <int D, int MODE>
 __global__ void __launch_bounds__(NTHREADS) fa_hm_kernel(Args a) {
-  attn_block<D, false, MODE>(a);
+  attn_block<D, MODE>(a);
 }
 
 template <int D>
@@ -292,6 +295,310 @@ int launch_hm(const Args& a, int mode, int B, int H, cudaStream_t st) {
   }
 }
 
+// ------------------------------------------------------------------ B1 (wgmma + TMA)
+
+namespace direct {
+
+constexpr int BQ = 128;        // query rows per block: two consumer warpgroups of 64
+constexpr int BK = 64;         // keys per tile
+constexpr int NTHREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float MASK_FILL = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Args {
+  CUtensorMap tq;   // qkv as (8, S, 3*H*D/8, B), box 128 rows x D columns
+  CUtensorMap tkv;  // the same, box 64 rows
+  CUtensorMap tc, ts;  // RoPE: the cos / sin tables as (8, S, D/8, B), box 64 rows
+  bf16* o;          // (B, S, H*D)
+  const bf16* cos;  // (B, S, D) when RoPE is on
+  const bf16* sin;
+  const int* kv_start;
+  int S, H, q_len, causal, window;  // window <= 0: no sliding window
+  float scale_log2;                 // scale * log2(e): the softmax runs in base 2
+};
+
+// The K/V ring is 3 deep (4 measured no faster). With RoPE each stage also
+// holds the K tile's cos/sin rows; at head_dim 128 that is 224 KiB in all.
+template <int D, bool ROPE>
+struct Smem {
+  static constexpr int STAGES = 3;
+  static constexpr size_t q_off = 0;
+  static constexpr size_t k_off = q_off + (size_t)BQ * D * 2;
+  static constexpr size_t v_off = k_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t cs_off = v_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t bar_off = cs_off + (ROPE ? (size_t)STAGES * BK * 2 * D * 2 : 0);
+  // q_full, q_ready, then per stage k_raw, k_full, v_full, empty
+  static constexpr size_t bytes = bar_off + (2 + 4 * STAGES) * 8;
+};
+
+// Rotate-half RoPE in place on an R-row chunk-major tile; chunk c pairs with
+// chunk c + D/16. The Q tile takes its cos/sin rows from the (B, S, D) tables
+// in global memory (rows past S are skipped: they are zeros); a K tile takes
+// them from its stage (`cs`: cos then sin, chunk-major like the tile, zeros
+// past S).
+template <int D, int R>
+__device__ __forceinline__ void rope_pair(bf16* tile, int r, int c, const uint4& c1,
+                                          const uint4& s1, const uint4& c2, const uint4& s2) {
+  constexpr int HALF = D / 16;
+  uint4* p1 = reinterpret_cast<uint4*>(tile + (c * R + r) * 8);
+  uint4* p2 = reinterpret_cast<uint4*>(tile + ((c + HALF) * R + r) * 8);
+  lrt::Vec8 x1, x2, vc1, vs1, vc2, vs2;
+  x1.u = *p1;
+  x2.u = *p2;
+  vc1.u = c1;
+  vs1.u = s1;
+  vc2.u = c2;
+  vs2.u = s2;
+  *p1 = lrt::rope_chunk(x1, x2, vc1, vs1, true).u;
+  *p2 = lrt::rope_chunk(x2, x1, vc2, vs2, false).u;
+}
+
+template <int D>
+__device__ __forceinline__ void rope_q(bf16* tile, const bf16* cos, const bf16* sin, int row0,
+                                       int S, int tid) {
+  constexpr int HALF = D / 16;
+  for (int idx = tid; idx < BQ * HALF; idx += 128) {
+    const int r = idx % BQ, c = idx / BQ;
+    const long long gr = row0 + r;
+    if (gr >= S) continue;
+    const uint4* cr = reinterpret_cast<const uint4*>(cos + gr * D);
+    const uint4* sr = reinterpret_cast<const uint4*>(sin + gr * D);
+    rope_pair<D, BQ>(tile, r, c, cr[c], sr[c], cr[c + HALF], sr[c + HALF]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rope_k(bf16* tile, const bf16* cs, int tid) {
+  constexpr int HALF = D / 16;
+  const uint4* cc = reinterpret_cast<const uint4*>(cs);
+  const uint4* ss = cc + BK * D / 8;
+  for (int idx = tid; idx < BK * HALF; idx += 128) {
+    const int r = idx % BK, c = idx / BK;
+    rope_pair<D, BK>(tile, r, c, cc[c * BK + r], ss[c * BK + r], cc[(c + HALF) * BK + r],
+                     ss[(c + HALF) * BK + r]);
+  }
+}
+
+template <int D, bool ROPE>
+__global__ void __launch_bounds__(NTHREADS, 1) fa_direct_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  typedef Smem<D, ROPE> L;
+  constexpr int STAGES = L::STAGES;
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
+  bf16* sCS = reinterpret_cast<bf16*>(smem + L::cs_off);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* q_ready = q_full + 1;
+  uint64_t* k_raw = q_full + 2;
+  uint64_t* k_full = k_raw + STAGES;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BQ;
+  const int kvs = a.kv_start[b];
+  // the union of the two 64-row tiles' key ranges
+  const int k_begin = lrt::key_tile_begin(q0, kvs, a.causal, a.window);
+  const int k_end = lrt::key_tile_end(q0 + 64, a.S, a.q_len, a.causal);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_ready, 128);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&k_raw[s], 1);
+      sm90::mbar_init(&k_full[s], ROPE ? 128 : 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---- producer: TMA loads (and RoPE in shared memory)
+    sm90::reg_dealloc<64>();
+    // tile i into its stage: K (with its cos/sin rows) and V
+    auto issue = [&](int i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      const int k0 = k_begin + i * BK;
+      sm90::mbar_wait(&empty[st], ph ^ 1);
+      if (t == 0) {
+        uint64_t* kb = ROPE ? &k_raw[st] : &k_full[st];
+        sm90::mbar_expect_tx(kb, (ROPE ? 3 : 1) * BK * D * 2);
+        sm90::tma_load_4d(sK + st * BK * D, &a.tkv, kb, 0, k0, (a.H + h) * D / 8, b);
+        if (ROPE) {
+          sm90::tma_load_4d(sCS + st * 2 * BK * D, &a.tc, kb, 0, k0, 0, b);
+          sm90::tma_load_4d(sCS + (st * 2 + 1) * BK * D, &a.ts, kb, 0, k0, 0, b);
+        }
+        sm90::mbar_expect_tx(&v_full[st], BK * D * 2);
+        sm90::tma_load_4d(sV + st * BK * D, &a.tkv, &v_full[st], 0, k0, (2 * a.H + h) * D / 8, b);
+      }
+    };
+    if (t == 0) {
+      sm90::mbar_expect_tx(q_full, BQ * D * 2);
+      sm90::tma_load_4d(sQ, &a.tq, q_full, 0, q0, h * D / 8, b);
+    }
+    if (!ROPE) {
+      if (t == 0)
+        for (int i = 0; i < n_tiles; ++i) issue(i);
+    } else {
+      // the next tile's loads go out before this one is roped
+      if (n_tiles > 0) issue(0);
+      sm90::mbar_wait(q_full, 0);
+      rope_q<D>(sQ, a.cos + (long long)b * a.S * D, a.sin + (long long)b * a.S * D, q0, a.S, t);
+      sm90::fence_async_smem();
+      sm90::mbar_arrive(q_ready);
+      for (int i = 0; i < n_tiles; ++i) {
+        if (i + 1 < n_tiles) issue(i + 1);
+        const int st = i % STAGES;
+        sm90::mbar_wait(&k_raw[st], (i / STAGES) & 1);
+        rope_k<D>(sK + st * BK * D, sCS + st * 2 * BK * D, t);
+        sm90::fence_async_smem();
+        sm90::mbar_arrive(&k_full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    sm90::reg_alloc<216>();
+    const int wq0 = q0 + (wg - 1) * 64;
+    const int my_begin = lrt::key_tile_begin(wq0, kvs, a.causal, a.window);
+    const int my_end = lrt::key_tile_end(wq0, a.S, a.q_len, a.causal);
+    const bf16* sQw = sQ + (wg - 1) * 64 * 8;  // row 64 of each chunk
+    // this thread's two rows of the accumulators, and their open keys [lo, hi)
+    const int qrow[2] = {wq0 + sm90::acc_row(t, 0), wq0 + sm90::acc_row(t, 2)};
+    int lo[2], hi[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      lo[j] = kvs;
+      hi[j] = a.q_len;
+      if (a.causal) {
+        hi[j] = min(hi[j], qrow[j] + 1);
+        if (a.window > 0) lo[j] = max(lo[j], qrow[j] - a.window + 1);
+      }
+    }
+    float m[2] = {MASK_FILL, MASK_FILL}, l[2] = {0.f, 0.f};
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    sm90::mbar_wait(ROPE ? q_ready : q_full, 0);
+
+    // This warpgroup's tiles are [i_lo, i_hi) of the block's n_tiles. A tile
+    // outside them is still waited for before its stage is released, so that
+    // no release runs ahead of the other warpgroup's use of the stage.
+    const int i_lo = min((my_begin - k_begin) / BK, n_tiles);
+    const int i_hi =
+        my_end > my_begin ? max(i_lo, min(n_tiles, (my_end - k_begin + BK - 1) / BK)) : i_lo;
+    auto skip = [&](int i) {
+      sm90::mbar_wait(&k_full[i % STAGES], (i / STAGES) & 1);
+      sm90::mbar_arrive(&empty[i % STAGES]);
+    };
+    // S = Q.K^T of tile i into s
+    auto scores = [&](int i, float(&s)[32]) {
+      const int st = i % STAGES;
+      sm90::mbar_wait(&k_full[st], (i / STAGES) & 1);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<64>::template ss<0, 0>(s, sm90::desc_k<BQ>(sQw, kk),
+                                           sm90::desc_k<BK>(sK + st * BK * D, kk), kk > 0);
+      sm90::wg_commit();
+    };
+    for (int i = 0; i < i_lo; ++i) skip(i);
+    float s[32], s_next[32];
+    if (i_lo < i_hi) {
+      scores(i_lo, s);
+      sm90::wg_wait<0>();
+      sm90::fence_regs(s);
+    }
+    for (int it = i_lo; it < i_hi; ++it) {
+      const int st = it % STAGES, ph = (it / STAGES) & 1;
+      const int k0 = k_begin + it * BK;
+      // the next tile's scores run on the tensor cores during this softmax
+      if (it + 1 < i_hi) scores(it + 1, s_next);
+
+      // masked online softmax, base 2; a row's 64 columns live on 4 lanes
+      float tmax[2] = {MASK_FILL, MASK_FILL};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = (i >> 1) & 1;
+        const int kp = k0 + sm90::acc_col(t, i);
+        s[i] = (kp >= lo[j] && kp < hi[j]) ? s[i] * a.scale_log2 : MASK_FILL;
+        tmax[j] = fmaxf(tmax[j], s[i]);
+      }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        tmax[j] = fmaxf(tmax[j], __shfl_xor_sync(0xffffffffu, tmax[j], 1));
+        tmax[j] = fmaxf(tmax[j], __shfl_xor_sync(0xffffffffu, tmax[j], 2));
+        const float m_new = fmaxf(m[j], tmax[j]);
+        alpha[j] = exp2f(m[j] - m_new);
+        m[j] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = (i >> 1) & 1;
+        s[i] = exp2f(s[i] - m[j]);
+        psum[j] += s[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 1);
+        psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 2);
+        l[j] = l[j] * alpha[j] + psum[j];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P.V: P (bf16) from registers, V MN-major
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) sm90::acc_to_a(s, kk, pa[kk]);
+      sm90::mbar_wait(&v_full[st], ph);
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::Wgmma<D>::template rs<1>(o, pa[kk], sm90::desc_mn<BK>(sV + st * BK * D, kk), 1);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(s_next);
+      sm90::mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = s_next[i];
+    }
+    for (int i = i_hi; i < n_tiles; ++i) skip(i);
+
+    // l == 0 only when no key tile was visited (a tile of pure pad rows)
+    const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+    const long long ld = (long long)a.H * D;
+    bf16* ob = a.o + (long long)b * a.S * ld + h * D;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int j = (i >> 1) & 1;
+      if (qrow[j] < a.S)
+        *reinterpret_cast<uint32_t*>(ob + qrow[j] * ld + sm90::acc_col(t, i)) =
+            sm90::pack_bf16(o[i] * inv[j], o[i + 1] * inv[j]);
+    }
+  }
+}
+
+template <int D, bool ROPE>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = Smem<D, ROPE>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(fa_direct_kernel<D, ROPE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
+  fa_direct_kernel<D, ROPE><<<grid, NTHREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace direct
+
 }  // namespace
 
 // B1: qkv (B, S, 3*H*D) bf16 -> out (B, S, H*D) bf16. cos/sin (B, S, D) or
@@ -299,43 +606,39 @@ int launch_hm(const Args& a, int mode, int B, int H, cudaStream_t st) {
 extern "C" int lrt_fa_direct(const void* qkv, const void* cos, const void* sin,
                              const void* kv_start, void* out, int B, int S, int H, int D,
                              int q_len, int causal, int window, float scale, void* stream) {
-  Args a;
+  if (D != 64 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  direct::Args a;
   const long long C = 3LL * H * D;
-  const bf16* base = static_cast<const bf16*>(qkv);
-  a.q = base;
-  a.k = base + (long long)H * D;
-  a.v = base + 2LL * H * D;
+  const int outer[1] = {B};
+  const long long outer_stride[1] = {(long long)S * C};
+  int e = sm90_host::tile_map(&a.tq, qkv, S, C, (int)(C / 8), direct::BQ, D / 8, 1, outer,
+                              outer_stride);
+  if (e == 0)
+    e = sm90_host::tile_map(&a.tkv, qkv, S, C, (int)(C / 8), direct::BK, D / 8, 1, outer,
+                            outer_stride);
+  const long long table_stride[1] = {(long long)S * D};
+  if (e == 0 && cos != nullptr)
+    e = sm90_host::tile_map(&a.tc, cos, S, D, D / 8, direct::BK, D / 8, 1, outer, table_stride);
+  if (e == 0 && cos != nullptr)
+    e = sm90_host::tile_map(&a.ts, sin, S, D, D / 8, direct::BK, D / 8, 1, outer, table_stride);
+  if (e != 0) return e;
   a.o = static_cast<bf16*>(out);
   a.cos = static_cast<const bf16*>(cos);
   a.sin = static_cast<const bf16*>(sin);
   a.kv_start = static_cast<const int*>(kv_start);
-  a.mask = nullptr;
-  a.q_sb = a.k_sb = a.v_sb = (long long)S * C;
-  a.q_sh = a.k_sh = a.v_sh = D;
-  a.q_ss = a.k_ss = a.v_ss = C;
-  a.o_sb = (long long)S * H * D;
-  a.o_sh = D;
-  a.o_ss = (long long)H * D;
   a.S = S;
-  a.n_rep = 1;
+  a.H = H;
   a.q_len = q_len;
   a.causal = causal;
   a.window = window;
-  a.scale = scale;
+  a.scale_log2 = scale * direct::LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool rope = cos != nullptr;
   switch (D) {
-    case 64:
-      return rope ? launch<64>(fa_direct_kernel<64, true>, a, B, H, st)
-                  : launch<64>(fa_direct_kernel<64, false>, a, B, H, st);
-    case 96:
-      return rope ? launch<96>(fa_direct_kernel<96, true>, a, B, H, st)
-                  : launch<96>(fa_direct_kernel<96, false>, a, B, H, st);
-    case 128:
-      return rope ? launch<128>(fa_direct_kernel<128, true>, a, B, H, st)
-                  : launch<128>(fa_direct_kernel<128, false>, a, B, H, st);
+    case 64: return rope ? direct::launch<64, true>(a, B, st) : direct::launch<64, false>(a, B, st);
+    case 96: return rope ? direct::launch<96, true>(a, B, st) : direct::launch<96, false>(a, B, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return rope ? direct::launch<128, true>(a, B, st) : direct::launch<128, false>(a, B, st);
   }
 }
 
@@ -355,8 +658,6 @@ extern "C" int lrt_fa_hm(const void* q, const void* k, const void* v, const void
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.o = static_cast<bf16*>(out);
-  a.cos = nullptr;
-  a.sin = nullptr;
   a.kv_start = static_cast<const int*>(kv_start);
   a.mask = static_cast<const int*>(mask);
   if ((mask_mode != 0) != (mask != nullptr) || mask_mode < 0 || mask_mode > 2)

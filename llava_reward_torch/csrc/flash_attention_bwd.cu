@@ -12,8 +12,7 @@
 // k < q_len, k >= kv_start (left pad), then by MODE (a template argument, as
 // in fa_hm_kernel) nothing more (0), a key mask != 0 (1) or segment ids,
 // seg[k] != 0 and seg[k] == seg[q] (2), read from one (B, S) int32 row, then
-// causal and sliding window. head_dim is 64, 80 (five 16-wide WMMA steps, no
-// padding to 128), 96 or 128.
+// causal and sliding window. head_dim is 64, 80, 96 or 128.
 //
 // Fully masked rows. A masked score takes the finite fill -1e30, so a query
 // whose keys are all masked (a left-pad query, a pad patch with segment id 0)
@@ -24,521 +23,688 @@
 // where every key tile is visited (non-causal, no left pad, q_len == S: the
 // Qwen2.5-VL vision blocks) a pad query weighs 1/S on every key, exactly as in
 // the plain version, and dk/dv agree on every valid key. Under causal or
-// left-pad tile skipping a pad row is uniform over the visited keys only; its
-// dq is never compared, and its g is zero on the training path.
+// left-pad tile skipping a pad row is uniform over the visited keys only
+// (lrt::key_tile_begin / key_tile_end, the forward's rule, in both passes);
+// its dq is never compared, and its g is zero on the training path.
 //
 // What bounds it on an H100: five products of 2*D operations per unmasked
 // (query, key) pair against 7 tensors of S*D bf16 moved once; at the
 // decoder's S = 2560, D = 96 that is far past the ~295 operations per byte
-// ridge, so the bound is tensor-core operations. The design keeps the S x S
-// tiles out of device memory and takes no atomics, so the sums are
-// deterministic. It runs as two launches (one fa_bwd call):
-//   pass A, per (b, h, 64-row q tile): sweep the key tiles once for the row
-//     max m, the row sum l and delta (online, rescaled like the forward's
-//     softmax), store m, 1/l and delta (fp32, B*H*S each); sweep again to
-//     recompute p = exp(s - m) / l, ds, and accumulate dq in WMMA fragments;
-//   pass B, per (b, kv head, 64-key tile): walk the q tiles of every rep
-//     that reach this key tile, recompute p^T and ds^T from the stored row
-//     statistics, and accumulate dk and dv in WMMA fragments.
-// Both passes visit exactly the tiles the forward visits (causal tail, left
-// pad, q_len tail and window skipped), so the two agree on every row,
-// including fully masked ones. Products are WMMA bf16 16x16x16 with fp32
-// accumulation; the element-wise passes take each row's mask as one key
-// interval, __expf (p is rounded to bf16 anyway), and a column order that
-// keeps a warp's 32 lanes on 32 shared-memory banks. wgmma, TMA and a fused
-// single pass are left for later work.
-#include <mma.h>
-
+// ridge, so the bound is tensor-core operations. The design (after
+// FlashAttention-3's backward) runs seven products where the first slice ran
+// nine, all as wgmma fed by TMA, in three launches (one fa_bwd call):
+//   stats, per (b, h, 128 query rows): a producer warpgroup (24 registers)
+//     keeps a 4-stage TMA ring of K/V tiles in flight; two consumer
+//     warpgroups of 64 rows (240 registers) run
+//     S = Q.K^T and dP = dO.V^T (2 products; the next tile's are issued before
+//     this tile's update, so they overlap it) and keep the row max m, the row
+//     sum l and delta online in registers (rescaled like the forward's
+//     softmax, base 2). They store m, 1/l and delta per 64-row tile, padded
+//     to whole tiles so that the main pass fetches them by bulk copy;
+//   main, per (b, q head, 64-key tile): the key-stationary pass. K and V stay
+//     in shared memory; the producer (setmaxnreg down to 24) streams the q
+//     tiles that reach this key tile, Q, dO by TMA and their statistics (and
+//     segment ids) by bulk copy, through a 2-stage ring. One consumer
+//     warpgroup (232 registers) recomputes S^T = K.Q^T and dP^T = V.dO^T,
+//     forms P and dS in registers from the statistics, accumulates
+//     dV += P^T.dO and dK += dS^T.Q with P and dS as the register A operand
+//     (4 products), writes dS^T to shared memory and runs dQ = dS.K there in
+//     two halves of head_dim (1 product, MN-major operands), staging each in
+//     fp32 in the ring slot Q and dO leave free and adding it into an fp32
+//     workspace with one TMA reduce-add (cp.reduce.async.bulk) per half;
+//   finish: rounds the fp32 dq (and, with GQA, dk and dv) to bf16 into the
+//     callers' strides; without GQA the main pass rounds dk and dv itself.
+// The grid of the main pass is (q head, b, key tile): 1568 blocks at Qwen's
+// GQA shape (2, 28/4, 1792, 128), two resident per SM, key tile slowest so
+// that the heaviest causal tiles start first; dk and dv of the reps of one kv
+// head are fp32 partials summed by fp32 atomics before the one rounding.
+// Determinism: the fp32 sums of dq (over key tiles) and of dk/dv (over reps)
+// take the order in which blocks finish, so two runs may differ by the last
+// fp32 bits, which can move a bf16 rounding by one unit; chip_smoke.py prints
+// the max |dq1 - dq2| of two launches. With n_rep == 1 dk and dv are
+// deterministic.
 #include "common.cuh"
+#include "sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // keys per tile
-constexpr int NWARPS = 4;    // each warp owns 16 rows (pass A) or 16 keys (pass B)
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int WROWS = 16;
-constexpr int LDS = BK + 4;  // fp32 scratch row stride
-constexpr int LDP = BK + 8;  // bf16 scratch row stride
+constexpr int BQ = 64;      // query rows per tile
+constexpr int BK = 64;      // keys per tile
 constexpr float MASK_FILL = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STAT_FLOATS = 3 * BQ;  // m (base 2), 1/l, delta of one 64-row tile
 
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* g;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  float* row_m;      // (B, H, S) row max of the masked scores
-  float* row_inv_l;  // (B, H, S) 1 / row sum of exp(s - m), 0 if no key tile visited
-  float* row_delta;  // (B, H, S) rowsum(p * dp)
+struct Common {
   const int* kv_start;
-  const int* mask;  // (B, S) key mask or segment ids; null in MODE 0
-  long long q_sb, q_sh, q_ss;  // element strides: batch, head, sequence
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long g_sb, g_sh, g_ss;
-  long long dq_sb, dq_sh, dq_ss;
-  long long dk_sb, dk_sh, dk_ss;
-  long long dv_sb, dv_sh, dv_ss;
-  int H, S, n_rep, q_len, causal, window;  // window <= 0: no sliding window
-  float scale;
+  const int* mask;  // (B, S_pad) int32 key mask or segment ids, 0 past S; null in MODE 0
+  float* stats;     // (B, H, S_pad / 64, 3, 64)
+  int H, S, S_pad, n_rep, q_len, causal, window;
+  float scale, scale_log2;
+};
+
+// ---------------------------------------------------------------- stats pass
+
+struct StatsArgs {
+  CUtensorMap tq, tg;  // (8, S, D/8, H, B), box 128 rows
+  CUtensorMap tk, tv;  // (8, S, D/8, Hk, B), box 64 rows
+  Common c;
 };
 
 template <int D>
-struct SmemA {
+struct StatsSmem {
+  // K/V ring depth: the consumers' update is short, so the loads of the next
+  // tiles must already be in flight when a tile is released (4 measured
+  // 11-21 % faster than 2)
+  static constexpr int STAGES = 4;
   static constexpr size_t q_off = 0;
-  static constexpr size_t g_off = q_off + (size_t)BQ * D * 2;
-  static constexpr size_t k_off = g_off + (size_t)BQ * D * 2;
-  static constexpr size_t v_off = k_off + (size_t)BK * D * 2;
-  static constexpr size_t s_off = v_off + (size_t)BK * D * 2;
-  static constexpr size_t dp_off = s_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t p_off = dp_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t m_off = p_off + (size_t)NWARPS * WROWS * LDP * 2;
-  static constexpr size_t bytes = m_off + (size_t)BK * 4;  // key ids of the tile
+  static constexpr size_t g_off = q_off + (size_t)2 * BQ * D * 2;
+  static constexpr size_t k_off = g_off + (size_t)2 * BQ * D * 2;
+  static constexpr size_t v_off = k_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t id_off = v_off + (size_t)STAGES * BK * D * 2;
+  static constexpr size_t bar_off = id_off + (size_t)STAGES * BK * 4;
+  // qg_full, then per stage k_full, v_full, empty
+  static constexpr size_t bytes = bar_off + (1 + 3 * STAGES) * 8;
 };
-
-template <int D>
-struct SmemB {
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + (size_t)BK * D * 2;
-  static constexpr size_t q_off = v_off + (size_t)BK * D * 2;
-  static constexpr size_t g_off = q_off + (size_t)BQ * D * 2;
-  static constexpr size_t s_off = g_off + (size_t)BQ * D * 2;
-  static constexpr size_t dp_off = s_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t p_off = dp_off + (size_t)NWARPS * WROWS * LDS * 4;
-  static constexpr size_t ds_off = p_off + (size_t)NWARPS * WROWS * LDP * 2;
-  static constexpr size_t stat_off = ds_off + (size_t)NWARPS * WROWS * LDP * 2;
-  static constexpr size_t m_off = stat_off + (size_t)3 * BQ * 4;
-  static constexpr size_t bytes = m_off + (size_t)BQ * 4;  // query ids of the tile
-};
-
-// 64 rows x D columns of a row-strided bf16 matrix into shared memory (row
-// stride D), zero past the last row.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long row_stride,
-                                          int row0, int n_rows) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (gr < n_rows) val = *reinterpret_cast<const uint4*>(src + (long long)gr * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * D + c * 8) = val;
-  }
-}
-
-// Key tiles [k_begin, k_end) that the q tile starting at q0 visits: the
-// forward's (flash_attention.cu) skip rule, shared by both passes.
-__device__ __forceinline__ void key_range(const Args& a, int q0, int kvs, int* k_begin,
-                                          int* k_end) {
-  int e = a.causal ? min(q0 + BQ, a.S) : a.S;
-  *k_end = min(e, a.q_len);
-  int b = (kvs / BK) * BK;
-  if (a.causal && a.window > 0) {
-    const int lo = q0 - a.window + 1;
-    if (lo > 0) b = max(b, (lo / BK) * BK);
-  }
-  *k_begin = b;
-}
-
-// The open keys of query row qpos form [lo, hi): k < q_len, k >= kv_start,
-// and, causal, k <= qpos and k > qpos - window.
-__device__ __forceinline__ void row_keys(const Args& a, int qpos, int kvs, int* lo, int* hi) {
-  *lo = kvs;
-  *hi = a.q_len;
-  if (a.causal) {
-    *hi = min(*hi, qpos + 1);
-    if (a.window > 0) *lo = max(*lo, qpos - a.window + 1);
-  }
-}
-
-// The same masks seen from key row kpos: the open queries form [lo, hi),
-// empty when the key itself is masked.
-__device__ __forceinline__ void key_queries(const Args& a, int kpos, int kvs, int* lo,
-                                            int* hi) {
-  const bool open = kpos >= kvs && kpos < a.q_len;
-  *lo = a.causal ? kpos : 0;
-  *hi = !open ? 0 : (a.causal && a.window > 0) ? kpos + a.window : 0x7fffffff;
-}
-
-// Whether key column kc (position kp) counts for a query with open interval
-// [lo, hi) and segment id qseg; ids holds the tile's key-mask values or ids.
-template <int MODE>
-__device__ __forceinline__ bool key_open(int kp, int lo, int hi, const int* ids, int kc,
-                                         int qseg) {
-  bool ok = kp >= lo && kp < hi;
-  if (MODE == 1) ok = ok && ids[kc] != 0;
-  if (MODE == 2) ok = ok && ids[kc] != 0 && ids[kc] == qseg;
-  return ok;
-}
-
-// 64 entries of a (S,) int32 row into shared memory, zero past the end.
-__device__ __forceinline__ void load_ids(int* dst, const int* row, int i0, int S) {
-  for (int i = threadIdx.x; i < 64; i += NTHREADS) dst[i] = i0 + i < S ? row[i0 + i] : 0;
-}
-
-// Column j of a lane pair's half row: the pair's two lanes take the even and
-// odd columns, and row r starts at column 2r, so the 32 lanes of a warp hit
-// 32 different shared-memory banks of the fp32 scratch (row stride LDS).
-__device__ __forceinline__ int lane_col(int j, int r, int half) {
-  return 2 * ((j + r) & 31) + half;
-}
-
-// (16 x D) . (D x 64) into an fp32 16 x LDS scratch: rows of A from a
-// row-major [16][D] tile, columns of B from a row-major [64][D] tile read
-// as its transpose.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a_rows,
-                                                  const bf16* b_tile) {
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-      wmma::load_matrix_sync(af, a_rows + kk * 16, D);
-      wmma::load_matrix_sync(bfr, b_tile + n * 16 * D + kk * 16, D);
-      wmma::mma_sync(acc, af, bfr, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += P (16 x 64, bf16 [16][LDP]) . T (64 x D, row-major [64][D]).
-template <int D>
-__device__ __forceinline__ void accumulate_pt(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], const bf16* p,
-    const bf16* t) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-    wmma::load_matrix_sync(pf, p + kk * 16, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> tf;
-      wmma::load_matrix_sync(tf, t + kk * 16 * D + n * 16, D);
-      wmma::mma_sync(acc[n], pf, tf, acc[n]);
-    }
-  }
-}
-
-// Round a warp's 16 x D fp32 fragments to bf16 rows row0.. of dst (rows at
-// or past n_rows are dropped), through the warp's fp32 scratch.
-template <int D>
-__device__ __forceinline__ void store_rows(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], float* scratch,
-    bf16* dst, long long row_stride, int row0, int n_rows) {
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1, half = lane & 1;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(scratch, acc[n], LDS, wmma::mem_row_major);
-    __syncwarp();
-    if (row0 + r < n_rows) {
-      lrt::Vec8 w;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) w.h[e] = __float2bfloat16(scratch[r * LDS + half * 8 + e]);
-      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * row_stride + n * 16 + half * 8) =
-          w.u;
-    }
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------- pass A
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(NTHREADS) fa_bwd_dq_kernel(Args a) {
+__global__ void __launch_bounds__(384, 1) fa_bwd_stats_kernel(const __grid_constant__ StatsArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  typedef SmemA<D> L;
+  typedef StatsSmem<D> L;
+  constexpr int STAGES = L::STAGES;
+  const Common& c = a.c;
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* sG = reinterpret_cast<bf16*>(smem + L::g_off);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sS = reinterpret_cast<float*>(smem + L::s_off) + warp * WROWS * LDS;
-  float* sDP = reinterpret_cast<float*>(smem + L::dp_off) + warp * WROWS * LDS;
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off) + warp * WROWS * LDP;
-  int* sM = reinterpret_cast<int*>(smem + L::m_off);
+  int* sId = reinterpret_cast<int*>(smem + L::id_off);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* k_full = qg_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.n_rep;
-  const int q0 = qt * BQ;
-  const int kvs = a.kv_start[b];
-  const bf16* kb = a.k + b * a.k_sb + hk * a.k_sh;
-  const bf16* vb = a.v + b * a.v_sb + hk * a.v_sh;
+  const int hk = h / c.n_rep;
+  const int q0 = qt * 2 * BQ;
+  const int kvs = c.kv_start[b];
+  const int k_begin = lrt::key_tile_begin(q0, kvs, c.causal, c.window);
+  const int k_end = lrt::key_tile_end(q0 + BQ, c.S, c.q_len, c.causal);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  load_rows<D>(sQ, a.q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-  load_rows<D>(sG, a.g + b * a.g_sb + h * a.g_sh, a.g_ss, q0, a.S);
-  int k_begin, k_end;
-  key_range(a, q0, kvs, &k_begin, &k_end);
-
-  // each lane pair owns one query row; lane & 1 picks its half of the keys
-  const int r = lane >> 1, half = lane & 1;
-  const int qrow = q0 + warp * WROWS + r;
-  const bf16* sQw = sQ + warp * WROWS * D;
-  const bf16* sGw = sG + warp * WROWS * D;
-  int lo, hi;
-  row_keys(a, qrow, kvs, &lo, &hi);
-  const int* mrow = MODE != 0 ? a.mask + (long long)b * a.S : nullptr;
-  // a query past S takes id 0, which no key matches: its row is never written
-  const int qseg = (MODE == 2 && qrow < a.S) ? mrow[qrow] : 0;
-
-  // sweep 1: row max, row sum and rowsum(e * dp), rescaled online
-  float m = MASK_FILL, l = 0.f, dn = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<D>(sK, kb, a.k_ss, k0, a.S);
-    load_rows<D>(sV, vb, a.v_ss, k0, a.S);
-    if (MODE != 0) load_ids(sM, mrow, k0, a.S);
-    __syncthreads();
-    rows_times_tile_t<D>(sS, sQw, sK);
-    rows_times_tile_t<D>(sDP, sGw, sV);
-    __syncwarp();
-    float tmax = MASK_FILL;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int kc = lane_col(j, r, half);
-      const int kp = k0 + kc;
-      const float s =
-          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
-      tmax = fmaxf(tmax, s);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qg_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
     }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f, dsum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int kc = lane_col(j, r, half);
-      const int kp = k0 + kc;
-      const float s =
-          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
-      // mask modes: a key past S never counts, also not for a fully masked row
-      const float e = (MODE == 0 || kp < a.S) ? __expf(s - m_new) : 0.f;
-      psum += e;
-      dsum += e * sDP[r * LDS + kc];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-    l = l * alpha + psum;
-    dn = dn * alpha + dsum;
-    m = m_new;
-    __syncwarp();
-  }
-  const float inv_l = l > 0.f ? 1.f / l : 0.f;
-  const float delta = dn * inv_l;
-  if (half == 0 && qrow < a.S) {
-    const long long si = ((long long)b * a.H + h) * a.S + qrow;
-    a.row_m[si] = m;
-    a.row_inv_l[si] = inv_l;
-    a.row_delta[si] = delta;
-  }
-
-  // sweep 2: p, ds (bf16) and dq = ds . K
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.f);
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<D>(sK, kb, a.k_ss, k0, a.S);
-    load_rows<D>(sV, vb, a.v_ss, k0, a.S);
-    if (MODE != 0) load_ids(sM, mrow, k0, a.S);
-    __syncthreads();
-    rows_times_tile_t<D>(sS, sQw, sK);
-    rows_times_tile_t<D>(sDP, sGw, sV);
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int kc = lane_col(j, r, half);
-      const int kp = k0 + kc;
-      const float s =
-          key_open<MODE>(kp, lo, hi, sM, kc, qseg) ? sS[r * LDS + kc] * a.scale : MASK_FILL;
-      const float p = (MODE == 0 || kp < a.S) ? __expf(s - m) * inv_l : 0.f;
-      const float ds = p * (sDP[r * LDS + kc] - delta) * a.scale;
-      sP[r * LDP + kc] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    accumulate_pt<D>(dq, sP, sK);
-    __syncwarp();
+    sm90::mbar_init_fence();
   }
   __syncthreads();
-  store_rows<D>(dq, sS, a.dq + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0 + warp * WROWS, a.S);
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 0) {
+    sm90::reg_dealloc<24>();
+    if (t != 0) return;
+    // ---- producer: one thread keeps the TMA ring full
+    sm90::mbar_expect_tx(qg_full, 2 * 2 * BQ * D * 2);
+    sm90::tma_load_5d(sQ, &a.tq, qg_full, 0, q0, 0, h, b);
+    sm90::tma_load_5d(sG, &a.tg, qg_full, 0, q0, 0, h, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      const int k0 = k_begin + i * BK;
+      sm90::mbar_wait(&empty[st], ph ^ 1);
+      sm90::mbar_expect_tx(&k_full[st], BK * D * 2 + (MODE != 0 ? BK * 4 : 0));
+      sm90::tma_load_5d(sK + st * BK * D, &a.tk, &k_full[st], 0, k0, 0, hk, b);
+      if (MODE != 0)
+        sm90::bulk_load(sId + st * BK, c.mask + (long long)b * c.S_pad + k0, BK * 4, &k_full[st]);
+      sm90::mbar_expect_tx(&v_full[st], BK * D * 2);
+      sm90::tma_load_5d(sV + st * BK * D, &a.tv, &v_full[st], 0, k0, 0, hk, b);
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each
+  sm90::reg_alloc<240>();
+  const int wq0 = q0 + (wg - 1) * BQ;
+  const int my_begin = lrt::key_tile_begin(wq0, kvs, c.causal, c.window);
+  const int my_end = lrt::key_tile_end(wq0, c.S, c.q_len, c.causal);
+  const bf16* sQw = sQ + (wg - 1) * BQ * 8;
+  const bf16* sGw = sG + (wg - 1) * BQ * 8;
+  const int qrow[2] = {wq0 + sm90::acc_row(t, 0), wq0 + sm90::acc_row(t, 2)};
+  int lo[2], hi[2], qseg[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    lo[j] = kvs;
+    hi[j] = c.q_len;
+    if (c.causal) {
+      hi[j] = min(hi[j], qrow[j] + 1);
+      if (c.window > 0) lo[j] = max(lo[j], qrow[j] - c.window + 1);
+    }
+    // a query past S takes id 0, which no key matches
+    qseg[j] = (MODE == 2 && qrow[j] < c.S) ? c.mask[(long long)b * c.S_pad + qrow[j]] : 0;
+  }
+  float m[2] = {MASK_FILL, MASK_FILL}, l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f};
+  sm90::mbar_wait(qg_full, 0);
+
+  // This warpgroup's tiles are [i_lo, i_hi) of the block's n_tiles. A tile
+  // outside them is still waited for before its stage is released, so that
+  // no release runs ahead of the other warpgroup's use of the stage.
+  const int i_lo = min((my_begin - k_begin) / BK, n_tiles);
+  const int i_hi =
+      my_end > my_begin ? max(i_lo, min(n_tiles, (my_end - k_begin + BK - 1) / BK)) : i_lo;
+  auto skip = [&](int i) {
+    sm90::mbar_wait(&k_full[i % STAGES], (i / STAGES) & 1);
+    sm90::mbar_arrive(&empty[i % STAGES]);
+  };
+  // S = Q.K^T and dP = dO.V^T of tile i, one wgmma group
+  auto products = [&](int i, float(&s)[32], float(&dp)[32]) {
+    const int st = i % STAGES, ph = (i / STAGES) & 1;
+    sm90::mbar_wait(&k_full[st], ph);
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::Wgmma<64>::template ss<0, 0>(s, sm90::desc_k<2 * BQ>(sQw, kk),
+                                         sm90::desc_k<BK>(sK + st * BK * D, kk), kk > 0);
+    sm90::mbar_wait(&v_full[st], ph);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::Wgmma<64>::template ss<0, 0>(dp, sm90::desc_k<2 * BQ>(sGw, kk),
+                                         sm90::desc_k<BK>(sV + st * BK * D, kk), kk > 0);
+    sm90::wg_commit();
+  };
+  for (int i = 0; i < i_lo; ++i) skip(i);
+  float s[32], dp[32], s_next[32], dp_next[32];
+  if (i_lo < i_hi) {
+    products(i_lo, s, dp);
+    sm90::wg_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+  }
+  for (int it = i_lo; it < i_hi; ++it) {
+    const int st = it % STAGES;
+    const int k0 = k_begin + it * BK;
+    // the next tile's products run on the tensor cores during this update
+    if (it + 1 < i_hi) products(it + 1, s_next, dp_next);
+
+    const int* ids = sId + st * BK;
+    float tmax[2] = {MASK_FILL, MASK_FILL};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      const int kc = sm90::acc_col(t, i);
+      const int kp = k0 + kc;
+      bool ok = kp >= lo[j] && kp < hi[j];
+      if (MODE == 1) ok = ok && ids[kc] != 0;
+      if (MODE == 2) ok = ok && ids[kc] != 0 && ids[kc] == qseg[j];
+      s[i] = ok ? s[i] * c.scale_log2 : MASK_FILL;
+      tmax[j] = fmaxf(tmax[j], s[i]);
+    }
+    float alpha[2], psum[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      tmax[j] = fmaxf(tmax[j], __shfl_xor_sync(0xffffffffu, tmax[j], 1));
+      tmax[j] = fmaxf(tmax[j], __shfl_xor_sync(0xffffffffu, tmax[j], 2));
+      const float m_new = fmaxf(m[j], tmax[j]);
+      alpha[j] = exp2f(m[j] - m_new);
+      m[j] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      // mask modes: a key past S never counts, also not for a fully masked row
+      const float e =
+          (MODE == 0 || k0 + sm90::acc_col(t, i) < c.S) ? exp2f(s[i] - m[j]) : 0.f;
+      psum[j] += e;
+      dsum[j] += e * dp[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 1);
+      psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 2);
+      dsum[j] += __shfl_xor_sync(0xffffffffu, dsum[j], 1);
+      dsum[j] += __shfl_xor_sync(0xffffffffu, dsum[j], 2);
+      l[j] = l[j] * alpha[j] + psum[j];
+      dn[j] = dn[j] * alpha[j] + dsum[j];
+    }
+    sm90::wg_wait<0>();
+    sm90::fence_regs(s_next);
+    sm90::fence_regs(dp_next);
+    sm90::mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = s_next[i];
+      dp[i] = dp_next[i];
+    }
+  }
+  for (int i = i_hi; i < n_tiles; ++i) skip(i);
+
+  // rows past S (up to the padded S_pad) get zeros: p = 0 there in the main pass
+  if (t % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = qrow[j];
+      if (q >= c.S_pad) continue;
+      const bool in = q < c.S;
+      const float inv_l = in && l[j] > 0.f ? 1.f / l[j] : 0.f;
+      float* sp = c.stats + ((((long long)b * c.H + h) * (c.S_pad / BQ) + q / BQ) * 3) * BQ +
+                  q % BQ;
+      sp[0] = in ? m[j] : 0.f;
+      sp[BQ] = inv_l;
+      sp[2 * BQ] = in ? dn[j] * inv_l : 0.f;
+    }
+  }
 }
 
-// ---------------------------------------------------------------- pass B
+// ---------------------------------------------------------------- main pass
+
+struct Out {
+  const float* acc;  // (B, n, S_pad, D), or dq's tiles in halves (B, n, S_pad / 64, 2, 64, D / 2)
+  bf16* dst;
+  long long sb, sh, ss;  // element strides of dst
+  int n;                 // heads
+  int halves;            // 1: rows of D; 2: dq's tiles
+};
+
+struct MainArgs {
+  CUtensorMap tq, tg;  // (8, S, D/8, H, B), box 64 rows
+  CUtensorMap tk, tv;  // (8, S, D/8, Hk, B), box 64 rows
+  Common c;
+  float* dq_acc;  // (B, H, S_pad / 64, 2, 64, D / 2) fp32, zeroed: 64-row tiles in halves
+  float* dk_acc;  // with GQA: (B, Hk, S_pad, D) fp32, zeroed, the reps' sums
+  float* dv_acc;
+  Out dk, dv;     // without GQA the main pass rounds dk and dv itself
+};
+
+template <int D>
+struct MainSmem {
+  // Q/dO ring depth (3 measured no faster: the consumer's chain of products
+  // per q tile, not the loads, sets the pace)
+  static constexpr int STAGES = 2;
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = k_off + (size_t)BK * D * 2;
+  static constexpr size_t q_off = v_off + (size_t)BK * D * 2;
+  static constexpr size_t g_off = q_off + (size_t)STAGES * BQ * D * 2;
+  static constexpr size_t ds_off = g_off + (size_t)STAGES * BQ * D * 2;
+  static constexpr size_t st_off = ds_off + (size_t)BK * BQ * 2;
+  static constexpr size_t id_off = st_off + (size_t)STAGES * STAT_FLOATS * 4;
+  static constexpr size_t bar_off = id_off + (size_t)STAGES * BQ * 4;
+  // kv_full, then per stage full, empty
+  static constexpr size_t bytes = bar_off + (1 + 2 * STAGES) * 8;
+};
+
+// whether the q tile at q0 visits the key tile at k0 (the forward's rule)
+__device__ __forceinline__ bool visits(const Common& c, int q0, int k0, int kvs) {
+  return k0 >= lrt::key_tile_begin(q0, kvs, c.causal, c.window) &&
+         k0 < lrt::key_tile_end(q0, c.S, c.q_len, c.causal);
+}
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(NTHREADS) fa_bwd_dkdv_kernel(Args a) {
+__global__ void __launch_bounds__(256, 2) fa_bwd_main_kernel(const __grid_constant__ MainArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  typedef SmemB<D> L;
+  typedef MainSmem<D> L;
+  constexpr int STAGES = L::STAGES;
+  const Common& c = a.c;
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* sG = reinterpret_cast<bf16*>(smem + L::g_off);
-  float* sStat = reinterpret_cast<float*>(smem + L::stat_off);  // m, inv_l, delta
-  int* sMq = reinterpret_cast<int*>(smem + L::m_off);  // MODE 2: the q tile's segment ids
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sS = reinterpret_cast<float*>(smem + L::s_off) + warp * WROWS * LDS;
-  float* sDP = reinterpret_cast<float*>(smem + L::dp_off) + warp * WROWS * LDS;
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off) + warp * WROWS * LDP;
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds_off) + warp * WROWS * LDP;
+  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds_off);
+  float* sSt = reinterpret_cast<float*>(smem + L::st_off);
+  int* sId = reinterpret_cast<int*>(smem + L::id_off);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int kt = blockIdx.x;
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int hk = h / c.n_rep;
   const int k0 = kt * BK;
-  const int kvs = a.kv_start[b];
-  load_rows<D>(sK, a.k + b * a.k_sb + hk * a.k_sh, a.k_ss, k0, a.S);
-  load_rows<D>(sV, a.v + b * a.v_sb + hk * a.v_sh, a.v_ss, k0, a.S);
+  const int kvs = c.kv_start[b];
+  const int n_qt = c.S_pad / BQ;
+  const int qt_lo = c.causal ? kt : 0;  // BQ == BK: earlier q tiles stop before k0
 
-  // each lane pair owns one key row of the warp's 16; lane & 1 picks its
-  // half of the 64 query columns
-  const int r = lane >> 1, half = lane & 1;
-  const int krow = k0 + warp * WROWS + r;
-  const bf16* sKw = sK + warp * WROWS * D;
-  const bf16* sVw = sV + warp * WROWS * D;
-  int lo, hi;
-  key_queries(a, krow, kvs, &lo, &hi);
-  const int* mrow = MODE != 0 ? a.mask + (long long)b * a.S : nullptr;
-  // this key's mask value or segment id; a zero closes the key for every query
-  const int kid = (MODE != 0 && krow < a.S) ? mrow[krow] : 0;
-  if (MODE != 0 && kid == 0) hi = 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[D / 16], dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::mbar_init_fence();
   }
-  const int n_qt = (a.S + BQ - 1) / BQ;
-  const int qt_lo = a.causal ? kt : 0;  // BQ == BK: earlier q tiles stop before k0
-  for (int rep = 0; rep < a.n_rep; ++rep) {
-    const int h = hk * a.n_rep + rep;
-    const long long stat0 = ((long long)b * a.H + h) * a.S;
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---- producer: one thread streams the q tiles that reach this key tile
+    sm90::reg_dealloc<24>();
+    if (t == 0) {
+      sm90::mbar_expect_tx(kv_full, 2 * BK * D * 2);
+      sm90::tma_load_5d(sK, &a.tk, kv_full, 0, k0, 0, hk, b);
+      sm90::tma_load_5d(sV, &a.tv, kv_full, 0, k0, 0, hk, b);
+      const float* stats = c.stats + ((long long)b * c.H + h) * n_qt * STAT_FLOATS;
+      int i = 0;
+      for (int qt = qt_lo; qt < n_qt; ++qt) {
+        const int q0 = qt * BQ;
+        if (!visits(c, q0, k0, kvs)) continue;
+        const int st = i % STAGES, ph = (i / STAGES) & 1;
+        ++i;
+        sm90::mbar_wait(&empty[st], ph ^ 1);
+        sm90::mbar_expect_tx(&full[st], 2 * BQ * D * 2 + STAT_FLOATS * 4 + (MODE == 2 ? BQ * 4 : 0));
+        sm90::tma_load_5d(sQ + st * BQ * D, &a.tq, &full[st], 0, q0, 0, h, b);
+        sm90::tma_load_5d(sG + st * BQ * D, &a.tg, &full[st], 0, q0, 0, h, b);
+        sm90::bulk_load(sSt + st * STAT_FLOATS, stats + qt * STAT_FLOATS, STAT_FLOATS * 4, &full[st]);
+        if (MODE == 2)
+          sm90::bulk_load(sId + st * BQ, c.mask + (long long)b * c.S_pad + q0, BQ * 4, &full[st]);
+      }
+    }
+  } else {
+    // ---- consumer: 64 keys, dK and dV in registers
+    sm90::reg_alloc<232>();
+    // this thread's two key rows and the queries each one is open to: [qlo, qhi)
+    int krow[2], qlo[2], qhi[2], kid[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      krow[j] = k0 + sm90::acc_row(t, 2 * j);
+      const bool open = krow[j] >= kvs && krow[j] < c.q_len;
+      qlo[j] = c.causal ? krow[j] : 0;
+      qhi[j] = !open ? 0 : (c.causal && c.window > 0) ? krow[j] + c.window : 0x7fffffff;
+      // the key's mask value or segment id; a zero closes it for every query
+      kid[j] = MODE != 0 ? c.mask[(long long)b * c.S_pad + krow[j]] : 1;
+      if (kid[j] == 0) qhi[j] = 0;
+    }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    bool any = false;
+    sm90::mbar_wait(kv_full, 0);
+
+    int i = 0;
     for (int qt = qt_lo; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
-      int k_begin, k_end;
-      key_range(a, q0, kvs, &k_begin, &k_end);
-      if (k0 < k_begin || k0 >= k_end) continue;  // block-uniform
-      __syncthreads();
-      load_rows<D>(sQ, a.q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-      load_rows<D>(sG, a.g + b * a.g_sb + h * a.g_sh, a.g_ss, q0, a.S);
-      if (threadIdx.x < BQ) {
-        const int qr = q0 + threadIdx.x;
-        const bool in = qr < a.S;
-        sStat[threadIdx.x] = in ? a.row_m[stat0 + qr] : 0.f;
-        sStat[BQ + threadIdx.x] = in ? a.row_inv_l[stat0 + qr] : 0.f;
-        sStat[2 * BQ + threadIdx.x] = in ? a.row_delta[stat0 + qr] : 0.f;
+      if (!visits(c, q0, k0, kvs)) continue;
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      ++i;
+      any = true;
+      const bf16* q_t = sQ + st * BQ * D;
+      const bf16* g_t = sG + st * BQ * D;
+      sm90::mbar_wait(&full[st], ph);
+
+      // S^T = K.Q^T and dP^T = V.dO^T: keys x queries
+      float s[32], dp[32];
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<64>::template ss<0, 0>(s, sm90::desc_k<BK>(sK, kk), sm90::desc_k<BQ>(q_t, kk),
+                                           kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<64>::template ss<0, 0>(dp, sm90::desc_k<BK>(sV, kk),
+                                           sm90::desc_k<BQ>(g_t, kk), kk > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+
+      // P and dS from the rows' statistics (m in base 2, 1/l, delta)
+      const float* sm_ = sSt + st * STAT_FLOATS;
+      const int* qids = sId + st * BQ;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int j = (e >> 1) & 1;
+        const int qc = sm90::acc_col(t, e);
+        const float2 mm = *reinterpret_cast<const float2*>(sm_ + qc);
+        const float2 il = *reinterpret_cast<const float2*>(sm_ + BQ + qc);
+        const float2 dl = *reinterpret_cast<const float2*>(sm_ + 2 * BQ + qc);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qp = q0 + qc + u;
+          bool ok = qp >= qlo[j] && qp < qhi[j];
+          if (MODE == 2) ok = ok && qids[qc + u] == kid[j];
+          const float sv = ok ? s[e + u] * c.scale_log2 : MASK_FILL;
+          const float p = exp2f(sv - (u ? mm.y : mm.x)) * (u ? il.y : il.x);
+          dp[e + u] = p * (dp[e + u] - (u ? dl.y : dl.x)) * c.scale;
+          s[e + u] = p;
+        }
       }
-      if (MODE == 2) load_ids(sMq, mrow, q0, a.S);
-      __syncthreads();
-      rows_times_tile_t<D>(sS, sKw, sQ);   // s^T: keys x queries
-      rows_times_tile_t<D>(sDP, sVw, sG);  // dp^T
-      __syncwarp();
-#pragma unroll 8
-      for (int j = 0; j < 32; ++j) {
-        const int qc = lane_col(j, r, half);
-        const int qp = q0 + qc;
-        bool ok = qp >= lo && qp < hi;
-        if (MODE == 2) ok = ok && sMq[qc] == kid;
-        const float s = ok ? sS[r * LDS + qc] * a.scale : MASK_FILL;
-        const float p = __expf(s - sStat[qc]) * sStat[BQ + qc];
-        const float ds = p * (sDP[r * LDS + qc] - sStat[2 * BQ + qc]) * a.scale;
-        sP[r * LDP + qc] = __float2bfloat16(p);
-        sDS[r * LDP + qc] = __float2bfloat16(ds);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::acc_to_a(s, kk, pa[kk]);
+        sm90::acc_to_a(dp, kk, da[kk]);
       }
-      __syncwarp();
-      accumulate_pt<D>(dv, sP, sG);
-      accumulate_pt<D>(dk, sDS, sQ);
-      __syncwarp();
+
+      // dS^T to shared memory (keys x queries, chunk-major), for dQ = dS.K
+      sm90::bar_sync(1, 128);  // the previous step's dQ products are done
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int r = sm90::acc_row(t, (x & 1) * 2);
+          const int qc = kk * 16 + (x >> 1) * 8 + (t % 4) * 2;
+          *reinterpret_cast<uint32_t*>(sDS + (qc / 8) * BK * 8 + r * 8 + qc % 8) = da[kk][x];
+        }
+      }
+      sm90::fence_async_smem();
+      sm90::bar_sync(1, 128);
+
+      // dV += P^T.dO, dK += dS^T.Q (queries are K, head_dim is N: MN-major)
+      sm90::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::Wgmma<D>::template rs<1>(dv, pa[kk], sm90::desc_mn<BQ>(g_t, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::Wgmma<D>::template rs<1>(dk, da[kk], sm90::desc_mn<BQ>(q_t, kk), 1);
+      sm90::wg_commit();
+
+      // dQ = dS.K in two halves of head_dim. Each half is staged in fp32 in
+      // the slot Q (then dO) of this stage leaves free, and added into the
+      // workspace by one TMA reduce-add of the 64 x D/2 block
+      float* dq_tile = a.dq_acc + ((((long long)b * c.H + h) * n_qt + qt) * 2) * BQ * (D / 2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float dq[D / 4];
+        sm90::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::Wgmma<D / 2>::template ss<1, 1>(dq, sm90::desc_mn<BK>(sDS, kk),
+                                                sm90::desc_mn<BK>(sK + half * (D / 16) * BK * 8, kk),
+                                                kk > 0);
+        sm90::wg_commit();
+        sm90::wg_wait<0>();  // also dV and dK: Q and dO are read
+        sm90::fence_regs(dq);
+        if (half == 0) {
+          sm90::fence_regs(dk);
+          sm90::fence_regs(dv);
+        }
+        float* stage = reinterpret_cast<float*>(half == 0 ? sQ + st * BQ * D : sG + st * BQ * D);
+#pragma unroll
+        for (int e = 0; e < D / 4; e += 2)
+          *reinterpret_cast<float2*>(stage + sm90::acc_row(t, e) * (D / 2) + sm90::acc_col(t, e)) =
+              make_float2(dq[e], dq[e + 1]);
+        sm90::fence_async_smem();
+        sm90::bar_sync(1, 128);
+        if (t == 0) {
+          sm90::bulk_reduce_add(dq_tile + half * BQ * (D / 2), stage, BQ * (D / 2) * 4);
+          sm90::bulk_commit();
+        }
+      }
+      if (t == 0) sm90::bulk_wait_read();
+      sm90::mbar_arrive(&empty[st]);  // Q, dO, the statistics and both stagings are read
+    }
+
+    if (c.n_rep == 1) {
+      // the whole sum of each key row is here (zero if no q tile reached it)
+#pragma unroll
+      for (int e = 0; e < D / 2; e += 2) {
+        const int kr = k0 + sm90::acc_row(t, e);
+        if (kr >= c.S) continue;
+        const int col = sm90::acc_col(t, e);
+        *reinterpret_cast<uint32_t*>(a.dk.dst + b * a.dk.sb + hk * a.dk.sh + kr * a.dk.ss + col) =
+            sm90::pack_bf16(dk[e], dk[e + 1]);
+        *reinterpret_cast<uint32_t*>(a.dv.dst + b * a.dv.sb + hk * a.dv.sh + kr * a.dv.ss + col) =
+            sm90::pack_bf16(dv[e], dv[e + 1]);
+      }
+    } else if (any) {
+      const long long row0 = ((long long)b * (c.H / c.n_rep) + hk) * c.S_pad;
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) {
+        const long long off = (row0 + k0 + sm90::acc_row(t, e)) * D + sm90::acc_col(t, e);
+        atomicAdd(a.dk_acc + off, dk[e]);
+        atomicAdd(a.dv_acc + off, dv[e]);
+      }
     }
   }
-  store_rows<D>(dk, sS, a.dk + b * a.dk_sb + hk * a.dk_sh, a.dk_ss, k0 + warp * WROWS, a.S);
-  store_rows<D>(dv, sS, a.dv + b * a.dv_sb + hk * a.dv_sh, a.dv_ss, k0 + warp * WROWS, a.S);
+}
+
+// ---------------------------------------------------------------- finish
+
+struct FinishArgs {
+  Out o[3];  // dq, dk, dv
+  int B, S, S_pad, D;
+};
+
+// One thread rounds 8 columns of one row of one gradient; blockIdx.y picks it.
+__global__ void __launch_bounds__(256) fa_bwd_finish_kernel(const __grid_constant__ FinishArgs f) {
+  const Out& o = f.o[blockIdx.y];
+  const int ch = f.D / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long rows = (long long)f.B * o.n * f.S;
+  if (idx >= rows * ch) return;
+  const int cc = idx % ch;
+  const long long row = idx / ch;
+  const int s = row % f.S;
+  const int bh = row / f.S;
+  const int h = bh % o.n, b = bh / o.n;
+  const int hd = f.D / o.halves, col = cc * 8;  // a chunk never straddles a half
+  const long long tile = ((long long)bh * f.S_pad + s) / 64;
+  const float* src = o.acc + ((tile * o.halves + col / hd) * 64 + s % 64) * hd + col % hd;
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  const float4 y = *reinterpret_cast<const float4*>(src + 4);
+  uint4 w;
+  w.x = sm90::pack_bf16(x.x, x.y);
+  w.y = sm90::pack_bf16(x.z, x.w);
+  w.z = sm90::pack_bf16(y.x, y.y);
+  w.w = sm90::pack_bf16(y.z, y.w);
+  *reinterpret_cast<uint4*>(o.dst + b * o.sb + h * o.sh + s * o.ss + cc * 8) = w;
 }
 
 template <int D, int MODE>
-int launch(const Args& a, int B, int Hk, cudaStream_t stream) {
-  const size_t smem_a = SmemA<D>::bytes, smem_b = SmemB<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_kernel<D, MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+int launch(const StatsArgs& sa, const MainArgs& ma, const FinishArgs& fa, int B,
+           cudaStream_t stream) {
+  const Common& c = sa.c;
+  cudaError_t e = cudaFuncSetAttribute(fa_bwd_stats_kernel<D, MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)StatsSmem<D>::bytes);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<D, MODE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  e = cudaFuncSetAttribute(fa_bwd_main_kernel<D, MODE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MainSmem<D>::bytes);
   if (e != cudaSuccess) return (int)e;
-  const int n_t = (a.S + BQ - 1) / BQ;
-  fa_bwd_dq_kernel<D, MODE><<<dim3(n_t, a.H, B), NTHREADS, smem_a, stream>>>(a);
+  fa_bwd_stats_kernel<D, MODE><<<dim3((c.S + 2 * BQ - 1) / (2 * BQ), c.H, B), 384,
+                                 StatsSmem<D>::bytes, stream>>>(sa);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv_kernel<D, MODE><<<dim3(n_t, Hk, B), NTHREADS, smem_b, stream>>>(a);
+  fa_bwd_main_kernel<D, MODE><<<dim3(c.H, B, c.S_pad / BK), 256, MainSmem<D>::bytes, stream>>>(ma);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long threads = (long long)B * c.H * c.S * (D / 8);  // dq has the most rows
+  fa_bwd_finish_kernel<<<dim3((unsigned)((threads + 255) / 256), c.n_rep == 1 ? 1 : 3), 256, 0,
+                         stream>>>(fa);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_mode(const Args& a, int mode, int B, int Hk, cudaStream_t st) {
+int launch_mode(const StatsArgs& sa, const MainArgs& ma, const FinishArgs& fa, int mode, int B,
+                cudaStream_t st) {
   switch (mode) {
-    case 0: return launch<D, 0>(a, B, Hk, st);
-    case 1: return launch<D, 1>(a, B, Hk, st);
-    default: return launch<D, 2>(a, B, Hk, st);
+    case 0: return launch<D, 0>(sa, ma, fa, B, st);
+    case 1: return launch<D, 1>(sa, ma, fa, B, st);
+    default: return launch<D, 2>(sa, ma, fa, B, st);
   }
 }
 
 }  // namespace
 
 // B8: q, g (B, H, S, D) and k, v (B, Hk, S, D) bf16 with any element strides
-// and a unit last-dim stride -> dq (B, H, S, D), dk, dv (B, Hk, S, D) through
-// their own strides. ``stats`` is fp32 scratch of 3*B*H*S. mask: a contiguous
-// int32 (B, S) row read as a key mask (mask_mode 1) or segment ids (2), or
-// null with mask_mode 0. Two launches on ``stream``; returns
-// cudaGetLastError() after them.
+// (multiples of 8) and a unit last-dim stride -> dq (B, H, S, D), dk, dv
+// (B, Hk, S, D) through their own strides. Scratch from the caller: ``stats``
+// fp32 of 3*B*H*S_pad and ``acc`` fp32 of B*H*S_pad*D, zeroed, plus
+// 2*B*Hk*S_pad*D with GQA (H > Hk), with S_pad = S rounded up to 64. mask: a contiguous int32 (B, S_pad) row, zero
+// past S, read as a key mask (mask_mode 1) or segment ids (2), or null with
+// mask_mode 0. Three launches on ``stream``; returns cudaGetLastError() after
+// them.
 extern "C" int lrt_fa_bwd(const void* q, const void* k, const void* v, const void* g,
                           const void* kv_start, void* dq, void* dk, void* dv, void* stats,
-                          const void* mask, int B, int H, int Hk, int S, int D,
+                          void* acc, const void* mask, int B, int H, int Hk, int S, int D,
                           const long long* strides, int q_len, int causal, int window,
                           int mask_mode, float scale, void* stream) {
   if ((mask_mode != 0) != (mask != nullptr) || mask_mode < 0 || mask_mode > 2)
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.mask = static_cast<const int*>(mask);
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.g = static_cast<const bf16*>(g);
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  float* st = static_cast<float*>(stats);
-  const long long n = (long long)B * H * S;
-  a.row_m = st;
-  a.row_inv_l = st + n;
-  a.row_delta = st + 2 * n;
-  a.kv_start = static_cast<const int*>(kv_start);
+  if (D != 64 && D != 80 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  Common c;
+  c.kv_start = static_cast<const int*>(kv_start);
+  c.mask = static_cast<const int*>(mask);
+  c.stats = static_cast<float*>(stats);
+  c.H = H;
+  c.S = S;
+  c.S_pad = (S + BQ - 1) / BQ * BQ;
+  c.n_rep = H / Hk;
+  c.q_len = q_len;
+  c.causal = causal;
+  c.window = window;
+  c.scale = scale;
+  c.scale_log2 = scale * LOG2E;
   // strides: (batch, head, seq) of q, k, v, g, dq, dk, dv in that order
-  long long* dst[21] = {&a.q_sb,  &a.q_sh,  &a.q_ss,  &a.k_sb,  &a.k_sh,  &a.k_ss,  &a.v_sb,
-                        &a.v_sh,  &a.v_ss,  &a.g_sb,  &a.g_sh,  &a.g_ss,  &a.dq_sb, &a.dq_sh,
-                        &a.dq_ss, &a.dk_sb, &a.dk_sh, &a.dk_ss, &a.dv_sb, &a.dv_sh, &a.dv_ss};
-  for (int i = 0; i < 21; ++i) *dst[i] = strides[i];
-  a.H = H;
-  a.S = S;
-  a.n_rep = H / Hk;
-  a.q_len = q_len;
-  a.causal = causal;
-  a.window = window;
-  a.scale = scale;
-  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  const long long* sq = strides;
+  const long long* sk = strides + 3;
+  const long long* sv = strides + 6;
+  const long long* sg = strides + 9;
+  StatsArgs sa;
+  MainArgs ma;
+  sa.c = ma.c = c;
+  const int q_outer[2] = {H, B}, kv_outer[2] = {Hk, B};
+  const long long q_os[2] = {sq[1], sq[0]}, g_os[2] = {sg[1], sg[0]};
+  const long long k_os[2] = {sk[1], sk[0]}, v_os[2] = {sv[1], sv[0]};
+  int e = 0;
+  e = e ? e : sm90_host::tile_map(&sa.tq, q, S, sq[2], D / 8, 2 * BQ, D / 8, 2, q_outer, q_os);
+  e = e ? e : sm90_host::tile_map(&sa.tg, g, S, sg[2], D / 8, 2 * BQ, D / 8, 2, q_outer, g_os);
+  e = e ? e : sm90_host::tile_map(&sa.tk, k, S, sk[2], D / 8, BK, D / 8, 2, kv_outer, k_os);
+  e = e ? e : sm90_host::tile_map(&sa.tv, v, S, sv[2], D / 8, BK, D / 8, 2, kv_outer, v_os);
+  e = e ? e : sm90_host::tile_map(&ma.tq, q, S, sq[2], D / 8, BQ, D / 8, 2, q_outer, q_os);
+  e = e ? e : sm90_host::tile_map(&ma.tg, g, S, sg[2], D / 8, BQ, D / 8, 2, q_outer, g_os);
+  if (e != 0) return e;
+  ma.tk = sa.tk;
+  ma.tv = sa.tv;
+  float* acc_f = static_cast<float*>(acc);
+  ma.dq_acc = acc_f;
+  ma.dk_acc = H == Hk ? nullptr : acc_f + (long long)B * H * c.S_pad * D;
+  ma.dv_acc = H == Hk ? nullptr : ma.dk_acc + (long long)B * Hk * c.S_pad * D;
+  FinishArgs fa;
+  fa.B = B;
+  fa.S = S;
+  fa.S_pad = c.S_pad;
+  fa.D = D;
+  const float* srcs[3] = {ma.dq_acc, ma.dk_acc, ma.dv_acc};
+  void* dsts[3] = {dq, dk, dv};
+  const int heads[3] = {H, Hk, Hk};
+  for (int i = 0; i < 3; ++i) {
+    fa.o[i].acc = srcs[i];
+    fa.o[i].dst = static_cast<bf16*>(dsts[i]);
+    fa.o[i].sb = strides[12 + 3 * i];
+    fa.o[i].sh = strides[13 + 3 * i];
+    fa.o[i].ss = strides[14 + 3 * i];
+    fa.o[i].n = heads[i];
+    fa.o[i].halves = i == 0 ? 2 : 1;
+  }
+  ma.dk = fa.o[1];
+  ma.dv = fa.o[2];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_mode<64>(a, mask_mode, B, Hk, st_);
-    case 80: return launch_mode<80>(a, mask_mode, B, Hk, st_);
-    case 96: return launch_mode<96>(a, mask_mode, B, Hk, st_);
-    case 128: return launch_mode<128>(a, mask_mode, B, Hk, st_);
-    default: return (int)cudaErrorInvalidValue;
+    case 64: return launch_mode<64>(sa, ma, fa, mask_mode, B, st);
+    case 80: return launch_mode<80>(sa, ma, fa, mask_mode, B, st);
+    case 96: return launch_mode<96>(sa, ma, fa, mask_mode, B, st);
+    default: return launch_mode<128>(sa, ma, fa, mask_mode, B, st);
   }
 }

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "lrt_silu_mul_quant": [_P, _P, _P, _I, _I, _I, _P],
     "lrt_row_quant": [_P, _P, _P, _I, _I, _I, _P],
     "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "lrt_fa_bwd": [_P] * 10 + [_I] * 5 + [_P, _I, _I, _I, _I, _F, _P],
+    "lrt_fa_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

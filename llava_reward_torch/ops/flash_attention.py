@@ -32,10 +32,14 @@ or B2 x3 + B3, backward by B2 x3 (the roped head-major q/k/v recomputed),
 B8, then the VJP of split + RoPE in plain torch ops (XLA in the JAX
 package). ``_FlashAttentionCore`` (``_flash_attention_core``, :684-775)
 carries the (B, S, H, D) entry ``flash_attention``: forward B3, backward
-B8. B8 is two launches (a dq pass and a dk/dv pass), counted as one
-``fa_bwd`` call. Every raw launch refuses an input that requires grad while
-grad is enabled (``cuda_lib.refuse_grad``): the tensors it returns have no
-``grad_fn``, so outside these Functions it would cut the gradient silently.
+B8. B8 is three launches, counted as one ``fa_bwd`` call: a row-statistics
+pass; a key-stationary pass that adds dq into an fp32 workspace by TMA
+reduce-add (and, with GQA, the reps' dk/dv by fp32 atomics); and a pass that
+rounds those sums to bf16. Two calls may round a gradient one bf16 step
+apart, since the fp32 sums take the order in which blocks finish. Every raw
+launch refuses an input that requires grad while grad is enabled
+(``cuda_lib.refuse_grad``): the tensors it returns have no ``grad_fn``, so
+outside these Functions it would cut the gradient silently.
 
 B3 takes the JAX package's three mask layouts (``flash_attention:778-834``):
 left pad (``kv_start``), an arbitrary key mask (``"arbitrary"``, Qwen2.5-VL's
@@ -393,19 +397,28 @@ def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_m
             raise ValueError("fa_bwd: needs unit last-dim stride and 8-aligned strides")
     kv = _kv_start_i32(kv_start, B, qt.device)
     mode, key_mask = _mask_i32("fa_bwd", key_mask, segments, B, S, qt.device)
-    mp = key_mask.data_ptr() if key_mask is not None else None
+    # scratch, padded to whole 64-row tiles: the row statistics, which the
+    # main pass fetches by bulk copy, the mask row (zero past S), and the
+    # zeroed fp32 sums of dq and, with GQA, of dk and dv over the reps
+    S_pad = _round_up(S, 64)
+    mp = None
+    if key_mask is not None:
+        key_mask = torch.nn.functional.pad(key_mask, (0, S_pad - S))
+        mp = key_mask.data_ptr()
     # written as (B, S, H, D) storage, like B3's output: the callers' (B, S, ...)
     # layouts are then free
     dq = torch.empty(B, S, H, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
     dk = torch.empty(B, S, Hk, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
     dv = torch.empty(B, S, Hk, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)
-    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=qt.device)
+    stats = torch.empty(3 * B * H * S_pad, dtype=torch.float32, device=qt.device)
+    acc = torch.zeros((B * H + (2 * B * Hk if H != Hk else 0)) * S_pad * D, dtype=torch.float32,
+                      device=qt.device)
     strides = torch.tensor(
         [st for t in (qt, kt, vt, gt, dq, dk, dv) for st in t.stride()[:3]], dtype=torch.int64
     )
     err = cuda_lib.load().lrt_fa_bwd(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), gt.data_ptr(), kv.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), mp,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), acc.data_ptr(), mp,
         B, H, Hk, S, D, strides.data_ptr(), q_len, int(causal), window or 0, mode,
         float(scale), _stream(),
     )

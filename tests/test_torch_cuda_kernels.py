@@ -7,18 +7,22 @@ tests/test_torch_quant_kernels.py).
 ``chip_smoke.py`` checks the kernels at the main paths' shapes; these
 tests cover the options those paths do not reach. Attention: sliding
 window, GQA (n_rep > 1), head_dim 128, a ``valid_len`` / ``q_len`` tail, S
-not a multiple of the 64-row tile, a query tile of pure left pad; B3's
+not a multiple of the 64-row tile (S = 48, below one tile, and CLIP's 577),
+query tiles of pure left pad (B1 with RoPE and a window at head_dim 96); B3's
 key-mask mode with interleaved pads, segment ids 1, 2, 3 and 0 in one row
 (video frames), segments with GQA, head_dim 80 causal with a window, and
 rows whose every key is masked (finite). The
 backward (B8): the same options and GQA n_rep 4 and 7 (Qwen2.5-VL's 28/4
-at head_dim 128), with g zeroed on fully
+at head_dim 128, also over 14 key tiles), with g zeroed on fully
 masked rows as on the training path, and finite outputs when g is not zero
 there; its key-mask and segment modes (one and several segments per row,
 head_dim 80, GQA, ragged S) with g NOT zeroed on pad queries where every key
 tile is visited: dq on the queries that have a key, dk and dv on every valid
 key, so a pad query leaking into a valid key otherwise than in the plain
-version shows. Every raw launch refuses an input that requires grad. W8A8:
+version shows; and two launches on the same inputs, which may differ by one
+bf16 rounding of a gradient (fp32 sums in the order blocks finish), and
+not at all in dk / dv without GQA. Every raw launch refuses an input that
+requires grad. W8A8:
 B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
 B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM at a
 ragged M, at M < 16, at K and N that the 64 x 128 tiles do not divide and
@@ -87,6 +91,9 @@ DIRECT_CASES = {
     "clip_valid_len": (2, 256, 2, 64, False, False, [0, 0], 200, None),
     "causal_window_leftpad": (2, 256, 4, 96, True, True, [70, 3], None, 40),
     "head_dim_128": (1, 192, 2, 128, True, True, [5], None, None),
+    "short_s48": (2, 48, 2, 64, False, False, [0, 0], None, None),
+    "ragged_s577": (1, 577, 2, 64, False, False, [0], None, None),
+    "pad_tiles_d96_rope_window": (2, 384, 4, 96, True, True, [0, 200], None, 70),
 }
 
 
@@ -242,6 +249,10 @@ BWD_CASES = {
     "gqa_rep7_leftpad_d128": (2, 448, 14, 2, 128, True, [0, 40], 448, None),
     "d80_causal_window": (2, 256, 2, 1, 80, True, [0, 9], 256, 50),
     "d80_noncausal_ragged": (1, 200, 2, 2, 80, False, [0], 200, None),
+    "short_s48_d64": (2, 48, 2, 2, 64, False, [0, 0], 48, None),
+    "clip_s577_d64": (2, 577, 2, 2, 64, False, [0, 0], 577, None),
+    "pad_q_tiles_leftpad_d96": (2, 320, 2, 2, 96, True, [0, 150], 320, None),
+    "gqa_rep7_d128_many_tiles": (2, 896, 14, 2, 128, True, [0, 40], 896, None),
 }
 
 
@@ -286,6 +297,8 @@ MASK_BWD_CASES = {
     "segments_gqa_d64": (2, 192, 4, 2, 64, False, None, "segments", ("frames", "pads")),
     "segments_d128_ragged": (1, 200, 2, 1, 128, False, None, "segments", ("frames",)),
     "segments_all_pad_row_d80": (2, 128, 2, 2, 80, False, None, "segments", ("none", "pads")),
+    "segments_d80_ragged_tile": (2, 200, 2, 2, 80, False, None, "segments", ("frames", "pads")),
+    "key_mask_s577_d64": (1, 577, 2, 1, 64, False, None, "arbitrary", ("pads",)),
 }
 
 
@@ -349,6 +362,27 @@ def test_masked_flash_attention_runs_both_kernels_under_autograd(gen):
     torch.cuda.synchronize()
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 2 ** -6 * b.abs().max().item()
+
+
+# B8 sums dq over key tiles by TMA reduce-add (and dk/dv over GQA reps by
+# fp32 atomics), in the order blocks finish: two launches may differ by one
+# bf16 rounding step of a gradient; with one rep, dk and dv are summed once
+# and must be equal
+@pytest.mark.parametrize("case", ["causal_leftpad_d96", "gqa_rep7_d128_many_tiles"])
+def test_attention_bwd_kernel_repeats_within_one_rounding(gen, case):
+    args, kw, _ = _bwd_case(gen, case)
+    first = fa.flash_bwd(*args, **kw)
+    second = fa.flash_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    one_rep = args[0].shape[1] == args[1].shape[1]
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        if one_rep and name != "dq":
+            assert torch.equal(a, b), name
+            continue
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        assert bool((err <= 2 ** -7 * a.abs() + 2 ** -12 * a.abs().max()).all()), (
+            f"{name}: max |run 1 - run 2| {err.max().item():.3e}")
 
 
 @pytest.mark.parametrize("case", ["causal_leftpad_d96", "pad_tile_ragged_d128"])

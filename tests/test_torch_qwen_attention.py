@@ -120,11 +120,10 @@ def test_fully_masked_rows_are_finite():
         assert bool(torch.isfinite(out).all())
 
 
-def test_masked_modes_have_no_backward_yet():
-    """Until B8 had its mask modes this backward raised; now the segment and
-    key-mask layouts are differentiable like the left-pad one (their
-    gradients are held to JAX's in tests/test_torch_attention_bwd.py), and
-    an unknown layout still raises."""
+def test_masked_modes_have_a_backward():
+    """The segment and key-mask layouts are differentiable like the left-pad
+    one (their gradients are held to JAX's in
+    tests/test_torch_attention_bwd.py), and an unknown layout raises."""
     rng = np.random.default_rng(14)
     q, k, v = (_t(_np(rng, 1, 64, 2, 64)).requires_grad_() for _ in range(3))
     mask = torch.ones(1, 64, dtype=torch.int32)

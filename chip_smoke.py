@@ -11,6 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      The W8A8 kernels (B4-B7) are checked the same way at the W8A8 path's
      B=8 shapes (M = 20480 rows); the LayerNorm quantizing epilogue (B9) and
      the GEMM at the CLIP tower's shapes (87040 and 21760 rows of 1024 / 4096);
+     the GEMM on K-major weights, as every W8A8 leaf is laid out, with
+     torch._int_mm on the same weights plus the scale epilogue as its library
+     call; the B3 and GEMM rows print the replaced kernels' times beside theirs;
      the backward (B8) in its segment and key-mask modes at the Qwen2.5-VL
      vision tower's full blocks (2, 16, 1280, 80; 272 pad patches in one row,
      g kept on the pad queries) and in left-pad mode at its decoder's GQA
@@ -54,7 +57,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      the gradient of every trainable leaf and of every layer slice of the
      LoRA factors compared, beside the drift of the reference attention from
      the plain route), one decoder layer's gradients through the kernels
-     against the plain versions, five make_train_step steps on one
+     against the plain versions (the reference attention's beside), five
+     make_train_step steps on one
      pair (B=2, seq 2560, the rejected side left-padded; counted: B1 in CLIP,
      B2/B3 forward and remat recompute, B2 + B8 in every layer's backward),
      one 4-pair step (B=8, seq 2944: B1 in the decoder), one --train_vision
@@ -191,8 +195,14 @@ BWD_TOL_TEXT = f"{BWD_RTOL:g}*|plain| + {BWD_ATOL_SHARE:g}*max|plain|"
 # 1, the error of a layer whose attention gradient is cut. The sharp check
 # is one decoder layer at full width, same input and upstream gradient: the
 # gradients of its input and LoRA leaves through B2/B3/B8 against the plain
-# versions (bf16 noise: ~5e-3 on the tensors, up to ~3e-2 on a LoRA scale
-# leaf, a single sum of 2 x 2560 x 3072 terms with cancellation).
+# versions (bf16 noise: ~5e-3 on the tensors). A layer's LoRA scale leaf is
+# ONE number, a bf16 sum of 2 x 2560 x 3072 terms with cancellation: its
+# relative error is noise wherever the sum cancels, for any two routes (on
+# an H100 the reference attention read 0-0.57 on these leaves over four
+# seeds, the replaced B3's kernels 0-0.17). Phase 6 holds each scale leaf
+# to the larger of LAYER_GRAD_TOL and FLOOR_FACTOR times the reference
+# attention's distance on that leaf in the same run, as phase 6q holds its
+# leaves (PERF.md §6, "The one-number LoRA scale leaves").
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_SLICE_TOL, LAYER_GRAD_TOL = 5e-3, 0.25, 0.3, 5e-2
 LAYER_SCALE_TOL = 0.25  # phase 6q's one-layer check: the one-number LoRA scale leaves
 FLOOR_FACTOR = 1.5  # phase 6q: a leaf's bound is at least this times its own drift floor
@@ -311,6 +321,10 @@ def _kernel_name(mangled: str) -> str:
             if ident.endswith("_kernel") and len(ident) == n:
                 args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
                 targs = re.findall(r"L[a-z]+(\d+)E", args.group(1)) if args else []
+                typ = re.match(r"I(?:(f)|(\d+))", rest)  # one type argument: float or a name
+                if not targs and typ:
+                    k = typ.end()
+                    targs = ["float"] if typ.group(1) else [rest[k:k + int(typ.group(2))]]
                 return ident + (f"<{','.join(targs)}>" if targs else "")
     return mangled
 
@@ -450,8 +464,8 @@ def check_prep_and_hm(gen, cfg):
     flops = 4 * D * H * _pairs_allowed(S, kv_start, S, True)
     b_ms, b_by = bound_ms(flops, 2 * 4 * B * H * S * D)
     rows.append(_report("B3 fa_hm q/k/v (2,32,2560,96)", "fa_hm", err, ATTN_TOL_TEXT, within,
-                        finite, ms,
-                        plain_ms, lib_ms, b_ms, b_by, f"causal kv_start={kv_start}"))
+                        finite, ms, plain_ms, lib_ms, b_ms, b_by,
+                        f"causal kv_start={kv_start}; {_earlier(ms, B3_EARLIER_MS['phi3v'])}"))
     return rows
 
 
@@ -519,7 +533,8 @@ def check_hm_segments(gen):
     return _report(f"B3 fa_hm segments qwen vision ({B},{H},{S},{D})", "fa_hm", err,
                    ATTN_TOL_TEXT, within, finite, ms, plain_ms, lib_ms, b_ms, b_by,
                    f"non-causal, segment ids, row {B - 1}: {int(valid[-1].sum())} valid of {S}; "
-                   f"pad rows finite {finite}; library: SDPA, boolean mask")
+                   f"pad rows finite {finite}; library: SDPA, boolean mask; "
+                   f"{_earlier(ms, B3_EARLIER_MS['segments'])}")
 
 
 def check_hm_gqa(gen, qcfg):
@@ -549,7 +564,8 @@ def check_hm_gqa(gen, qcfg):
     b_ms, b_by = bound_ms(flops, 2 * (2 * B * H * S * D + 2 * B * Hk * S * D))
     return _report(f"B3 fa_hm GQA qwen decoder ({B},{H}/{Hk},{S},{D})", "fa_hm", err,
                    ATTN_TOL_TEXT, within, finite, ms, plain_ms, lib_ms, b_ms, b_by,
-                   f"causal kv_start={kv_start}; library: SDPA enable_gqa, boolean mask")
+                   f"causal kv_start={kv_start}; library: SDPA enable_gqa, boolean mask; "
+                   f"{_earlier(ms, B3_EARLIER_MS['gqa'])}")
 
 
 def _attn_err(out, ref):
@@ -643,8 +659,31 @@ def check_ln_quant(gen, vcfg, M):
 
 
 def _int_mm_scaled(codes, amax, wq, ws):
-    """The library yardstick: cuBLASLt's s8 x s8 -> s32 plus the epilogue."""
+    """The library yardstick: cuBLASLt's s8 x s8 -> s32 on the same K-major
+    weights the kernel reads, plus the epilogue."""
     return (torch._int_mm(codes, wq).float() * (amax / 127.0) * ws).to(torch.bfloat16)
+
+
+# The times of the WMMA kernels that B3 and B7 replaced, ms per launch on an
+# "NVIDIA H100 80GB HBM3, 700.00 W", as PERF.md's table keeps them: printed
+# beside the new kernels' times.
+B3_EARLIER_MS = {"phi3v": 1.5826, "gqa": 5.4916, "segments": 1.2491}
+B7_EARLIER_MS = {  # (dynamic, M, K, N)
+    (False, 20480, 3072, 9216): 5.4063, (False, 20480, 3072, 3072): 1.7751,
+    (False, 20480, 8192, 3072): 4.7091, (False, 20480, 3072, 16384): 9.8538,
+    (False, 14336, 3584, 4608): 2.1530, (False, 14336, 3584, 3584): 1.6809,
+    (False, 14336, 18944, 3584): 8.7828, (False, 14336, 3584, 37888): 18.1428,
+    (True, 14336, 3584, 4608): 2.2124,
+    (False, 87040, 1024, 3072): 2.6806, (False, 87040, 1024, 4096): 3.5178,
+    (False, 87040, 1024, 1024): 0.9128, (False, 87040, 4096, 1024): 3.2794,
+    (False, 21760, 1024, 3072): 0.6726, (True, 21760, 4096, 1024): 0.9847,
+}
+
+
+def _earlier(ms, earlier):
+    if earlier is None:
+        return "earlier kernel: not measured"
+    return f"earlier kernel {earlier:.4f} ms, now {ms / earlier:.3f} of it"
 
 
 def check_int8_matmul(gen, dcfg, M):
@@ -669,7 +708,9 @@ def _check_gemm_shapes(gen, M, dynamic, shapes):
     rows = []
 
     def weights(K, N):
-        wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        # (K, N) with strides (1, K), as every W8A8 leaf is laid out
+        # (utils/quantize.k_major): the layout the kernel and _int_mm both read
+        wq = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8).mT
         return wq, torch.rand(1, N, generator=gen, device="cuda") * 1e-3 + 1e-4
 
     if dynamic is not None:
@@ -682,7 +723,8 @@ def _check_gemm_shapes(gen, M, dynamic, shapes):
                                  lambda: im.w8a8_matmul(x, wq, ws),
                                  lambda: im.w8a8_matmul_plain(x, wq, ws),
                                  lambda: _int_mm_scaled(codes, amax, wq, ws), M, K, N, 2,
-                                 "x bf16 -> B6 codes -> GEMM; library: _int_mm on the codes"))
+                                 "x bf16 -> B6 codes -> GEMM; library: _int_mm on the codes",
+                                 B7_EARLIER_MS.get((True, M, K, N))))
         del x, out, ref, codes, amax
     # the pre-quantized form at each shape (the last one is the row the
     # kernels line reports)
@@ -693,24 +735,21 @@ def _check_gemm_shapes(gen, M, dynamic, shapes):
         amax = torch.rand(M, 1, generator=gen, device="cuda") * 4 + 0.1
         out = im.int8_matmul_pre(codes, amax, wq, ws)
         ref = im.int8_matmul_pre_plain(codes, amax, wq, ws, bf)
-        # cuBLASLt's s32 product alone, with w as the tree holds it (N
-        # contiguous) and K-major, for information
-        wq_k = wq.t().contiguous().t()
+        # cuBLASLt's s32 product alone, for information
         mm_ms = time_ms(lambda: torch._int_mm(codes, wq))
-        mm_k_ms = time_ms(lambda: torch._int_mm(codes, wq_k))
         rows.append(_gemm_report(
             f"B7 {tag} ({M},{K})x({K},{N})", out, ref,
             lambda: im.int8_matmul_pre(codes, amax, wq, ws),
             lambda: im.int8_matmul_pre_plain(codes, amax, wq, ws, bf),
             lambda: _int_mm_scaled(codes, amax, wq, ws), M, K, N, 1,
-            f"pre-quantized codes; _int_mm alone {mm_ms:.4f} ms, K-major w {mm_k_ms:.4f} ms"))
-        del wq_k
+            f"pre-quantized codes; _int_mm alone {mm_ms:.4f} ms",
+            B7_EARLIER_MS.get((False, M, K, N))))
         del out, ref
         torch.cuda.empty_cache()
     return rows
 
 
-def _gemm_report(title, out, ref, run, plain, lib, M, K, N, x_bytes, detail):
+def _gemm_report(title, out, ref, run, plain, lib, M, K, N, x_bytes, detail, earlier):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     exact = torch.equal(out, ref)
@@ -721,7 +760,8 @@ def _gemm_report(title, out, ref, run, plain, lib, M, K, N, x_bytes, detail):
                           PEAK_INT8_OPS)
     return _report(title, "int8_matmul", err, "0 (exact)", exact, bool(torch.isfinite(out).all()),
                    ms, plain_ms, lib_ms, b_ms, b_by,
-                   f"{detail}; {2 * M * K * N / ms / 1e9:.1f} TOPS")
+                   f"{detail}; {2 * M * K * N / ms / 1e9:.1f} TOPS; {_earlier(ms, earlier)}; "
+                   f"library/kernel {lib_ms / ms:.3f}")
 
 
 def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segments=False):
@@ -1305,7 +1345,8 @@ def _loss_and_grads(loss_fn, trainable, frozen, chosen, rejected):
 def _layer_parity(cfg, frozen, trainable, batch, gen):
     """Decoder layer 0 at full width, B=2, seq 2560, one row left-padded:
     the gradients of its input and its LoRA leaves through the kernels and
-    through the plain versions, from one input and one upstream gradient."""
+    through the plain versions, from one input and one upstream gradient,
+    with the reference attention's distance from the plain versions beside."""
     dcfg = cfg.decoder
     mask = torch.ones(2, batch.input_ids.shape[1], dtype=torch.int32, device="cuda")
     mask[1, :40] = 0
@@ -1320,20 +1361,25 @@ def _layer_parity(cfg, frozen, trainable, batch, gen):
     w = torch.randn(h.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
     w = w * mask[:, :, None].to(w.dtype)
     lp = layer_slice(frozen["backbone"]["decoder"]["layers"], 0)
-    grads = []
-    for impl in ("auto", "plain"):
+    grads = {}
+    for impl in ("auto", "plain", "xla"):
         x = h.clone().requires_grad_()
         lora = tree_map(lambda t: t[0].detach().requires_grad_(), trainable["lora"])
         out = phi3.decoder_layer(x, lp, dcfg, cos, sin, mask, impl, lora)
         leaves = [x] + tree_leaves(lora)
-        grads.append(torch.autograd.grad((out.float() * w.float()).sum(), leaves))
+        grads[impl] = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
     names = ["h"] + [n for n, _ in _named_leaves(trainable["lora"])]
-    rels = {n: _rel_err(a, b) for n, a, b in zip(names, *grads)}
-    worst = max(rels, key=rels.get)
+    rels = {n: _rel_err(a, b) for n, a, b in zip(names, grads["auto"], grads["plain"])}
+    floor = {n: _rel_err(a, b) for n, a, b in zip(names, grads["xla"], grads["plain"])}
+    tol = {n: max(LAYER_GRAD_TOL, FLOOR_FACTOR * floor[n]) if n.endswith("/scale")
+           else LAYER_GRAD_TOL for n in names}
+    worst = max(rels, key=lambda n: rels[n] / tol[n])
     say("train", f"one decoder layer {tuple(h.shape)}, kernels vs plain versions: worst relative "
-        f"L2 gradient error {rels[worst]:.3e} at {worst} (tol {LAYER_GRAD_TOL:g}); "
-        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
-    if rels[worst] > LAYER_GRAD_TOL or not all(bool(torch.isfinite(g).all()) for g in grads[0]):
+        f"L2 gradient error {rels[worst]:.3e} at {worst} (tol {tol[worst]:.3g}: "
+        f"{LAYER_GRAD_TOL:g}, on a one-number scale leaf at least {FLOOR_FACTOR:g} x the "
+        f"reference attention's error); kernels (reference attention): "
+        + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in rels.items()))
+    if rels[worst] > tol[worst] or not all(bool(torch.isfinite(g).all()) for g in grads["auto"]):
         fail("train: one layer's gradients through the kernels disagree with the plain versions")
 
 

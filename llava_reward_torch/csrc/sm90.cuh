@@ -1,4 +1,4 @@
-// Hopper building blocks of the port's attention kernels (sm_90a): mbarriers,
+// Hopper building blocks of the port's kernels (sm_90a): mbarriers,
 // TMA tile loads, wgmma descriptors and fences, register reallocation, and the
 // host-side tensor maps.
 //
@@ -10,6 +10,13 @@
 // takes any C that is a multiple of 8 (head_dim 80 and 96 included), with no
 // swizzle atom to fit. The same tile serves as a K-major operand (rows on M/N,
 // columns on K) or as an MN-major one (rows on K, columns on M/N).
+//
+// The int8 GEMM's tiles are the other layout: K-major rows of exactly 128
+// bytes (one 128-deep K step of int8), written by TMA with 128-byte swizzle
+// (the 16-byte chunk c of row r lands at chunk c ^ (r % 8)), in 8-row atoms of
+// 1024 bytes that start on a 1024-byte boundary. desc_sw128 describes them to
+// wgmma; a k-step of 32 bytes inside the row is an offset of the start
+// address, as the swizzle is applied to the address the hardware forms.
 //
 // Tensor maps are encoded on the host through cudaGetDriverEntryPointByVersion
 // (cuTensorMapEncodeTiled is a driver-API call), so the library links with
@@ -67,6 +74,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 
 // ------------------------------------------------------------------ TMA
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -83,6 +99,17 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// a box from shared memory to the tensor, clipped at its bounds; completion
+// is tracked by bulk groups
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -110,6 +137,10 @@ __device__ __forceinline__ void bulk_commit() {
 // the shared-memory sources of every committed bulk group have been read
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// every committed bulk group is complete (its writes done)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // generic-proxy writes to shared memory made visible to TMA and wgmma
@@ -149,12 +180,24 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Shared-memory matrix descriptor, no swizzle: lbo / sbo in bytes.
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// A K-major tile in the 128-byte swizzle layout (see the top of the file):
+// layout type 1, sbo one 1024-byte atom of 8 rows; lbo is not used when the
+// K extent of the product lies inside one swizzle row.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return desc(p, 16, 1024) | (1ull << 62);
 }
 
 // k-step kk (16 deep) of an R-row tile used K-major: rows on M/N, columns on K.
@@ -242,6 +285,25 @@ inline int tile_map(CUtensorMap* map, const void* base, int rows, long long row_
                   dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A (rows, cols) row-major matrix of `elem` bytes per element (row stride in
+// bytes, a multiple of 16) cut into boxes of 128 bytes of columns x box_rows
+// rows, in the 128-byte swizzle layout in shared memory. Loads read zeros
+// past `cols` and `rows`; stores are clipped there. Returns 0 or a CUDA error
+// code.
+inline int sw128_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+                     int rows, int cols, long long row_stride, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_stride};
+  cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,9 @@ such a tree of numpy arrays into the same tree of tensors (same keys,
 stacking and dtypes); ``to_numpy`` is its inverse, bit for bit.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays; they cross
-as their 16-bit patterns, so no value is rounded.
+as their 16-bit patterns, so no value is rounded. W8A8 codes
+(``qvalues_w8a8``) keep their shape and values and take the port's K-major
+storage (``utils/quantize.k_major``); ``to_numpy`` gives back the numpy form.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..utils.quantize import W8A8_KEY, k_major
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -49,9 +52,11 @@ def to_torch(tree: Any, device: Union[str, torch.device] = DEFAULT_DEVICE) -> An
     """Numpy (or array-like) param tree -> the same tree of tensors."""
     dev = resolve_device(device)
 
-    def walk(x):
+    def walk(x, key=None):
         if isinstance(x, dict):
-            return {k: walk(v) for k, v in x.items()}
+            return {k: walk(v, k) for k, v in x.items()}
+        if key == W8A8_KEY:  # laid out on the host; .to keeps the strides
+            return k_major(array_to_tensor(x, "cpu")).to(dev)
         return array_to_tensor(x, dev)
 
     return walk(tree)

@@ -35,7 +35,7 @@ from ..ops import quant_epilogue as qe
 from ..ops.activations import ACT2FN
 from ..ops.attention import mha
 from ..ops.norms import layer_norm
-from ..utils.quantize import int8_linear_pre, is_w8a8, qmatmul
+from ..utils.quantize import cat_out, int8_linear_pre, is_w8a8, qmatmul
 
 
 def init_params(
@@ -129,14 +129,10 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
         # valid_len are masked in-kernel
         from ..ops.flash_attention import direct_attention, fa_direct_plain
 
-        if is_w8a8(a["q"]["kernel"]):
-            # codes and per-channel scales concatenated on the out axis, so the
-            # fused projection is ONE int8 GEMM; per layer and call, as in the
-            # JAX package (3 MB of codes at ViT-L)
-            wk = {key: torch.cat([a[n]["kernel"][key] for n in ("q", "k", "v")], dim=-1)
-                  for key in a["q"]["kernel"]}
-        else:
-            wk = torch.cat([a["q"]["kernel"], a["k"]["kernel"], a["v"]["kernel"]], dim=1)
+        # W8A8: codes (K-major) and per-channel scales concatenated on the out
+        # axis, so the fused projection is ONE int8 GEMM; per layer and call,
+        # as in the JAX package (3 MB of codes at ViT-L)
+        wk = cat_out([a[n]["kernel"] for n in ("q", "k", "v")])
         wb = torch.cat([a["q"]["bias"], a["k"]["bias"], a["v"]["bias"]])
         if x is None:
             qkv = int8_linear_pre(x_codes, x_rs, wk, h.dtype, plain) + wb

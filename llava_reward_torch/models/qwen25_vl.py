@@ -49,7 +49,7 @@ from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary
 from ..preprocess.qwen_vision import patch_norm_vectors
-from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8, qmatmul
+from ..utils.quantize import cat_out, dequant_layer, int8_linear_pre, is_w8a8, qmatmul
 from .clip_vit import layer_slice
 from .phi3 import _maybe_lora
 from .phi3v import _take_rows
@@ -281,19 +281,14 @@ def fuse_decoder_projections(layers: dict) -> dict:
     """q/k/v -> ``qkv_proj`` and gate/up -> ``gate_up_proj`` in a stacked
     decoder-layer tree (``qwen25_vl.py:306-333``), concatenated on the out
     axis: dense kernels, biases and quantized leaf dicts (codes and their
-    per-out-column scales) alike, so fusing after quantization is exact.
-    Call after any LoRA merge: the fused layout takes no adapters."""
-
-    def cat(parts):
-        if isinstance(parts[0], dict):
-            return {k: cat([p[k] for p in parts]) for k in parts[0]}
-        return torch.cat(parts, dim=-1)
-
+    per-out-column scales) alike, so fusing after quantization is exact; W8A8
+    codes stay K-major (``utils/quantize.cat_out``). Call after any LoRA
+    merge: the fused layout takes no adapters."""
     out = dict(layers)
     if all(n in out for n in ("q_proj", "k_proj", "v_proj")):
-        out["qkv_proj"] = cat([out.pop("q_proj"), out.pop("k_proj"), out.pop("v_proj")])
+        out["qkv_proj"] = cat_out([out.pop("q_proj"), out.pop("k_proj"), out.pop("v_proj")])
     if all(n in out for n in ("gate_proj", "up_proj")):
-        out["gate_up_proj"] = cat([out.pop("gate_proj"), out.pop("up_proj")])
+        out["gate_up_proj"] = cat_out([out.pop("gate_proj"), out.pop("up_proj")])
     return out
 
 

@@ -284,12 +284,15 @@ def _rope_tables(cos, sin, B, S, D):
 
 
 def _mask_i32(name: str, key_mask, segments: bool, B: int, S: int, device):
-    """(lrt_fa_hm's / lrt_fa_bwd's mask_mode, the contiguous int32 (B, S) row or None)."""
+    """(lrt_fa_hm's / lrt_fa_bwd's mask_mode, the int32 row or None): the
+    (B, S) row padded with zeros to whole 64-key tiles, (B, S_pad), as the
+    kernels fetch a tile's ints by bulk copy."""
     if key_mask is None:
         return 0, None
     if tuple(key_mask.shape) != (B, S):
         raise ValueError(f"{name}: key_mask must be ({B}, {S}), got {tuple(key_mask.shape)}")
-    return (2 if segments else 1), key_mask.to(device=device, dtype=torch.int32).contiguous()
+    row = key_mask.to(device=device, dtype=torch.int32)
+    return (2 if segments else 1), torch.nn.functional.pad(row, (0, _round_up(S, 64) - S))
 
 
 def _launch_fa_direct(qkv, cos, sin, kv_start, n_heads, D, causal, window, scale, q_len):
@@ -398,13 +401,10 @@ def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_m
     kv = _kv_start_i32(kv_start, B, qt.device)
     mode, key_mask = _mask_i32("fa_bwd", key_mask, segments, B, S, qt.device)
     # scratch, padded to whole 64-row tiles: the row statistics, which the
-    # main pass fetches by bulk copy, the mask row (zero past S), and the
-    # zeroed fp32 sums of dq and, with GQA, of dk and dv over the reps
+    # main pass fetches by bulk copy, and the zeroed fp32 sums of dq and, with
+    # GQA, of dk and dv over the reps
     S_pad = _round_up(S, 64)
-    mp = None
-    if key_mask is not None:
-        key_mask = torch.nn.functional.pad(key_mask, (0, S_pad - S))
-        mp = key_mask.data_ptr()
+    mp = key_mask.data_ptr() if key_mask is not None else None
     # written as (B, S, H, D) storage, like B3's output: the callers' (B, S, ...)
     # layouts are then free
     dq = torch.empty(B, S, H, D, dtype=qt.dtype, device=qt.device).permute(0, 2, 1, 3)

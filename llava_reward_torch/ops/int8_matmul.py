@@ -21,8 +21,13 @@ exact, so the kernel and its plain version agree bit for bit. The plain
 version forms the s32 product in int32 on the CPU and in float64 on the
 card, which is exact there because ``|sum| <= K * 127^2 < 2^53``.
 
-K and N must be multiples of 16 (the kernel's 16-byte loads); M is any.
-``LAUNCHES["int8_matmul"]`` counts GEMM launches.
+The kernel reads the weight K-major: ``wq`` keeps its ``(K, N)`` = (in, out)
+shape and values, with strides ``(1, K)`` (its storage is the (N, K)
+transpose), as every W8A8 leaf of the port is made
+(``utils/quantize.k_major``). The launch refuses any other layout; it never
+copies or transposes a weight itself. K and N must be multiples of 16 (the
+tensor maps' 16-byte row strides); M is any. ``LAUNCHES["int8_matmul"]``
+counts GEMM launches.
 """
 
 from __future__ import annotations
@@ -98,9 +103,16 @@ def _launch(codes, amax, wq, wscale, out_dtype):
         raise ValueError(f"int8_matmul: out_dtype {out_dtype} is not bf16 or f32")
     for name, t, dt in (("codes", codes, torch.int8), ("wq", wq, torch.int8),
                         ("amax", amax, torch.float32), ("wscale", wscale, torch.float32)):
-        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"int8_matmul: {name} must be a contiguous {dt} CUDA tensor, "
+        if not t.is_cuda or t.dtype != dt:
+            raise ValueError(f"int8_matmul: {name} must be a {dt} CUDA tensor, "
                              f"got {t.dtype} on {t.device}")
+        if name != "wq" and not t.is_contiguous():
+            raise ValueError(f"int8_matmul: {name} must be contiguous")
+    if wq.stride() != (1, K):
+        raise ValueError(
+            f"int8_matmul: wq must be K-major, strides (1, {K}), got {wq.stride()}; make the "
+            "W8A8 leaf with utils/quantize.k_major"
+        )
     if codes.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_matmul: codes and wq must be 16-byte aligned")
     out = torch.empty(M, N, dtype=out_dtype, device=codes.device)

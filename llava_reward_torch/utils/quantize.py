@@ -13,7 +13,11 @@ for bit: fp32 arithmetic, round half to even, the same clip and packing.
   (its grid is a subset of the int8 codes).
 - W8A8 (``--load_in_8bit``): ``{'qvalues_w8a8': int8 (in, out), 'scale':
   f32 (1, out)}`` leaves stay int8 in the matmul, which quantizes the
-  activations per row; ``ops/int8_matmul.py`` holds that GEMM.
+  activations per row; ``ops/int8_matmul.py`` holds that GEMM. The codes
+  keep the JAX package's shape and values, but their storage is K-major:
+  strides (1, in) per layer (``k_major``), the layout the card's GEMM reads.
+  Every place that makes a W8A8 leaf goes through ``k_major`` (or, for a
+  concatenation, ``cat_out``).
 
 The JAX package's environment switches are not ported: the epilogues are
 always on (``LRT_LN_QUANT``), int4 always runs as W8A8 (``LRT_I4_W8A8``),
@@ -37,7 +41,7 @@ from ..ops.quant_epilogue import ieee_div
 _Q8 = "qvalues_i8"
 _Q4 = "qvalues_i4"  # two int4 packed per byte along the 'in' axis
 _QNF4 = "qvalues_nf4"  # two nf4 codes packed per byte along the 'in' axis
-_Q8A = "qvalues_w8a8"  # int8 weights run as int8 (dynamic per-row act quant)
+W8A8_KEY = "qvalues_w8a8"  # int8 weights run as int8 (dynamic per-row act quant)
 
 # bitsandbytes NF4 grid: the 16 quantiles of N(0, 1) normalised to [-1, 1]
 NF4_GRID = torch.tensor(
@@ -143,15 +147,35 @@ def is_quantized(leaf: Any) -> bool:
 # ------------------------------------------------------------------ W8A8
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """W8A8 codes (..., in, out) with their shape and values and K-major
+    storage: strides (1, in) on the last two axes (the (out, in) transpose is
+    contiguous). wgmma reads int8 operands K-major only and TMA cannot
+    transpose bytes, so this is the one layout ``ops/int8_matmul.py`` takes;
+    a ``.to(device)`` keeps it. Codes already K-major come back as they are."""
+    return w.mT.contiguous().mT
+
+
+def cat_out(parts: Sequence[Any]) -> Any:
+    """Leaves concatenated on the out axis (fused projections): dense kernels,
+    biases and quantized leaf dicts alike; W8A8 codes are concatenated on
+    their transposes, so they stay K-major."""
+    if isinstance(parts[0], dict):
+        return {k: (torch.cat([p[k].mT for p in parts], dim=-2).mT if k == W8A8_KEY
+                    else cat_out([p[k] for p in parts])) for k in parts[0]}
+    return torch.cat(list(parts), dim=-1)
+
+
 def quantize_array_w8a8(w) -> QDict:
     """(..., in, out) float -> {'qvalues_w8a8', 'scale'}: symmetric int8 with
-    per-(leading, out) scales; the weights stay int8 at run time."""
+    per-(leading, out) scales, the codes K-major (``k_major``); the weights
+    stay int8 at run time."""
     q, scale = _absmax_codes(w, 127.0)
-    return {_Q8A: q, "scale": scale}
+    return {W8A8_KEY: k_major(q), "scale": scale}
 
 
 def is_w8a8(leaf: Any) -> bool:
-    return isinstance(leaf, dict) and _Q8A in leaf
+    return isinstance(leaf, dict) and W8A8_KEY in leaf
 
 
 def _int8_matmul_2d(x2, w, scale, plain: bool = False) -> torch.Tensor:
@@ -185,7 +209,7 @@ class _Int8LinearCore(torch.autograd.Function):
 def int8_linear(x: torch.Tensor, qd: QDict, plain: bool = False) -> torch.Tensor:
     """x (..., in) @ W8A8 weight (in, out); differentiable in x."""
     lead = x.shape[:-1]
-    y = _Int8LinearCore.apply(x.reshape(-1, x.shape[-1]), qd[_Q8A], qd["scale"], plain)
+    y = _Int8LinearCore.apply(x.reshape(-1, x.shape[-1]), qd[W8A8_KEY], qd["scale"], plain)
     return y.reshape(*lead, -1)
 
 
@@ -198,7 +222,7 @@ def int8_linear_pre(
     epilogues emit (divided by 127 here). Inference only."""
     lead = codes.shape[:-1]
     fn = int8_matmul_pre_plain if plain else int8_matmul_pre
-    y = fn(codes.reshape(-1, codes.shape[-1]), rowscale.reshape(-1, 1), qd[_Q8A],
+    y = fn(codes.reshape(-1, codes.shape[-1]), rowscale.reshape(-1, 1), qd[W8A8_KEY],
            qd["scale"], dtype)
     return y.reshape(*lead, -1)
 
@@ -213,9 +237,21 @@ def qmatmul(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
 
 def _per_layer(fn: Callable[[torch.Tensor], QDict], w: torch.Tensor) -> QDict:
     """``fn`` one leading slice at a time (every scale is per slice), which
-    bounds the fp32 working set to one layer."""
-    parts = [fn(w[i]) for i in range(w.shape[0])]
-    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    bounds the fp32 working set to one layer. Each slice is written into the
+    stacked leaf as it is made, in the slice's own layout: W8A8 codes (L, in,
+    out) land in (L, out, in) storage, K-major per layer, with no second
+    whole copy."""
+    out: QDict = {}
+    for i in range(w.shape[0]):
+        for k, v in fn(w[i]).items():
+            if k not in out:
+                if k == W8A8_KEY:
+                    out[k] = torch.empty((w.shape[0], *v.mT.shape), dtype=v.dtype,
+                                         device=v.device).mT
+                else:
+                    out[k] = torch.empty((w.shape[0], *v.shape), dtype=v.dtype, device=v.device)
+            out[k][i] = v
+    return out
 
 
 def quantize_stacked_layers(
@@ -262,7 +298,7 @@ def dequant_layer(lp: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
     def walk(v):
         if is_quantized(v):
             if _Q4 in v:
-                return {_Q8A: _unpack_i4_codes(v[_Q4]), "scale": v["scale"]}
+                return {W8A8_KEY: k_major(_unpack_i4_codes(v[_Q4])), "scale": v["scale"]}
             return dequantize_array(v, dtype)
         if isinstance(v, dict):
             return {k: walk(x) for k, x in v.items()}

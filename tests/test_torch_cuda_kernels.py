@@ -24,10 +24,13 @@ bf16 rounding of a gradient (fp32 sums in the order blocks finish), and
 not at all in dk / dv without GQA. Every raw launch refuses an input that
 requires grad. W8A8:
 B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
-B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM at a
-ragged M, at M < 16, at K and N that the 64 x 128 tiles do not divide and
-with f32 output; the weight quantizers on the card against the CPU's. And
-the wrappers' refusals. Inputs come from a seeded CUDA
+B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
+ragged M, at M < 16, at K and N that the 128 x 256 tiles and 128-deep K
+steps do not divide (K = 208 and 8192 + 16, N = 48) and with f32 output,
+and packed int4 run as W8A8 through it; the weight quantizers on the card
+against the CPU's. And the wrappers' refusals (an N-major weight among
+them). B3 also on q and k/v as strided views of one fused projection, and
+twice on the same inputs: it uses no atomics, so the two agree exactly. Inputs come from a seeded CUDA
 generator.
 
 Tolerances. Attention, on valid rows: |kernel - plain| <= 8e-3 + 2^-7
@@ -123,6 +126,8 @@ HM_CASES = {
     "causal_window": (2, 256, 4, 4, 96, True, [10, 0], 256, 33),
     "gqa_causal_leftpad": (2, 256, 4, 2, 64, True, [5, 64], 256, None),
     "ragged_s_d128_pad_tile": (2, 200, 2, 1, 128, True, [0, 70], 200, None),
+    "gqa_rep7_d128_ragged": (2, 200, 14, 2, 128, True, [0, 40], 200, None),
+    "causal_window_leftpad_d80": (2, 320, 2, 2, 80, True, [70, 3], 320, 45),
 }
 
 
@@ -138,6 +143,43 @@ def test_head_major_kernel_matches_plain(gen, case):
     ref = fa.flash_fwd_hm_plain(qt, kt, vt, kv, **kw)
     torch.cuda.synchronize()
     _assert_close_on(_valid_rows(S, kv_start, q_len), out.transpose(1, 2), ref.transpose(1, 2))
+
+
+def test_head_major_kernel_on_views_of_one_fused_buffer(gen):
+    """q and k/v as strided (B, H, S, D) views of one (B, S, (H + 2 Hk) * D)
+    projection, as the tensor maps read them: the same result as on
+    contiguous copies, and within tolerance of the plain version."""
+    B, S, H, Hk, D = 2, 200, 4, 2, 96
+    qkv = _randn(gen, B, S, (H + 2 * Hk) * D)
+    q = qkv[..., : H * D].unflatten(-1, (H, D)).transpose(1, 2)
+    k = qkv[..., H * D : (H + Hk) * D].unflatten(-1, (Hk, D)).transpose(1, 2)
+    v = qkv[..., (H + Hk) * D :].unflatten(-1, (Hk, D)).transpose(1, 2)
+    kv = torch.tensor([0, 33], dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, sliding_window=None, scale=D ** -0.5, q_len=S)
+    out = fa._flash_fwd_hm(q, k, v, kv, None, **kw)
+    dense = fa._flash_fwd_hm(q.contiguous(), k.contiguous(), v.contiguous(), kv, None, **kw)
+    ref = fa.flash_fwd_hm_plain(q, k, v, kv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+    _assert_close_on(_valid_rows(S, [0, 33], S), out.transpose(1, 2), ref.transpose(1, 2))
+
+
+def test_head_major_kernel_repeats_exactly(gen):
+    """B3 sums in a fixed order (no atomics): two launches agree bit for bit,
+    in left-pad mode with GQA and in segment mode."""
+    B, S, D = 2, 200, 128
+    q, k, v = _randn(gen, B, 14, S, D), _randn(gen, B, 2, S, D), _randn(gen, B, 2, S, D)
+    kv = torch.tensor([0, 40], dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, sliding_window=None, scale=D ** -0.5, q_len=S)
+    first = fa._flash_fwd_hm(q, k, v, kv, None, **kw)
+    assert torch.equal(first, fa._flash_fwd_hm(q, k, v, kv, None, **kw))
+    seg = torch.stack([_mask_row(S, "frames"), _mask_row(S, "pads")]).cuda()
+    q, k, v = (_randn(gen, B, 2, S, 80) for _ in range(3))
+    kw = dict(causal=False, sliding_window=None, scale=80 ** -0.5, q_len=S, segments=True)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    first = fa._flash_fwd_hm(q, k, v, zero, seg, **kw)
+    assert torch.equal(first, fa._flash_fwd_hm(q, k, v, zero, seg, **kw))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("D", [64, 96, 128])
@@ -171,6 +213,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     hm48 = _randn(gen, 1, 2, 64, 48)
     with pytest.raises(ValueError, match="head_dim"):
         fa._flash_fwd_hm(hm48, hm48, hm48, kv, None, False, None, 0.125, q_len=64)
+    # a view one element into its buffer: the tensor maps need 16-byte aligned bases
+    off = _randn(gen, 1, 2, 64, 72)[..., 1:65]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._flash_fwd_hm(off, hm, hm, kv, None, False, None, 0.125, q_len=64)
     bwd_kw = dict(causal=False, sliding_window=None, scale=0.125, q_len=64)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_bwd(hm48, hm48, hm48, hm48, kv, **bwd_kw)
@@ -200,6 +246,7 @@ MASK_CASES = {
     "segments_frames_d80": (2, 256, 2, 2, 80, False, None, "segments", ("frames", "pads")),
     "segments_gqa_d64": (2, 192, 4, 2, 64, False, None, "segments", ("frames", "pads")),
     "segments_d128_ragged": (1, 200, 2, 1, 128, False, None, "segments", ("frames",)),
+    "segments_d80_ragged": (2, 200, 2, 2, 80, False, None, "segments", ("frames", "pads")),
     "key_mask_causal_window_d96": (2, 256, 4, 4, 96, True, 40, "arbitrary", ("pads", "pads")),
     "d80_causal_window_no_mask": (2, 256, 2, 1, 80, True, 50, None, ()),
     "all_keys_masked_row": (2, 128, 2, 2, 80, False, None, "segments", ("none", "pads")),
@@ -296,6 +343,7 @@ MASK_BWD_CASES = {
     "segments_frames_d80": (2, 256, 2, 2, 80, False, None, "segments", ("frames", "pads")),
     "segments_gqa_d64": (2, 192, 4, 2, 64, False, None, "segments", ("frames", "pads")),
     "segments_d128_ragged": (1, 200, 2, 1, 128, False, None, "segments", ("frames",)),
+    "segments_d80_ragged": (2, 200, 2, 2, 80, False, None, "segments", ("frames", "pads")),
     "segments_all_pad_row_d80": (2, 128, 2, 2, 80, False, None, "segments", ("none", "pads")),
     "segments_d80_ragged_tile": (2, 200, 2, 2, 80, False, None, "segments", ("frames", "pads")),
     "key_mask_s577_d64": (1, 577, 2, 1, 64, False, None, "arbitrary", ("pads",)),
@@ -532,6 +580,14 @@ def test_silu_mul_quant_kernel_at_other_widths(gen, I):
                  qe.silu_mul_quant_plain(x))
 
 
+def _k_major_weights(gen, K, N):
+    """int8 (K, N) weights laid out as every W8A8 leaf is (``k_major``)."""
+    from llava_reward_torch.utils.quantize import k_major
+
+    return k_major(torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                                 dtype=torch.int8))
+
+
 GEMM_CASES = {
     # name: (M, K, N, out dtype)
     "ragged_m_bf16": (200, 384, 256, torch.bfloat16),
@@ -545,7 +601,8 @@ GEMM_CASES = {
 def test_int8_matmul_kernel_is_bit_exact(gen, case):
     M, K, N, out_dtype = GEMM_CASES[case]
     x = _rows(gen, M, K, torch.bfloat16)
-    wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+    wq = _k_major_weights(gen, K, N)
+    assert wq.stride() == (1, K)
     ws = torch.rand(1, N, generator=gen, device="cuda") * 1e-3 + 1e-4
     im.reset_counters()
     qe.reset_counters()
@@ -558,6 +615,24 @@ def test_int8_matmul_kernel_is_bit_exact(gen, case):
     assert dyn.dtype == out_dtype and tuple(dyn.shape) == (M, N)
     assert torch.equal(pre, ref) and torch.equal(dyn, ref)
     assert not bool(dyn[M // 2].any())
+
+
+def test_int4_runs_as_w8a8_through_the_gemm(gen):
+    """Packed int4 leaves unpack in dequant_layer into K-major W8A8 codes,
+    which the GEMM takes bit-exact against its plain version."""
+    from llava_reward_torch.utils.quantize import dequant_layer, qmatmul, quantize_stacked_layers
+
+    w = torch.randn(2, 512, 384, generator=gen, device="cuda").mul_(0.02).bfloat16()
+    packed = quantize_stacked_layers({"w": w}, bits=4, min_size=0)["w"]
+    leaf = dequant_layer({"w": {k: v[1] for k, v in packed.items()}})["w"]
+    assert leaf["qvalues_w8a8"].shape == (512, 384) and leaf["qvalues_w8a8"].stride() == (1, 512)
+    x = _rows(gen, 70, 512, torch.bfloat16)
+    im.reset_counters()
+    got = qmatmul(x, leaf)
+    assert im.LAUNCHES["int8_matmul"] == 1
+    ref = qmatmul(x, leaf, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("scheme", ["w8a8", "absmax", "nf4"])
@@ -585,6 +660,10 @@ def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(gen):
         im.int8_matmul_pre(codes[:, :192], amax,
                            torch.zeros(192, 40, dtype=torch.int8, device="cuda"),
                            torch.ones(1, 40, device="cuda"))
+    with pytest.raises(ValueError, match="K-major"):  # (K, N) row-major: N contiguous
+        im.int8_matmul_pre(codes[:, :192].contiguous(), amax,
+                           torch.zeros(192, 64, dtype=torch.int8, device="cuda"),
+                           torch.ones(1, 64, device="cuda"))
     attn = _randn(gen, 2, 64, 4, 128).transpose(1, 2)  # (B, H, S, D): not a row layout
     with pytest.raises(ValueError, match="not contiguous"):
         qe.row_quant(attn.reshape(2, 4, 64 * 128)[:, :, :256])

@@ -1,0 +1,239 @@
+"""Readings behind the one-number LoRA scale-leaf bounds of chip_smoke.py's
+training checks, on one H100, for the port in a given checkout.
+
+The measuring code is this tree's chip_smoke.py; the package and its CUDA
+kernels come from ``--root`` (this checkout by default), so the same readings
+can be taken of another commit unpacked beside it (``git archive <commit> |
+tar -x -C scratch/other``, a directory that .gitignore lists):
+
+    python tools/scale_leaf_readings.py [--root DIR] [--label NAME] [--controls]
+                                        [--swap-b3]
+
+Each reading is one ``READING {json}`` line:
+
+- ``fwd``: B3's output against an fp64 softmax on valid rows, beside the plain
+  version's, at the Qwen2.5-VL decoder's GQA shape and Phi-3.5-V's decoder
+  shape (relative L2 error; ``shrink``, the error's projection on the exact
+  output, a scale bias; the mean error).
+- ``phi3v-layer``: phase 6's one-decoder-layer check at seeds 0-3: every
+  leaf's relative L2 gradient error against the plain versions through the
+  kernels (twice), and through the reference attention (``xla``); with
+  ``--controls`` also through B3 with a fault planted at its launch (softmax
+  scale x1.003 and x1.01, kv_start off by one, q/k rounded to fp8 e4m3).
+- ``qwen-route``: phase 6q's one full-depth LoRA step at seeds 0-2: the scale
+  leaves' errors through the kernels (twice) and the reference attention,
+  the worst other leaf and layer slice; with the kernel route's B8 swapped
+  for its plain version, and with ``--swap-b3`` also its B3.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+import time
+
+ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+ap.add_argument("--label", default="tree")
+ap.add_argument("--controls", action="store_true")
+ap.add_argument("--swap-b3", action="store_true")
+args = ap.parse_args()
+ROOT = os.path.abspath(args.root)
+sys.path.insert(0, ROOT)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+fa = cs.fa
+assert fa.__file__.startswith(ROOT), fa.__file__
+T0 = time.time()
+CONTROLS = ("scale*1.003", "scale*1.01", "kv_start+1", "fp8 q/k")
+
+
+def emit(kind, **kw):
+    print("READING " + json.dumps({"label": args.label, "kind": kind, **kw,
+                                   "t": round(time.time() - T0, 1)}), flush=True)
+
+
+def planted_b3(name):
+    """B3 with a fault planted at its launch wrapper."""
+    real = fa._launch_fa_hm
+
+    def launch(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=None,
+               segments=False):
+        if name == "scale*1.003":
+            scale = scale * 1.003
+        elif name == "scale*1.01":
+            scale = scale * 1.01
+        elif name == "kv_start+1":
+            kv_start = kv_start + 1
+        elif name == "fp8 q/k":
+            qt = qt.to(torch.float8_e4m3fn).to(qt.dtype)
+            kt = kt.to(torch.float8_e4m3fn).to(kt.dtype)
+        return real(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask, segments)
+    return launch
+
+
+def b3_plain(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=None, segments=False):
+    return fa.flash_fwd_hm_plain(qt, kt, vt, kv_start, causal=causal, sliding_window=window,
+                                 scale=scale, q_len=q_len, key_mask=key_mask, segments=segments)
+
+
+def b8_plain(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_mask=None,
+             segments=False):
+    return fa.flash_bwd_plain(qt, kt, vt, gt, kv_start, causal=causal, sliding_window=window,
+                              scale=scale, q_len=q_len, key_mask=key_mask, segments=segments)
+
+
+class patched:
+    """Replace one launch function of ops/flash_attention.py for a block."""
+
+    def __init__(self, attr, fn):
+        self.attr, self.fn = attr, fn
+
+    def __enter__(self):
+        self.real = getattr(fa, self.attr)
+        if self.fn is not None:
+            setattr(fa, self.attr, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(fa, self.attr, self.real)
+
+
+def fwd_accuracy():
+    shapes = {"qwen-gqa": (2, 28, 4, 1792, 128, [0, 40]),
+              "phi3v": (2, 32, 32, 2560, 96, [0, 300])}
+    for name, (B, H, Hk, S, D, kvs) in shapes.items():
+        for sharp in (1.0, 4.0):  # score spread: q scaled by this
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            q = (torch.randn(B, H, S, D, generator=gen, device="cuda") * sharp).bfloat16()
+            k = torch.randn(B, Hk, S, D, generator=gen, device="cuda").bfloat16()
+            v = torch.randn(B, Hk, S, D, generator=gen, device="cuda").bfloat16()
+            kv = torch.tensor(kvs, dtype=torch.int32, device="cuda")
+            scale = D ** -0.5
+            outs = {"kernel": fa._launch_fa_hm(q, k, v, kv, True, None, scale, S),
+                    "plain": fa.flash_fwd_hm_plain(q, k, v, kv, causal=True, sliding_window=None,
+                                                   scale=scale, q_len=S)}
+            sums = {key: [0.0, 0.0, 0.0] for key in outs}
+            den = gap = 0.0
+            pos = torch.arange(S, device="cuda")
+            for b in range(B):
+                rows = pos >= kvs[b]
+                kb = k[b].double().repeat_interleave(H // Hk, 0)
+                vb = v[b].double().repeat_interleave(H // Hk, 0)
+                s = q[b].double() @ kb.transpose(-1, -2) * scale
+                s = s.masked_fill(~((pos[None, :] <= pos[:, None]) & (pos[None, :] >= kvs[b])),
+                                  float("-inf"))
+                ref = (torch.softmax(s, -1) @ vb)[:, rows]
+                del s
+                den += float((ref * ref).sum())
+                for key, o in outs.items():
+                    e = o[b][:, rows].double() - ref
+                    sums[key][0] += float((e * e).sum())
+                    sums[key][1] += float((e * ref).sum())
+                    sums[key][2] += float(e.sum())
+                gap += float(((outs["kernel"][b][:, rows].double()
+                               - outs["plain"][b][:, rows].double()) ** 2).sum())
+            n = B * H * S * D
+            emit("fwd", shape=name, sharp=sharp, kernel_vs_plain_rel_l2=(gap / den) ** 0.5,
+                 **{key: {"rel_l2_vs_fp64": (a / den) ** 0.5, "shrink_vs_fp64": p / den,
+                          "mean_err": m / n} for key, (a, p, m) in sums.items()})
+            del q, k, v, outs
+            torch.cuda.empty_cache()
+
+
+def phi_layer(seeds):
+    """Phase 6's one-layer check (chip_smoke._layer_parity) at each seed,
+    from the generator state phase 6 reaches it with."""
+    cfg = cs.phi35_vision_config()
+    rcfg = cs.RewardConfig(is_general_preference=True, value_head_dim=2,
+                           add_cross_attention=True, layer_id=cfg.decoder.num_layers)
+    dcfg = cfg.decoder
+    runs = ["auto", "auto#2", "plain", "xla"] + (list(CONTROLS) if args.controls else [])
+    for seed in seeds:
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        frozen = {"backbone": cs.phi3v.init_params(cfg, gen, torch.bfloat16, "cuda")}
+        trainable = cs._trainable(cfg, rcfg, gen)
+        batch, _ = cs._halves(cs.make_request(cfg, gen, 1, 2560, {1: 40}), 1)
+        mask = torch.ones(2, batch.input_ids.shape[1], dtype=torch.int32, device="cuda")
+        mask[1, :40] = 0
+        pos = torch.cumsum(mask, -1) - 1
+        pos = torch.where(mask == 0, torch.ones_like(pos), pos)
+        cos, sin = cs.rope_cos_sin_for_config(pos, dcfg, dtype=torch.bfloat16)
+        h = torch.randn(2, mask.shape[1], dcfg.hidden_size, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = torch.randn(h.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+        w = w * mask[:, :, None].to(w.dtype)
+        lp = cs.layer_slice(frozen["backbone"]["decoder"]["layers"], 0)
+        del frozen
+        names = ["h"] + [n for n, _ in cs._named_leaves(trainable["lora"])]
+        grads = {}
+        for run in runs:
+            impl = run if run in ("plain", "xla") else "auto"
+            with patched("_launch_fa_hm", planted_b3(run) if run in CONTROLS else None):
+                x = h.clone().requires_grad_()
+                lora = cs.tree_map(lambda t: t[0].detach().requires_grad_(), trainable["lora"])
+                out = cs.phi3.decoder_layer(x, lp, dcfg, cos, sin, mask, impl, lora)
+                grads[run] = torch.autograd.grad((out.float() * w.float()).sum(),
+                                                 [x] + cs.tree_leaves(lora))
+        emit("phi3v-layer", seed=seed,
+             rel={r: {n: cs._rel_err(a, b) for n, a, b in zip(names, g, grads["plain"])}
+                  for r, g in grads.items() if r != "plain"},
+             scale_grad={r: {n: float(t.float()) for n, t in zip(names, g)
+                             if n.endswith("/scale")} for r, g in grads.items()})
+        del grads, lp, trainable
+
+
+def qwen_route(seeds):
+    """Phase 6q's full-depth LoRA step (chip_smoke._route_parity's readings)
+    at each seed."""
+    qcfg = cs.qwen25_vl_7b_config()
+    rcfg = cs.RewardConfig(is_general_preference=True, value_head_dim=2,
+                           add_cross_attention=True, layer_id=qcfg.text.num_layers)
+    runs = {"auto": ("auto", None), "auto#2": ("auto", None), "xla": ("xla", None),
+            "B3 + plain B8": ("auto", ("_launch_fa_bwd", b8_plain))}
+    if args.swap_b3:
+        runs["plain B3 + B8"] = ("auto", ("_launch_fa_hm", b3_plain))
+    for seed in seeds:
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        frozen = {"backbone": cs.qwen25_vl.init_params(qcfg, gen, torch.bfloat16, "cuda")}
+        trainable = cs._qwen_trainable(qcfg, rcfg, gen, frozen["backbone"])
+        rng = np.random.default_rng(seed)
+        chosen, rejected = cs._halves(cs.qwen_request(qcfg, rng, cs.QWEN_GRIDS, {1: 40}), 1)
+
+        def step(impl):
+            loss = cs.make_pairwise_loss_fn(qcfg, rcfg, attn_impl=impl, remat=True,
+                                            projector_path=cs.PROJECTOR_PATHS["qwen"])
+            return cs._loss_and_grads(loss, trainable, frozen, chosen, rejected)
+
+        names = [n for n, _ in cs._named_leaves(trainable)]
+        lp, gp = step("plain")
+        read = {}
+        for key, (impl, swap) in runs.items():
+            with patched(*(swap or ("_launch_fa_hm", None))):
+                lk, gk = step(impl)
+            (_, leaves), (piece, slices) = cs._grad_errors(names, gk, gp, cs._lora_factor)
+            read[key] = {"loss": lk.item(),
+                         "scale": {n: v for n, v in leaves.items() if n.endswith("/scale")},
+                         "worst_other": max((v, n) for n, v in leaves.items()
+                                            if not n.endswith("/scale")),
+                         "worst_slice": (slices[piece], piece)}
+            del gk
+        emit("qwen-route", seed=seed, plain_loss=lp.item(), read=read)
+        del frozen, trainable, gp
+
+
+cs.phase_device()
+cs.phase_build()
+fwd_accuracy()
+phi_layer([0, 1, 2, 3])
+qwen_route([0, 1, 2])
+emit("done")

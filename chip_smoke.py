@@ -11,6 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      The W8A8 kernels (B4-B7) are checked the same way at the W8A8 path's
      B=8 shapes (M = 20480 rows); the LayerNorm quantizing epilogue (B9) and
      the GEMM at the CLIP tower's shapes (87040 and 21760 rows of 1024 / 4096);
+     B4 and B9 timed two ways (CUDA events over 100 launches, the profiler's
+     device time), beside the replaced kernels' times and torch's rms_norm /
+     layer_norm alone;
      the GEMM on K-major weights, as every W8A8 leaf is laid out, with
      torch._int_mm on the same weights plus the scale epilogue as its library
      call; the B3 and GEMM rows print the replaced kernels' times beside theirs;
@@ -202,7 +205,12 @@ BWD_TOL_TEXT = f"{BWD_RTOL:g}*|plain| + {BWD_ATOL_SHARE:g}*max|plain|"
 # seeds, the replaced B3's kernels 0-0.17). Phase 6 holds each scale leaf
 # to the larger of LAYER_GRAD_TOL and FLOOR_FACTOR times the reference
 # attention's distance on that leaf in the same run, as phase 6q holds its
-# leaves (PERF.md §6, "The one-number LoRA scale leaves").
+# leaves (PERF.md §6, "The one-number LoRA scale leaves"). Each check also
+# prints the scale leaves' conditioned error, |d dscale_l| / (||g_b,l||
+# ||b_l|| / |scale_l|) (_scale_leaf_errors), for information only: on an
+# H100 it read ~1e-5 in the one-layer checks and ~1e-3 at full depth for
+# sound and faulty kernels alike, and no bound on it kept the catches of the
+# rule above (PERF.md §6, the scale leaves' readings).
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_SLICE_TOL, LAYER_GRAD_TOL = 5e-3, 0.25, 0.3, 5e-2
 LAYER_SCALE_TOL = 0.25  # phase 6q's one-layer check: the one-number LoRA scale leaves
 FLOOR_FACTOR = 1.5  # phase 6q: a leaf's bound is at least this times its own drift floor
@@ -312,19 +320,38 @@ def phase_build() -> None:
     say("ptxas", f"kernels that spill: {', '.join(spilled) or 'none'}")
 
 
+def _template_args(rest: str):
+    """The template arguments at the head of ``rest`` (``I...E`` in the
+    Itanium mangling): a type name, ``float`` or an integer literal each."""
+    out, i = [], 1
+    if not rest.startswith("I"):
+        return out
+    while i < len(rest) and rest[i] != "E":
+        lit = re.match(r"L[a-z]+(n?\d+)E", rest[i:])
+        num = re.match(r"\d+", rest[i:])
+        if lit:
+            out.append(lit.group(1).replace("n", "-"))
+            i += lit.end()
+        elif num:
+            n = int(num.group(0))
+            out.append(rest[i + num.end():i + num.end() + n])
+            i += num.end() + n
+        elif rest[i] == "f":
+            out.append("float")
+            i += 1
+        else:
+            break
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
-    """``fa_bwd_main_kernel<64,0>`` from an Itanium-mangled kernel name."""
+    """``norm_quant_kernel<__nv_bfloat16,1,4>`` from an Itanium-mangled kernel name."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group(0))):  # the run may end a previous name
             n = int(m.group(0)[i:])
             ident, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
             if ident.endswith("_kernel") and len(ident) == n:
-                args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
-                targs = re.findall(r"L[a-z]+(\d+)E", args.group(1)) if args else []
-                typ = re.match(r"I(?:(f)|(\d+))", rest)  # one type argument: float or a name
-                if not targs and typ:
-                    k = typ.end()
-                    targs = ["float"] if typ.group(1) else [rest[k:k + int(typ.group(2))]]
+                targs = _template_args(rest)
                 return ident + (f"<{','.join(targs)}>" if targs else "")
     return mangled
 
@@ -616,19 +643,38 @@ def _codes_report(title, name, got, ref, ms, plain_ms, nbytes, nops, detail):
                    f"{detail}; differing codes {share:.3e}, amax rel err {amax_rel:.3e}")
 
 
+def _norm_quant_times(name, run, yardstick, M, H):
+    """B4 / B9 timed two ways, CUDA events over 100 launches and the
+    profiler's device time a launch, with the earlier kernel's time and the
+    norm alone in torch (less work: no codes; a yardstick, not the library
+    column) beside. Returns the event time and the text."""
+    ms = time_ms(run, iters=100)
+    dev = _device_split(run, ["norm_quant"], reps=20)["norm_quant"]
+    lib = time_ms(yardstick, iters=100)
+    pace = (" (events above the device time by more than 10 %: the wrapper sets the pace)"
+            if ms > 1.1 * dev else "")
+    norm = "rms_norm" if name == "rms_quant" else "layer_norm"
+    return ms, (f"events {ms:.4f} ms over 100 launches, profiler {dev:.4f} ms device time a "
+                f"launch{pace}; {_earlier(ms, NORM_QUANT_EARLIER_MS.get((name, M, H)))}; "
+                f"torch {norm} alone {lib:.4f} ms")
+
+
 def check_quant_epilogues(gen, dcfg, M):
     H, I, eps = dcfg.hidden_size, dcfg.intermediate_size, dcfg.rms_norm_eps
     bf = torch.bfloat16
     x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf))
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
-    # B4 is timed twice more (100 launches each) to show the spread of one run
-    spread = [time_ms(lambda: qe.rms_quant(x, w, eps), iters=100) for _ in range(2)]
+    run = lambda: qe.rms_quant(x, w, eps)  # noqa: E731
+    ms, times = _norm_quant_times("rms_quant", run,
+                                  lambda: torch.nn.functional.rms_norm(x, (H,), w, eps), M, H)
+    # timed twice more (100 launches each) to show the spread of one run
+    spread = [time_ms(run, iters=100) for _ in range(2)]
     rows = [_codes_report(
-        f"B4 rms_quant ({M},{H}) bf16", "rms_quant", qe.rms_quant(x, w, eps),
-        qe.rms_quant_plain(x, w, eps), time_ms(lambda: qe.rms_quant(x, w, eps)),
+        f"B4 rms_quant ({M},{H}) bf16", "rms_quant", run(), qe.rms_quant_plain(x, w, eps), ms,
         time_ms(lambda: qe.rms_quant_plain(x, w, eps), iters=3, warmup=1),
         M * H * 2 + H * 2 + M * H + M * 4, 8 * M * H,
-        f"zero rows every {M // 4}; 100-launch repeats {spread[0]:.4f} / {spread[1]:.4f} ms")]
+        f"zero rows every {M // 4}; {times}; 100-launch repeats {spread[0]:.4f} / "
+        f"{spread[1]:.4f} ms")]
     gu = _zero_rows(torch.randn(M, 2 * I, generator=gen, device="cuda", dtype=bf).mul_(2))
     rows.append(_codes_report(
         f"B5 silu_mul_quant ({M},{2 * I}) bf16", "silu_mul_quant", qe.silu_mul_quant(gu),
@@ -645,17 +691,19 @@ def check_quant_epilogues(gen, dcfg, M):
 
 
 def check_ln_quant(gen, vcfg, M):
-    """B9 at the CLIP tower's B=8 shape: 136 crops x 640 padded tokens."""
+    """B9 at a CLIP tower shape: crops x 640 padded tokens."""
     H, eps, bf = vcfg.hidden_size, vcfg.layer_norm_eps, torch.bfloat16
     x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=bf).mul_(2))
     w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
     b = (0.1 * torch.randn(H, generator=gen, device="cuda")).to(bf)
+    run = lambda: qe.ln_quant(x, w, b, eps)  # noqa: E731
+    ms, times = _norm_quant_times(
+        "ln_quant", run, lambda: torch.nn.functional.layer_norm(x, (H,), w, b, eps), M, H)
     return _codes_report(
-        f"B9 ln_quant ({M},{H}) bf16", "ln_quant", qe.ln_quant(x, w, b, eps),
-        qe.ln_quant_plain(x, w, b, eps), time_ms(lambda: qe.ln_quant(x, w, b, eps)),
+        f"B9 ln_quant ({M},{H}) bf16", "ln_quant", run(), qe.ln_quant_plain(x, w, b, eps), ms,
         time_ms(lambda: qe.ln_quant_plain(x, w, b, eps), iters=3, warmup=1),
         M * H * 2 + 2 * H * 2 + M * H + M * 4, 12 * M * H,
-        f"zero rows every {M // 4} (LayerNorm of a zero row is the bias)")
+        f"zero rows every {M // 4} (LayerNorm of a zero row is the bias); {times}")
 
 
 def _int_mm_scaled(codes, amax, wq, ws):
@@ -678,6 +726,13 @@ B7_EARLIER_MS = {  # (dynamic, M, K, N)
     (False, 87040, 1024, 1024): 0.9128, (False, 87040, 4096, 1024): 3.2794,
     (False, 21760, 1024, 3072): 0.6726, (True, 21760, 4096, 1024): 0.9847,
 }
+
+
+# The times of the row-per-block kernels that the streaming B4 and B9
+# replaced, ms per launch on an "NVIDIA H100 80GB HBM3, 700.00 W", as PERF.md's
+# table keeps them, keyed (name, M, H): printed beside the new kernels' times.
+NORM_QUANT_EARLIER_MS = {("rms_quant", W8A8_M, 3072): 0.1015, ("rms_quant", QWEN_M, 3584): 0.0930,
+                         ("ln_quant", CLIP_M8, 1024): 0.2837}
 
 
 def _earlier(ms, earlier):
@@ -841,7 +896,7 @@ def check_bwd(title, gen, B, H, S, D, causal, kv_start, Hk=None, mask=None, segm
                    f"{', boolean mask' if sdpa_mask is not None else ''}")
 
 
-def _launch_split(fn, names, reps=3):
+def _device_split(fn, names, reps=3):
     """Device ms per call of each kernel whose name holds one of ``names``
     (the rest summed as "other"), from torch.profiler over ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
@@ -857,7 +912,11 @@ def _launch_split(fn, names, reps=3):
         us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if us and ev.key not in ("cudaDeviceSynchronize", "cudaLaunchKernel"):
             split[next((n for n in names if n in ev.key), "other")] += us / 1e3 / reps
-    return ", ".join(f"{n} {ms:.4f}" for n, ms in split.items())
+    return split
+
+
+def _launch_split(fn, names, reps=3):
+    return ", ".join(f"{n} {ms:.4f}" for n, ms in _device_split(fn, names, reps).items())
 
 
 def phase_kernels(cfg, qcfg):
@@ -890,7 +949,8 @@ def phase_kernels(cfg, qcfg):
                           [0, 40]))
     torch.cuda.empty_cache()
     # the W8A8 CLIP tower's shapes first (the kernels line reports B6 and the
-    # GEMM at the decoders' shapes, which come after)
+    # GEMM at the decoders' shapes, which come after; B9 at B=8, its last)
+    rows.append(check_ln_quant(gen, cfg.vision, CLIP_M2))
     rows.append(check_ln_quant(gen, cfg.vision, CLIP_M8))
     rows += check_int8_matmul_clip(gen, cfg.vision, CLIP_M8, CLIP_M2)
     torch.cuda.empty_cache()
@@ -1336,6 +1396,36 @@ def _grad_errors(names, got, ref, stacked=_lora_factor):
     return (max(leaves, key=leaves.get), leaves), (max(slices, key=slices.get), slices)
 
 
+def _scale_leaf_errors(names, got, ref, values):
+    """The conditioned error of each one-number LoRA scale leaf (``.../scale``
+    beside its ``a`` and ``b``): for layer l, |got_l - ref_l| / (||g_b,l||
+    ||b_l|| / |scale_l|), g_b the b leaf's gradient in ``ref``, b and scale
+    the leaves' values in ``values`` (name -> tensor), the worst over layers.
+    In exact arithmetic dscale = <g_b, b> / scale, so the denominator bounds
+    |dscale| (Cauchy-Schwarz): a sum that cancels reads small, and a fault
+    that moves g_b by a relative e reads e at most, along b, but about
+    e / sqrt(N) in a direction of its own over the N terms. Printed beside
+    the scale leaves' relative error, for information (PERF.md §6)."""
+    at = {n: i for i, n in enumerate(names)}
+    out = {}
+    for n in names:
+        stem = n[: -len("scale")]
+        if not (n.endswith("/scale") and stem + "a" in at and stem + "b" in at):
+            continue
+        scale = values[n].detach().float().reshape(-1)
+        L = scale.numel()
+        gb = ref[at[stem + "b"]].float().reshape(L, -1).norm(dim=1)
+        b = values[stem + "b"].detach().float().reshape(L, -1).norm(dim=1)
+        d = (got[at[n]].float() - ref[at[n]].float()).reshape(-1).abs()
+        out[n] = (d / (gb * b / scale.abs()).clamp_min(1e-30)).max().item()
+    return out
+
+
+def _over(errs, floor, tol, factor):
+    """The readings above max(tol, factor x their own drift floor)."""
+    return {k: v for k, v in errs.items() if v > max(tol, factor * floor.get(k, 0.0))}
+
+
 def _loss_and_grads(loss_fn, trainable, frozen, chosen, rejected):
     leaves = [t.requires_grad_() for t in tree_leaves(trainable)]
     loss, _ = loss_fn(trainable, frozen, chosen, rejected)
@@ -1379,6 +1469,11 @@ def _layer_parity(cfg, frozen, trainable, batch, gen):
         f"{LAYER_GRAD_TOL:g}, on a one-number scale leaf at least {FLOOR_FACTOR:g} x the "
         f"reference attention's error); kernels (reference attention): "
         + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in rels.items()))
+    cond = [_scale_leaf_errors(names, grads[r], grads["plain"], dict(_named_leaves(lora)))
+            for r in ("auto", "xla")]
+    say("train", "one decoder layer, the scale leaves' conditioned error (for information), "
+        "kernels (reference attention): "
+        + ", ".join(f"{k} {v:.2e} ({cond[1][k]:.2e})" for k, v in cond[0].items()))
     if rels[worst] > tol[worst] or not all(bool(torch.isfinite(g).all()) for g in grads["auto"]):
         fail("train: one layer's gradients through the kernels disagree with the plain versions")
 
@@ -1542,9 +1637,13 @@ def _route_parity(tag, make_loss, trainable, frozen, chosen, rejected, stacked, 
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:12]
     say(tag, "relative L2 gradient error per leaf, kernels (reference), the 12 largest: "
         + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in worst))
+    cond = [_scale_leaf_errors(names, g, gp, dict(_named_leaves(trainable))) for g in (gk, gx)]
+    if cond[0]:
+        say(tag, "the scale leaves' conditioned error (for information), kernels (reference): "
+            + ", ".join(f"{k} {v:.2e} ({cond[1][k]:.2e})" for k, v in cond[0].items()))
     over = [f"{k} {v:.3e} (floor {fl[k]:.3e})" for d, fl, tol in
             ((errs, floor, TRAIN_GRAD_TOL), (slice_errs, floor_slices, TRAIN_SLICE_TOL))
-            for k, v in d.items() if v > max(tol, floor_factor * fl[k])]
+            for k, v in _over(d, fl, tol, floor_factor).items()]
     if gap > TRAIN_LOSS_TOL or over or not finite:
         fail(f"{tag}: the kernel route's loss or gradients disagree with the plain versions"
              f"{': ' + ', '.join(over[:8]) if over else ''}")
@@ -1578,7 +1677,7 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
             fail(f"train-qwen: decoder layer launches {fa.LAUNCHES}")
     names = ["h"] + [n for n, _ in _named_leaves(trainable["lora"])]
     checks = [(f"decoder layer 0 {tuple(h.shape)}, LoRA on {len(trainable['lora'])} targets",
-               names, grads)]
+               names, grads, dict(_named_leaves(lora)))]
 
     i_full = vc.fullatt_block_indexes[0]
     vcos, vsin = qwen25_vl._vision_rope(req.rot_pos, vc.head_dim)
@@ -1598,8 +1697,8 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
             fail(f"train-qwen: vision block launches {fa.LAUNCHES}")
     checks.append((f"full vision block {i_full} {tuple(hv.shape)}, segment ids, "
                    f"{int((req.patch_valid == 0).sum())} pad patches with a gradient",
-                   ["h"] + [n for n, _ in _named_leaves(block)], grads))
-    for title, names, (gk, gp) in checks:
+                   ["h"] + [n for n, _ in _named_leaves(block)], grads, {}))
+    for title, names, (gk, gp), values in checks:
         rels = {n: _rel_err(a, b) for n, a, b in zip(names, gk, gp)}
         # a layer's LoRA scale is ONE number, a bf16 sum over 2 x 1792 x N terms
         # with cancellation: it moves in steps of a bf16 ulp (0 to 1.3e-2 here)
@@ -1608,7 +1707,9 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
         worst = max(rels, key=lambda n: rels[n] / tol(n))
         say("train-qwen", f"{title}, kernels vs plain versions: worst relative L2 gradient "
             f"error {rels[worst]:.3e} at {worst} (tol {LAYER_GRAD_TOL:g}, one-number scale "
-            f"leaves {LAYER_SCALE_TOL:g}); " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+            f"leaves {LAYER_SCALE_TOL:g}); " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+            + "".join(f"; {k} conditioned {v:.2e} (for information)"
+                      for k, v in _scale_leaf_errors(names, gk, gp, values).items()))
         if rels[worst] > tol(worst) or not all(bool(torch.isfinite(g).all()) for g in gk):
             fail(f"train-qwen: the {title.split(',')[0]}'s gradients through the kernels "
                  "disagree with the plain versions")

@@ -1,19 +1,20 @@
 // Quantizing epilogues written by hand for Hopper (sm_90a).
 //
-// rms_quant_kernel replaces llava_reward_tpu/ops/quant_epilogue.py:
-//   _rms_quant_kernel (B4): Phi-3 RMSNorm (fp32 variance, x * 1/sqrt(var+eps),
-//   bf16 rounding before and after the weight multiply for bf16 input), then
-//   per-row int8 codes and the row amax.
+// norm_quant_kernel<T, LN, NV> replaces two kernels of
+// llava_reward_tpu/ops/quant_epilogue.py:
+//   LN = false: _rms_quant_kernel (B4): Phi-3 RMSNorm (fp32 variance,
+//   x * 1/sqrt(var+eps), bf16 rounding before and after the weight multiply
+//   for bf16 input), then per-row int8 codes and the row amax;
+//   LN = true: _ln_quant_kernel (B9): LayerNorm in fp32 (mean, centred
+//   variance, xc * 1/sqrt(var+eps) * w + b), with NO bf16 rounding of the
+//   result (ln_quant quantizes the fp32 LayerNorm output), then codes and
+//   amax. It feeds the CLIP tower's W8A8 qkv and fc1 projections.
 // silu_mul_quant_kernel replaces _silu_mul_quant_kernel (B5): from the fused
 //   (M, 2I) gate_up, y = g * sigmoid(g) * u in fp32 (gate in the first I
 //   columns), rounded to bf16 for bf16 input, then codes and amax.
 // row_quant_kernel replaces _row_quant_kernel (B6): codes and amax of x.
-// ln_quant_kernel replaces _ln_quant_kernel (B9): LayerNorm in fp32 (mean,
-//   centred variance, xc * 1/sqrt(var+eps) * w + b), with NO bf16 rounding of
-//   the result (ln_quant quantizes the fp32 LayerNorm output), then codes and
-//   amax. It feeds the CLIP tower's W8A8 qkv and fc1 projections.
 //
-// All four emit codes = rint(y * (127 / amax)) (round half to even) with
+// All emit codes = rint(y * (127 / amax)) (round half to even) with
 // amax := 1 for an all-zero row, and write amax itself as the row scale.
 // The arithmetic uses the _rn intrinsics (IEEE division, sqrt, reciprocal,
 // no FMA contraction) and IEEE expf, so each element is computed as the
@@ -23,19 +24,42 @@
 //
 // What bounds them on an H100: a few operations per element against 2 bytes
 // read and 1 written (B5: 4 read, 1 written), far below the card's ~295
-// operations-per-byte ridge, so they are bound by memory bytes. One block of
-// 256 threads owns one row: it reads the row once from device memory with
-// 16-byte loads, keeps the fp32 values in shared memory (12 KB for B4 / B6
-// at H = 3072, 32 KB for B5 at I = 8192, 4 KB for B9 at CLIP's H = 1024,
-// whose 87040 rows of a B=8 request make 87040 blocks), reduces in registers and shared
-// memory, and writes the codes with 8-byte stores.
+// operations-per-byte ridge, so they are bound by memory bytes.
+//
+// B4 and B9 stream. A persistent grid (as many blocks as fit the SMs) walks
+// tiles of R consecutive rows; a tile of the contiguous (M, H) input is one
+// span of R * H * sizeof(T) bytes (at most 32 KiB), which ONE cp.async.bulk
+// brings into a ring of S = 2 stages in shared memory, issued by one thread
+// of a producer warp. The R consumer warps (7 up to H = 2048, 4 beyond) own
+// one row of a tile each: the row goes into registers with 16-byte loads
+// (lane l holds the 8-element chunks l, l + 32, ...; NV chunks at most, all
+// of them without a branch where H = 256 NV), the stage is released once the
+// first pass has used the values, and the row's sums and max are warp
+// shuffles, with no block barrier in the row math; B9's centred variance is
+// a second pass over the registers. The weight and bias are widened to fp32
+// once per block into shared memory, from bf16 or f32. The codes of a tile
+// go to one of two staging buffers and leave by one bulk store of R * H
+// bytes; the amax values are stored directly. ops/quant_epilogue.py:tile_plan
+// sizes R and the shared memory. On an H100 the kernel was paced by its row
+// math more than by the bytes in flight: more stages or more, smaller blocks
+// ran slower (tools/epilogue_timing.py --sweep), while a branch per chunk
+// (which also pulled the row's divisions into every chunk) and one bf16
+// conversion per value, in place of one per pair, were slower still.
+//
+// B5 and B6: one block of 256 threads owns one row: it reads the row once
+// from device memory with 16-byte loads, keeps the fp32 values in shared
+// memory (12 KB for B6 at H = 3072, 32 KB for B5 at I = 8192), reduces in
+// registers and shared memory, and writes the codes with 8-byte stores.
+#include <atomic>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 256;  // threads per block; one block per row
+constexpr int NT = 256;  // threads per block of B5 / B6; one block per row
 
 // Load 8 consecutive values of a row (16 bytes of bf16, two 16-byte words of
 // f32) as fp32.
@@ -97,81 +121,334 @@ __device__ __forceinline__ void write_codes(const float* ys, int n, float mx, in
   if (threadIdx.x == 0) *amax_out = amax;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    rms_quant_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                     int8_t* __restrict__ codes, float* __restrict__ amax_out, int H,
-                     float eps) {
-  extern __shared__ float ys[];
-  __shared__ float red[NT / 32];
-  const long long row = blockIdx.x;
-  const T* xr = x + row * H;
-  float ss = 0.f;
-  for (int c = threadIdx.x; c < H / 8; c += NT) {
-    float v[8];
-    load8<T>(xr + c * 8, v);
+// ------------------------------------------------------------------ B4, B9
+
+constexpr int NQ_HEAD = 128;         // the ring's barriers, before the ring
+constexpr int NQ_SMEM_MAX = 232448;  // 227 KiB, a block's most
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ys[c * 8 + e] = v[e];
-      ss = __fadd_rn(ss, __fmul_rn(v[e], v[e]));
-    }
-  }
-  const float var = __fdiv_rn(block_reduce<false>(ss, red), (float)H);
-  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
-  const bool is_bf16 = sizeof(T) == 2;
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < H; i += NT) {
-    float y = __fmul_rn(ys[i], inv);
-    if (is_bf16) {
-      y = bf16_round(__fmul_rn(w[i], bf16_round(y)));
-    } else {
-      y = __fmul_rn(w[i], y);
-    }
-    ys[i] = y;
-    mx = fmaxf(mx, fabsf(y));
-  }
-  mx = block_reduce<true>(mx, red);
-  write_codes(ys, H, mx, codes + row * H, amax_out + row);
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;  // the same bits in every lane: each step adds the same two values
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, int8_t* __restrict__ codes,
-                    float* __restrict__ amax_out, int H, float eps) {
-  extern __shared__ float ys[];
-  __shared__ float red[NT / 32];
-  const long long row = blockIdx.x;
-  const T* xr = x + row * H;
-  float s = 0.f;
-  for (int c = threadIdx.x; c < H / 8; c += NT) {
-    float v[8];
-    load8<T>(xr + c * 8, v);
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ys[c * 8 + e] = v[e];
-      s = __fadd_rn(s, v[e]);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// a lane's 8 partial sums (one per position in its chunks) in a fixed tree
+__device__ __forceinline__ float sum8(const float (&p)[8]) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                   __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
+}
+
+// rint(v) for |v| <= 2^22 as the low byte of a float's bits: adding 1.5 * 2^23
+// leaves a float whose unit is 1, rounded half to even as rintf rounds, and
+// whose low byte is the int8 code
+__device__ __forceinline__ uint32_t code_bits(float v) {
+  return __float_as_uint(__fadd_rn(v, 12582912.f));
+}
+
+__device__ __forceinline__ uint32_t pack_codes(float a, float b, float c, float d) {
+  return __byte_perm(__byte_perm(code_bits(a), code_bits(b), 0x0040),
+                     __byte_perm(code_bits(c), code_bits(d), 0x0040), 0x5410);
+}
+
+// the fp32 weight of chunk c (8 elements) from its two 16-byte halves: the
+// first four elements of every chunk lie in wsm[0, H/2), the last four in
+// wsm[H/2, H), so that a warp's loads of consecutive chunks are contiguous
+__device__ __forceinline__ void weight8(const float* wsm, int H, int c, float (&wv)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(wsm + c * 4);
+  const float4 hi = *reinterpret_cast<const float4*>(wsm + H / 2 + c * 4);
+  wv[0] = lo.x; wv[1] = lo.y; wv[2] = lo.z; wv[3] = lo.w;
+  wv[4] = hi.x; wv[5] = hi.y; wv[6] = hi.z; wv[7] = hi.w;
+}
+
+// Whether lane holds chunk k of a row of nch chunks: always, when the row is
+// exactly 32 NV chunks (FULL: the model widths 1024, 3072, 3584 and 5120 are);
+// otherwise by a branch per chunk, into each of which the compiler also
+// sinks the row's divisions (on an H100 the unbranched form is the faster).
+template <bool FULL>
+__device__ __forceinline__ bool holds(int lane, int k, int nch) {
+  return FULL || lane + 32 * k < nch;
+}
+
+// The first pass over a row in registers, per position e of the chunks:
+// B4 sums x^2, B9 sums x.
+template <bool LN, bool FULL, int NV>
+__device__ __forceinline__ void first_pass(const float (&v)[NV][8], int nch, int lane,
+                                           float (&p)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) p[e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p[e] = __fadd_rn(p[e], LN ? v[k][e] : __fmul_rn(v[k][e], v[k][e]));
     }
-  }
-  const float mean = __fdiv_rn(block_reduce<false>(s, red), (float)H);
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < H; i += NT) {
-    const float xc = __fsub_rn(ys[i], mean);
-    ys[i] = xc;
-    ss = __fadd_rn(ss, __fmul_rn(xc, xc));
-  }
-  const float var = __fdiv_rn(block_reduce<false>(ss, red), (float)H);
+}
+
+// B4's row from the first pass p: v becomes y; returns the row's max |y|.
+// bf16 input rounds twice (Phi-3's cast order), two values to one packed
+// conversion at a time.
+template <typename T, bool FULL, int NV>
+__device__ __forceinline__ float rms_row(float (&v)[NV][8], const float (&p)[8],
+                                         const float* wsm, int H, int lane, float eps) {
+  const int nch = H / 8;
+  const float var = __fdiv_rn(warp_sum(sum8(p)), (float)H);
   const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
   float mx = 0.f;
-  for (int i = threadIdx.x; i < H; i += NT) {
-    // each thread rereads the elements it centred: no barrier needed
-    const float y = __fadd_rn(__fmul_rn(__fmul_rn(ys[i], inv), w[i]), b[i]);
-    ys[i] = y;
-    mx = fmaxf(mx, fabsf(y));
-  }
-  mx = block_reduce<true>(mx, red);
-  write_codes(ys, H, mx, codes + row * H, amax_out + row);
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+      float wv[8];
+      weight8(wsm, H, lane + 32 * k, wv);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float y0 = __fmul_rn(v[k][e], inv), y1 = __fmul_rn(v[k][e + 1], inv);
+        if (sizeof(T) == 2) {
+          const __nv_bfloat162 r = __floats2bfloat162_rn(y0, y1);
+          const __nv_bfloat162 z = __floats2bfloat162_rn(__fmul_rn(wv[e], __low2float(r)),
+                                                         __fmul_rn(wv[e + 1], __high2float(r)));
+          y0 = __low2float(z);
+          y1 = __high2float(z);
+        } else {
+          y0 = __fmul_rn(wv[e], y0);
+          y1 = __fmul_rn(wv[e + 1], y1);
+        }
+        v[k][e] = y0;
+        v[k][e + 1] = y1;
+        mx = fmaxf(mx, fmaxf(fabsf(y0), fabsf(y1)));
+      }
+    }
+  return warp_max(mx);
 }
+
+// B9's row from the first pass p: v becomes y; returns the row's max |y|
+template <bool FULL, int NV>
+__device__ __forceinline__ float ln_row(float (&v)[NV][8], const float (&p)[8],
+                                        const float* wsm, int H, int lane, float eps) {
+  const int nch = H / 8;
+  const float mean = __fdiv_rn(warp_sum(sum8(p)), (float)H);
+  float q[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[k][e] = __fsub_rn(v[k][e], mean);
+        q[e] = __fadd_rn(q[e], __fmul_rn(v[k][e], v[k][e]));
+      }
+    }
+  const float var = __fdiv_rn(warp_sum(sum8(q)), (float)H);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+  float mx = 0.f;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+      float wv[8], bv[8];
+      weight8(wsm, H, lane + 32 * k, wv);
+      weight8(wsm + H, H, lane + 32 * k, bv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[k][e], inv), wv[e]), bv[e]);
+        v[k][e] = y;
+        mx = fmaxf(mx, fabsf(y));
+      }
+    }
+  return warp_max(mx);
+}
+
+// Consumer warps a block at most: 7 where a lane holds up to 8 chunks (a
+// block of 8 warps with its producer), 4 beyond. Rows of up to 4 chunks a
+// lane fit in 128 registers a thread, two blocks an SM; the wider ones may
+// take all 255: on an H100 the kernel ran faster so (one block of 5 warps an
+// SM at H = 3072) than with more blocks of fewer registers each.
+template <int NV>
+constexpr int nq_rows_max() {
+  return NV <= 8 ? 7 : 4;
+}
+
+// x (M, H) contiguous; w (and b, LN) (H,) bf16 or f32 (wflags bit 0: w is
+// bf16, bit 1: b is bf16) -> codes (M, H), amax (M,). blockDim = 32 (R + 1):
+// warps 0..R-1 consume, warp R produces. H % 16 == 0 and H <= 256 NV.
+template <typename T, bool LN, int NV, bool FULL>
+__global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
+    norm_quant_kernel(const T* __restrict__ x, const void* __restrict__ w,
+                      const void* __restrict__ b, int wflags, int8_t* __restrict__ codes,
+                      float* __restrict__ amax_out, int M, int H, float eps, int R, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  const int row_bytes = H * (int)sizeof(T);
+  const int stage_bytes = R * row_bytes;
+  unsigned char* ring = smem + NQ_HEAD;
+  int8_t* staging = reinterpret_cast<int8_t*>(ring + (size_t)S * stage_bytes);  // two tiles
+  float* wsm = reinterpret_cast<float*>(staging + 2 * R * H);  // w, then b (LN)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (M + R - 1) / R;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], R);
+    }
+    sm90::mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    const int at = (i % 8 < 4 ? 0 : H / 2) + (i / 8) * 4 + i % 4;
+    wsm[at] = (wflags & 1) ? __bfloat162float(static_cast<const bf16*>(w)[i])
+                           : static_cast<const float*>(w)[i];
+    if (LN)
+      wsm[H + at] = (wflags & 2) ? __bfloat162float(static_cast<const bf16*>(b)[i])
+                                 : static_cast<const float*>(b)[i];
+  }
+  __syncthreads();
+
+  if (warp == R) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      int j = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++j) {
+        const int s = j % S;
+        if (j >= S) sm90::mbar_wait(&empty[s], (j / S - 1) & 1);
+        const uint32_t bytes = (uint32_t)(min(R, M - t * R) * row_bytes);  // the tail: fewer
+        sm90::mbar_expect_tx(&full[s], bytes);
+        sm90::bulk_load(ring + (size_t)s * stage_bytes, x + (long long)t * R * H, bytes,
+                        &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int nch = H / 8;
+  int j = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++j) {
+    const int s = j % S;
+    const bool live = warp < min(R, M - t * R);
+    float v[NV][8], p[8];
+    sm90::mbar_wait(&full[s], (j / S) & 1);
+    if (live) {
+      const T* xr = reinterpret_cast<const T*>(ring + (size_t)s * stage_bytes +
+                                               (size_t)warp * row_bytes);
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (holds<FULL>(lane, k, nch)) load8<T>(xr + (lane + 32 * k) * 8, v[k]);
+      first_pass<LN, FULL, NV>(v, nch, lane, p);
+    }
+    // The stage is released after a proxy fence: the next bulk copy writes it
+    // through the async proxy, to which these loads (the generic proxy) are
+    // not ordered otherwise. Without it a copy overwrote chunks that loads in
+    // flight had not read (seen on an H100 with f32 tiles of 32 KiB: a few
+    // chunks of some rows wrong).
+    sm90::fence_async_smem();
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+
+    // the staging buffer of this tile was read by the bulk store of two
+    // tiles ago, which the barrier of the last tile waited for
+    int8_t* st = staging + (j & 1) * R * H;
+    if (live) {
+      const float mx =
+          LN ? ln_row<FULL, NV>(v, p, wsm, H, lane, eps)
+             : rms_row<T, FULL, NV>(v, p, wsm, H, lane, eps);
+      const float amax = mx > 0.f ? mx : 1.f;
+      const float q = __fdiv_rn(127.f, amax);
+      int8_t* cr = st + warp * H;
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (holds<FULL>(lane, k, nch)) {
+          uint2 u;
+          u.x = pack_codes(__fmul_rn(v[k][0], q), __fmul_rn(v[k][1], q),
+                           __fmul_rn(v[k][2], q), __fmul_rn(v[k][3], q));
+          u.y = pack_codes(__fmul_rn(v[k][4], q), __fmul_rn(v[k][5], q),
+                           __fmul_rn(v[k][6], q), __fmul_rn(v[k][7], q));
+          *reinterpret_cast<uint2*>(cr + (lane + 32 * k) * 8) = u;
+        }
+      if (lane == 0) amax_out[(long long)t * R + warp] = amax;
+    }
+    sm90::fence_async_smem();  // the codes written here, seen by the bulk store
+    if (threadIdx.x == 0) sm90::bulk_wait_read();  // the last tile's store has read its buffer
+    sm90::bar_sync(1, 32 * R);
+    if (threadIdx.x == 0) {
+      sm90::bulk_store(codes + (long long)t * R * H, st,
+                       (uint32_t)(min(R, M - t * R) * H));
+      sm90::bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) sm90::bulk_wait();  // the stores are done before the block's memory goes
+}
+
+// Dynamic shared memory of a plan: barriers, S stages of R rows, two staging
+// tiles of codes, the fp32 weight (and bias). ops/quant_epilogue.py:tile_plan
+// computes the same.
+inline size_t nq_smem(int H, int elem, bool ln, int R, int S) {
+  return NQ_HEAD + (size_t)S * R * H * elem + 2 * (size_t)R * H + (size_t)H * 4 * (ln ? 2 : 1);
+}
+
+template <typename T, bool LN, int NV, bool FULL>
+int launch_norm_quant(const T* x, const void* w, const void* b, int wflags, int8_t* codes,
+                      float* amax, int M, int H, float eps, int R, int S, cudaStream_t st) {
+  auto kernel = norm_quant_kernel<T, LN, NV, FULL>;
+  const size_t smem = nq_smem(H, (int)sizeof(T), LN, R, S);
+  if (smem > (size_t)NQ_SMEM_MAX || R > nq_rows_max<NV>())
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  // the attributes once per process and device, not per launch
+  static std::atomic<uint32_t> ready{0};
+  const uint32_t bit = 1u << (dev & 31);
+  if (!(ready.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, NQ_SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(bit);
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * (R + 1), smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tiles = (M + R - 1) / R;
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  kernel<<<grid, 32 * (R + 1), smem, st>>>(x, w, b, wflags, codes, amax, M, H, eps, R, S);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation that holds H / 8 chunks in NV per lane, FULL where exactly
+template <typename T, bool LN>
+int norm_quant(const void* x, const void* w, const void* b, int wflags, void* codes,
+               void* amax, int M, int H, float eps, int R, int S, cudaStream_t st) {
+  if (H <= 0 || H % 16 || R < 1 || S < 1 || 2 * S * 8 > NQ_HEAD)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const T* xp = static_cast<const T*>(x);
+  int8_t* cp = static_cast<int8_t*>(codes);
+  float* ap = static_cast<float*>(amax);
+  const int nv = (H / 8 + 31) / 32;
+#define LRT_NQ(N)                                                                          \
+  if (nv <= N)                                                                             \
+    return H == 256 * N                                                                    \
+               ? launch_norm_quant<T, LN, N, true>(xp, w, b, wflags, cp, ap, M, H, eps, R, S, st) \
+               : launch_norm_quant<T, LN, N, false>(xp, w, b, wflags, cp, ap, M, H, eps, R, S, st)
+  LRT_NQ(1);
+  LRT_NQ(2);
+  LRT_NQ(4);
+  LRT_NQ(8);
+  LRT_NQ(12);
+  LRT_NQ(14);
+  LRT_NQ(16);
+  LRT_NQ(20);
+#undef LRT_NQ
+  return (int)cudaErrorInvalidValue;  // wider than 5120
+}
+
+// ------------------------------------------------------------------ B5, B6
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -236,19 +513,26 @@ int launch_rows(Kernel kernel, int M, int n, cudaStream_t st, Args... args) {
 
 }  // namespace
 
-// B4: x (M, H) bf16 or f32, weight (H,) f32 -> codes (M, H) int8, amax (M,) f32.
-// H a multiple of 8; rows 16-byte aligned.
+// B4: x (M, H) bf16 (x_bf16) or f32, weight (H,) bf16 (w_bf16) or f32 ->
+// codes (M, H) int8, amax (M,) f32. H a multiple of 16, at most 5120; x
+// 16-byte aligned; R rows a tile, S stages (ops/quant_epilogue.py:tile_plan).
 extern "C" int lrt_rms_quant(const void* x, const void* w, void* codes, void* amax, int M,
-                             int H, float eps, int is_bf16, void* stream) {
+                             int H, float eps, int x_bf16, int w_bf16, int R, int S,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  int8_t* cp = static_cast<int8_t*>(codes);
-  float* ap = static_cast<float*>(amax);
-  if (is_bf16)
-    return launch_rows(rms_quant_kernel<bf16>, M, H, st, static_cast<const bf16*>(x), wp, cp,
-                       ap, H, eps);
-  return launch_rows(rms_quant_kernel<float>, M, H, st, static_cast<const float*>(x), wp, cp,
-                     ap, H, eps);
+  const int wf = w_bf16 ? 1 : 0;
+  if (x_bf16) return norm_quant<bf16, false>(x, w, nullptr, wf, codes, amax, M, H, eps, R, S, st);
+  return norm_quant<float, false>(x, w, nullptr, wf, codes, amax, M, H, eps, R, S, st);
+}
+
+// B9: as B4, with a bias (H,) bf16 (b_bf16) or f32.
+extern "C" int lrt_ln_quant(const void* x, const void* w, const void* b, void* codes,
+                            void* amax, int M, int H, float eps, int x_bf16, int w_bf16,
+                            int b_bf16, int R, int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int wf = (w_bf16 ? 1 : 0) | (b_bf16 ? 2 : 0);
+  if (x_bf16) return norm_quant<bf16, true>(x, w, b, wf, codes, amax, M, H, eps, R, S, st);
+  return norm_quant<float, true>(x, w, b, wf, codes, amax, M, H, eps, R, S, st);
 }
 
 // B5: gate_up (M, 2I) bf16 or f32 -> codes (M, I) int8, amax (M,) f32.
@@ -277,18 +561,3 @@ extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, int M, int 
                      H);
 }
 
-// B9: x (M, H) bf16 or f32, weight and bias (H,) f32 -> codes (M, H) int8,
-// amax (M,) f32. H a multiple of 8; rows 16-byte aligned.
-extern "C" int lrt_ln_quant(const void* x, const void* w, const void* b, void* codes,
-                            void* amax, int M, int H, float eps, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* wp = static_cast<const float*>(w);
-  const float* bp = static_cast<const float*>(b);
-  int8_t* cp = static_cast<int8_t*>(codes);
-  float* ap = static_cast<float*>(amax);
-  if (is_bf16)
-    return launch_rows(ln_quant_kernel<bf16>, M, H, st, static_cast<const bf16*>(x), wp, bp,
-                       cp, ap, H, eps);
-  return launch_rows(ln_quant_kernel<float>, M, H, st, static_cast<const float*>(x), wp, bp,
-                     cp, ap, H, eps);
-}

@@ -131,6 +131,14 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, uin
                "r"(smem_u32(src)), "r"(bytes)
                : "memory");
 }
+// a contiguous run of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from shared to global memory; completion is tracked by bulk groups
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }

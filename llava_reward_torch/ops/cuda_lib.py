@@ -33,8 +33,10 @@ _SIGNATURES = {
     "lrt_fa_direct": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "lrt_fa_hm": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_I] * 4 + [_F, _P],
     "lrt_rope_transpose": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
-    "lrt_rms_quant": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "lrt_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # x, w, codes, amax, M, H, eps, x is bf16, w is bf16, rows a tile, stages
+    "lrt_rms_quant": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+    # x, w, b, codes, amax, M, H, eps, x / w / b is bf16, rows a tile, stages
+    "lrt_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "lrt_silu_mul_quant": [_P, _P, _P, _I, _I, _I, _P],
     "lrt_row_quant": [_P, _P, _P, _I, _I, _I, _P],
     "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

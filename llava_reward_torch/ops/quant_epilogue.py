@@ -27,11 +27,18 @@ name                TPU kernel replaced                         codes of
 B9 quantizes the fp32 LayerNorm output (no bf16 rounding in between, unlike
 B4). It fires in ``models/clip_vit.py`` on W8A8 CLIP weights, which a
 caller builds with ``quantize_stacked_layers(clip["layers"], scheme="w8a8")``.
+
+B4 and B9 are one streaming kernel (``norm_quant_kernel``): tiles of R rows
+come into a ring of S stages in shared memory by one bulk copy each, one
+warp per row. ``tile_plan`` chooses R and S per width and dtype; the launch
+refuses a width the kernel does not take (not a multiple of 16, or above
+``NQ_MAX_WIDTH``) with ``ValueError`` before anything runs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -130,6 +137,49 @@ def row_quant_plain(x: torch.Tensor) -> Codes:
     return row_codes(x.float())
 
 
+# --------------------------------------------------------------- B4 / B9 tile plan
+
+# The kernel's instantiations (csrc/quant_epilogue.cu, LRT_NQ): a lane holds
+# at most this many 8-element chunks of its row in registers, so the widest
+# row is 32 lanes x 8 x 20 = 5120 (LLaVA-NeXT-13B's hidden size).
+NQ_CHUNKS_PER_LANE = (1, 2, 4, 8, 12, 14, 16, 20)
+NQ_MAX_WIDTH = 32 * 8 * NQ_CHUNKS_PER_LANE[-1]
+# consumer warps a block, one per row of a tile (csrc: nq_rows_max): 7 up to
+# 8 chunks a lane (H <= 2048), 4 beyond
+NQ_ROWS_MAX, NQ_ROWS_MAX_WIDE = 7, 4
+NQ_STAGE_BYTES = 32 * 1024  # the input bytes of one tile, at most (one row above)
+NQ_STAGES = 2  # deeper rings ran slower on an H100 (tools/epilogue_timing.py --sweep)
+NQ_HEAD = 128  # the ring's barriers
+
+
+class TilePlan(NamedTuple):
+    rows: int  # R: rows of a tile, one consumer warp each
+    stages: int  # S: tiles in the ring
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(H: int, x_bytes: int, ln: bool, M: int) -> TilePlan:
+    """R and S of the streaming B4 (``ln=False``) / B9 kernel for M rows of
+    width H and ``x_bytes`` per input element: as many rows a tile as the
+    block has consumer warps, within 32 KiB of input, in a ring of two
+    stages. The shared memory is laid out as the kernel lays it
+    (csrc/quant_epilogue.cu:nq_smem): the barriers, S stages of R input rows,
+    two staging tiles of R rows of codes, the fp32 weight (and bias). Raises
+    ValueError for a width the bulk copies or the registers do not take."""
+    if H <= 0 or H % 16:
+        raise ValueError(f"the row width {H} is not a multiple of 16: the codes of a tile "
+                         "leave by one bulk copy, whose size must be a multiple of 16 bytes")
+    if H > NQ_MAX_WIDTH:
+        raise ValueError(f"the row width {H} is wider than the {NQ_MAX_WIDTH} that the "
+                         "kernel holds in registers")
+    row = H * x_bytes
+    rows_max = NQ_ROWS_MAX if H <= 32 * 8 * 8 else NQ_ROWS_MAX_WIDE
+    R = max(1, min(rows_max, NQ_STAGE_BYTES // row, M))
+    smem = NQ_HEAD + NQ_STAGES * R * row + 2 * R * H + 4 * H * (2 if ln else 1)
+    return TilePlan(R, NQ_STAGES, smem)
+
+
 # --------------------------------------------------------------- kernel launches
 
 
@@ -168,19 +218,32 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _norm_weights(name: str, x: torch.Tensor, H: int, **ws: torch.Tensor) -> None:
+    """The weight (and bias) are read in their own dtype: (H,), f32 or bf16,
+    contiguous, on x's card. Never copied here: a copy would be a launch."""
+    if any(t.shape != (H,) for t in ws.values()):
+        raise ValueError(f"{name}: {' and '.join(ws)} must be ({H},), got "
+                         + " and ".join(str(tuple(t.shape)) for t in ws.values()))
+    for k, t in ws.items():
+        if t.device != x.device or t.dtype not in (torch.float32, torch.bfloat16) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be a contiguous f32/bf16 tensor on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+
+
 def _launch_rms_quant(x, weight, eps):
     from . import cuda_lib
 
     H = x.shape[-1]
     cuda_lib.refuse_grad("rms_quant", weight, route=_INFERENCE_ONLY)
     x2, M = _rows("rms_quant", x, H)
-    if weight.shape != (H,):
-        raise ValueError(f"rms_quant: weight must be ({H},), got {tuple(weight.shape)}")
-    w = weight.to(device=x.device, dtype=torch.float32).contiguous()  # exact for bf16
+    _norm_weights("rms_quant", x, H, weight=weight)
+    plan = tile_plan(H, x.element_size(), False, M)
     codes, amax = _outputs(x, M, H)
     err = cuda_lib.load().lrt_rms_quant(
-        x2.data_ptr(), w.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H, float(eps),
-        int(x.dtype == torch.bfloat16), _stream(),
+        x2.data_ptr(), weight.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H, float(eps),
+        int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16), plan.rows,
+        plan.stages, _stream(),
     )
     cuda_lib.check(err, "lrt_rms_quant")
     LAUNCHES["rms_quant"] += 1
@@ -193,15 +256,14 @@ def _launch_ln_quant(x, weight, bias, eps):
     H = x.shape[-1]
     cuda_lib.refuse_grad("ln_quant", weight, bias, route=_INFERENCE_ONLY)
     x2, M = _rows("ln_quant", x, H)
-    if weight.shape != (H,) or bias.shape != (H,):
-        raise ValueError(f"ln_quant: weight and bias must be ({H},), got "
-                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
-    w = weight.to(device=x.device, dtype=torch.float32).contiguous()  # exact for bf16
-    b = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    _norm_weights("ln_quant", x, H, weight=weight, bias=bias)
+    plan = tile_plan(H, x.element_size(), True, M)
     codes, amax = _outputs(x, M, H)
+    bf = torch.bfloat16
     err = cuda_lib.load().lrt_ln_quant(
-        x2.data_ptr(), w.data_ptr(), b.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H,
-        float(eps), int(x.dtype == torch.bfloat16), _stream(),
+        x2.data_ptr(), weight.data_ptr(), bias.data_ptr(), codes.data_ptr(), amax.data_ptr(),
+        M, H, float(eps), int(x.dtype == bf), int(weight.dtype == bf), int(bias.dtype == bf),
+        plan.rows, plan.stages, _stream(),
     )
     cuda_lib.check(err, "lrt_ln_quant")
     LAUNCHES["ln_quant"] += 1

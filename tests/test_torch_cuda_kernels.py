@@ -24,6 +24,9 @@ bf16 rounding of a gradient (fp32 sums in the order blocks finish), and
 not at all in dk / dv without GQA. Every raw launch refuses an input that
 requires grad. W8A8:
 B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
+the streaming B4 / B9 at widths 128-5120 on one row, a prime row count and
+10007 rows (the ring wraps), bf16 weights read as their f32 widening, and the
+widths it refuses (136, 5376) raising ValueError before any launch,
 B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
 ragged M, at M < 16, at K and N that the 128 x 256 tiles and 128-deep K
 steps do not divide (K = 208 and 8192 + 16, N = 48) and with f32 output,
@@ -568,6 +571,80 @@ def test_ln_quant_kernel_zero_row_and_leading_axes(gen):
                  (rc.reshape(-1, H), ra.reshape(-1, 1)))
     zero = (N * S) // 2
     assert float(amax.reshape(-1)[zero]) == 1.0 and not bool(codes.reshape(-1, H)[zero].any())
+
+
+def _norm_quant(kind, gen, M, H, dtype, wdtype=None):
+    """(kernel, plain) codes of B4 or B9 on M rows of width H; row M // 2 is
+    zero, and with M == 1 the one row is not."""
+    wdtype = wdtype or dtype
+    x = torch.randn(M, H, generator=gen, device="cuda").mul_(3).to(dtype)
+    if M > 1:
+        x[M // 2] = 0
+    w = torch.randn(H, generator=gen, device="cuda").to(wdtype)
+    if kind == "rms_quant":
+        return qe.rms_quant(x, w, 1e-5), qe.rms_quant_plain(x, w, 1e-5)
+    b = torch.randn(H, generator=gen, device="cuda").mul_(0.1).to(wdtype)
+    return qe.ln_quant(x, w, b, 1e-5), qe.ln_quant_plain(x, w, b, 1e-5)
+
+
+@pytest.mark.parametrize("H", [128, 384, 1024, 3072, 3584, 5120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rms_quant", "ln_quant"])
+def test_streaming_norm_quant_matches_plain_at_every_width(gen, kind, dtype, H):
+    """The streaming B4 / B9 at every width a model of the repository runs
+    (5120: LLaVA-NeXT-13B), one row, a prime row count no tile height
+    divides, and enough rows (10007, prime) that every block walks several
+    tiles and the ring and the staging buffers wrap."""
+    for M in (1, 131, 10007):
+        qe.reset_counters()
+        got, ref = _norm_quant(kind, gen, M, H, dtype)
+        assert qe.LAUNCHES[kind] == 1
+        torch.cuda.synchronize()
+        if M > 1:
+            _check_codes(kind, got, ref)  # with the zero row
+        else:  # the same rule: one code in H may differ by one
+            d = (got[0].int() - ref[0].int()).abs()
+            assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+            assert torch.allclose(got[1], ref[1], rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("kind,H", [("rms_quant", 3072), ("rms_quant", 3584), ("ln_quant", 1024)])
+def test_norm_quant_reads_bf16_weights_as_their_f32_widening(gen, kind, H):
+    """The weight (and bias) are widened in the kernel, exactly: codes from
+    bf16 weights equal the codes from the same weights as f32."""
+    state = gen.get_state()
+    got_bf, _ = _norm_quant(kind, gen, 4099, H, torch.bfloat16, torch.bfloat16)
+    gen.set_state(state)
+    x = torch.randn(4099, H, generator=gen, device="cuda").mul_(3).bfloat16()
+    x[4099 // 2] = 0
+    w = torch.randn(H, generator=gen, device="cuda").bfloat16().float()
+    if kind == "rms_quant":
+        got_f = qe.rms_quant(x, w, 1e-5)
+    else:
+        b = torch.randn(H, generator=gen, device="cuda").mul_(0.1).bfloat16().float()
+        got_f = qe.ln_quant(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got_bf[0], got_f[0]) and torch.equal(got_bf[1], got_f[1])
+
+
+def test_norm_quant_refuses_what_it_does_not_take(gen):
+    """Widths the old kernel took (multiples of 8) either run (above) or
+    raise ValueError before anything is launched: not a multiple of 16 (the
+    bulk copy of a tile's codes), or wider than 5120; so do weights in
+    another dtype or on another device (they are never copied)."""
+    qe.reset_counters()
+    for H in (136, 5376):
+        x = _randn(gen, 8, H)
+        with pytest.raises(ValueError, match="row width"):
+            qe.rms_quant(x, torch.ones(H, device="cuda"))
+        with pytest.raises(ValueError, match="row width"):
+            qe.ln_quant(x, torch.ones(H, device="cuda"), torch.zeros(H, device="cuda"))
+    x = _randn(gen, 8, 1024)
+    with pytest.raises(ValueError, match="f32/bf16 tensor"):
+        qe.rms_quant(x, torch.ones(1024, device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError, match="f32/bf16 tensor"):
+        qe.ln_quant(x, torch.ones(1024, device="cuda"), torch.zeros(1024))
+    assert not any(qe.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("I", [256, 18944])

@@ -1,0 +1,171 @@
+"""Host-side pieces of the streaming B4 / B9 kernel and of chip_smoke.py's
+checks, on the CPU (the kernels themselves run only on the card:
+tests/test_torch_cuda_kernels.py).
+
+- ``ops/quant_epilogue.tile_plan``: rows a tile (R), ring stages (S) and the
+  dynamic shared memory of a block, per width and dtype. Every plan fits an
+  H100 block's 227 KiB; two blocks share an SM at the main paths' widths;
+  the widths the kernel does not take raise ValueError.
+- ``chip_smoke._scale_leaf_errors``: the conditioned error of a one-number
+  LoRA scale leaf, |d dscale| / (||g_b|| ||b|| / |scale|), on synthetic
+  tensors: a cancelling sum reads small, g_b moved by a relative e reads e.
+- ``chip_smoke._kernel_name``: ptxas's mangled kernel names, read back.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from llava_reward_torch.ops import quant_epilogue as qe
+
+WIDTHS = [16, 128, 384, 1024, 1280, 3072, 3584, 4096, 5120]
+# an H100's shared memory: a block's most (227 KiB), an SM's (228 KiB) with
+# 1 KiB of it reserved for each block
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232448, 233472, 1024
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["rms", "ln"])
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H", WIDTHS)
+def test_tile_plan_fits_the_card(H, x_bytes, ln):
+    for M in (1, 3, 131, 87040):
+        p = qe.tile_plan(H, x_bytes, ln, M)
+        row = H * x_bytes
+        # a block is the producer warp and one consumer warp per row: 7 rows
+        # at most up to H = 2048, 4 beyond (csrc nq_rows_max)
+        assert 1 <= p.rows <= min(7 if H <= 2048 else 4, M) and p.stages == 2
+        # the kernel's layout: barriers, S stages of R rows, two staging
+        # tiles of codes, the fp32 weight (and bias)
+        assert p.smem == (qe.NQ_HEAD + p.stages * p.rows * row + 2 * p.rows * H
+                          + 4 * H * (2 if ln else 1))
+        assert p.smem <= SMEM_PER_BLOCK
+        # a stage is one bulk copy: 16-byte multiples, at most 32 KiB
+        assert (p.rows * row) % 16 == 0 and (p.rows * H) % 16 == 0
+        assert p.rows == 1 or p.rows * row <= qe.NQ_STAGE_BYTES
+
+
+@pytest.mark.parametrize("name,H,ln,rows,blocks", [
+    ("B9 CLIP", 1024, True, 7, 4),
+    ("B4 phi3v", 3072, False, 4, 2),
+    ("B4 qwen", 3584, False, 4, 2),
+])
+def test_tile_plan_at_the_main_paths_widths(name, H, ln, rows, blocks):
+    """The plans measured fastest on an H100 at the widths the W8A8 paths
+    run (bf16, B=8 rows; tools/epilogue_timing.py --sweep), with shared
+    memory for two blocks an SM or more."""
+    p = qe.tile_plan(H, 2, ln, 14336)
+    assert (p.rows, p.stages) == (rows, 2), name
+    assert SMEM_PER_SM // (p.smem + SMEM_RESERVED) == blocks, name
+
+
+@pytest.mark.parametrize("H", [8, 136, 1000, qe.NQ_MAX_WIDTH + 16, 5376, 8192])
+def test_tile_plan_refuses_widths_the_kernel_does_not_take(H):
+    """A width that is a multiple of 8 (the old kernel's rule) but not of 16,
+    or wider than the 5120 the kernel holds in registers, raises."""
+    with pytest.raises(ValueError, match="row width"):
+        qe.tile_plan(H, 2, True, 100)
+
+
+def test_every_supported_model_width_plans():
+    """Every width ``supported`` lets through up to the widest model of the
+    repository (5120, LLaVA-NeXT-13B) has a plan, for both dtypes."""
+    for H in range(128, qe.NQ_MAX_WIDTH + 1, 128):
+        x = torch.zeros(2, H)
+        assert qe.supported(x)
+        for x_bytes in (2, 4):
+            for ln in (False, True):
+                qe.tile_plan(H, x_bytes, ln, 4096)
+
+
+def _lora_case(rng, L=3, r=4, n=64):
+    b = rng.standard_normal((L, r, n)).astype(np.float32)
+    gb = rng.standard_normal((L, r, n)).astype(np.float32)
+    scale = np.full((L,), 2.0, np.float32)
+    return b, gb, scale
+
+
+def _names_and_grads(gb, dscale):
+    names = ["lora/q/a", "lora/q/b", "lora/q/scale", "head/w"]
+    grads = [torch.zeros(1), torch.from_numpy(gb), torch.from_numpy(dscale), torch.ones(2)]
+    return names, grads
+
+
+def test_scale_leaf_error_reads_a_relative_move_of_g_b():
+    rng = np.random.default_rng(0)
+    b, gb, scale = _lora_case(rng)
+    values = {"lora/q/b": torch.from_numpy(b), "lora/q/scale": torch.from_numpy(scale)}
+    dscale = np.einsum("lrn,lrn->l", gb, b) / scale
+    names, ref = _names_and_grads(gb, dscale)
+    for e in (1e-3, 0.05, 0.3):
+        # g_b moved by a relative e along b: the worst case of Cauchy-Schwarz
+        bhat = b / np.linalg.norm(b.reshape(3, -1), axis=1)[:, None, None]
+        gb2 = gb + e * np.linalg.norm(gb.reshape(3, -1), axis=1)[:, None, None] * bhat
+        _, got = _names_and_grads(gb2, np.einsum("lrn,lrn->l", gb2, b) / scale)
+        err = cs._scale_leaf_errors(names, got, ref, values)
+        assert set(err) == {"lora/q/scale"}
+        assert err["lora/q/scale"] == pytest.approx(e, rel=1e-4)
+    # a fault in one layer only: the worst over layers reads it
+    moved = dscale.copy()
+    moved[1] += 0.1 * np.linalg.norm(gb[1]) * np.linalg.norm(b[1]) / scale[1]
+    _, got = _names_and_grads(gb, moved)
+    assert cs._scale_leaf_errors(names, got, ref, values)["lora/q/scale"] == pytest.approx(
+        0.1, rel=1e-5)
+
+
+def test_scale_leaf_error_reads_a_move_of_its_own_direction_as_e_over_sqrt_n():
+    """g_b moved by a relative e in a random direction moves dscale by about
+    e ||g_b|| ||b|| / sqrt(N) over N terms: the measure reads ~e / sqrt(N),
+    which is why it bounds nothing at the LoRA factors' sizes."""
+    rng = np.random.default_rng(2)
+    b, gb, scale = _lora_case(rng, L=4, r=16, n=1024)
+    values = {"lora/q/b": torch.from_numpy(b), "lora/q/scale": torch.from_numpy(scale)}
+    dscale = np.einsum("lrn,lrn->l", gb, b) / scale
+    names, ref = _names_and_grads(gb, dscale)
+    e, N = 0.1, 16 * 1024
+    d = rng.standard_normal(gb.shape).astype(np.float32)
+    d *= e * np.linalg.norm(gb.reshape(4, -1), axis=1)[:, None, None] / np.linalg.norm(
+        d.reshape(4, -1), axis=1)[:, None, None]
+    _, got = _names_and_grads(gb + d, np.einsum("lrn,lrn->l", gb + d, b) / scale)
+    err = cs._scale_leaf_errors(names, got, ref, values)["lora/q/scale"]
+    assert 0.2 * e / N ** 0.5 < err < 5 * e / N ** 0.5
+
+
+def test_scale_leaf_error_is_small_where_the_sum_cancels():
+    """g_b nearly orthogonal to b: dscale is a sum that cancels, so a one-ulp
+    change of a term is a large relative error of the leaf, and a small one
+    in the conditioned measure."""
+    rng = np.random.default_rng(1)
+    b, gb, scale = _lora_case(rng, L=2, r=8, n=512)
+    for l in range(2):  # remove g_b's component along b
+        gb[l] -= (gb[l] * b[l]).sum() / (b[l] * b[l]).sum() * b[l]
+    values = {"lora/q/b": torch.from_numpy(b), "lora/q/scale": torch.from_numpy(scale)}
+    terms = (gb * b).reshape(2, -1)
+    exact = terms.astype(np.float64).sum(1) / scale
+    noisy = exact + np.abs(terms).max(1) * 2.0 ** -8 / scale  # one bf16 ulp of the largest term
+    names, ref = _names_and_grads(gb, exact.astype(np.float32))
+    _, got = _names_and_grads(gb, noisy.astype(np.float32))
+    rel = cs._rel_err(got[2], ref[2])
+    cond = cs._scale_leaf_errors(names, got, ref, values)["lora/q/scale"]
+    assert rel > 1.0 and cond < 1e-3
+
+
+def test_over_holds_each_reading_to_its_floor():
+    errs = {"a": 0.3, "b": 0.3, "c": 0.1}
+    floor = {"a": 0.1, "b": 0.25}
+    assert cs._over(errs, floor, 0.25, 1.5) == {"a": 0.3}
+    assert cs._over(errs, floor, 0.25, 0.0) == {"a": 0.3, "b": 0.3}
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_117norm_quant_kernelI13__nv_bfloat16Lb1ELi4EEEvPKT_PKvS6_iPaPfiiffii",
+     "norm_quant_kernel<__nv_bfloat16,1,4>"),
+    ("_ZN12_GLOBAL__N_117norm_quant_kernelIfLb0ELi20EEEvPKT_PKvS6_iPaPfiiffii",
+     "norm_quant_kernel<float,0,20>"),
+    ("_ZN12_GLOBAL__N_118fa_bwd_main_kernelILi64ELi0EEEvN", "fa_bwd_main_kernel<64,0>"),
+    ("_ZN12_GLOBAL__N_116row_quant_kernelI13__nv_bfloat16EEvPKT_PaPfi",
+     "row_quant_kernel<__nv_bfloat16>"),
+    ("_ZN12_GLOBAL__N_118int8_matmul_kernelIfEEvN", "int8_matmul_kernel<float>"),
+])
+def test_kernel_names_from_ptxas(mangled, name):
+    assert cs._kernel_name(mangled) == name

@@ -20,10 +20,20 @@ Each reading is one ``READING {json}`` line:
   kernels (twice), and through the reference attention (``xla``); with
   ``--controls`` also through B3 with a fault planted at its launch (softmax
   scale x1.003 and x1.01, kv_start off by one, q/k rounded to fp8 e4m3).
-- ``qwen-route``: phase 6q's one full-depth LoRA step at seeds 0-2: the scale
+- ``qwen-route``: phase 6q's one full-depth LoRA step at seeds 0-3: the scale
   leaves' errors through the kernels (twice) and the reference attention,
   the worst other leaf and layer slice; with the kernel route's B8 swapped
-  for its plain version, and with ``--swap-b3`` also its B3.
+  for its plain version, with ``--swap-b3`` also its B3, and with
+  ``--controls`` through B3 with each planted fault.
+
+Each scale leaf is read two ways: ``rel``, its relative L2 error, which
+chip_smoke.py's checks bound, and ``cond``, the conditioned error
+(``_scale_leaf_errors``: |d dscale| / (||g_b|| ||b|| / |scale|)), which they
+print beside it. Each run carries ``caught``, whether the check fails it,
+under the rule in force (``old``: a scale leaf's rel within max(5e-2, 1.5 x
+the reference's) in the one-layer check, within the route's floor rule in
+the step) and under the conditioned rule that was weighed against it
+(``new``: cond in place of rel, under the tensor leaves' bounds).
 """
 from __future__ import annotations
 
@@ -183,9 +193,21 @@ def phi_layer(seeds):
                 out = cs.phi3.decoder_layer(x, lp, dcfg, cos, sin, mask, impl, lora)
                 grads[run] = torch.autograd.grad((out.float() * w.float()).sum(),
                                                  [x] + cs.tree_leaves(lora))
-        emit("phi3v-layer", seed=seed,
-             rel={r: {n: cs._rel_err(a, b) for n, a, b in zip(names, g, grads["plain"])}
-                  for r, g in grads.items() if r != "plain"},
+        values = dict(cs._named_leaves(lora))
+        rel = {r: {n: cs._rel_err(a, b) for n, a, b in zip(names, g, grads["plain"])}
+               for r, g in grads.items() if r != "plain"}
+        cond = {r: cs._scale_leaf_errors(names, g, grads["plain"], values)
+                for r, g in grads.items() if r != "plain"}
+        tol = cs.LAYER_GRAD_TOL
+
+        def caught(r):
+            tensors = any(v > tol for n, v in rel[r].items() if n not in cond[r])
+            old = tensors or any(rel[r][n] > max(tol, cs.FLOOR_FACTOR * rel["xla"][n])
+                                 for n in cond[r])
+            return {"old": old, "new": tensors or any(v > tol for v in cond[r].values())}
+
+        emit("phi3v-layer", seed=seed, rel=rel, cond=cond,
+             caught={r: caught(r) for r in rel if r != "xla"},
              scale_grad={r: {n: float(t.float()) for n, t in zip(names, g)
                              if n.endswith("/scale")} for r, g in grads.items()})
         del grads, lp, trainable
@@ -197,10 +219,12 @@ def qwen_route(seeds):
     qcfg = cs.qwen25_vl_7b_config()
     rcfg = cs.RewardConfig(is_general_preference=True, value_head_dim=2,
                            add_cross_attention=True, layer_id=qcfg.text.num_layers)
-    runs = {"auto": ("auto", None), "auto#2": ("auto", None), "xla": ("xla", None),
+    runs = {"xla": ("xla", None), "auto": ("auto", None), "auto#2": ("auto", None),
             "B3 + plain B8": ("auto", ("_launch_fa_bwd", b8_plain))}
     if args.swap_b3:
         runs["plain B3 + B8"] = ("auto", ("_launch_fa_hm", b3_plain))
+    if args.controls:
+        runs.update({c: ("auto", ("_launch_fa_hm", planted_b3(c))) for c in CONTROLS})
     for seed in seeds:
         torch.cuda.empty_cache()
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -215,17 +239,30 @@ def qwen_route(seeds):
             return cs._loss_and_grads(loss, trainable, frozen, chosen, rejected)
 
         names = [n for n, _ in cs._named_leaves(trainable)]
+        values = dict(cs._named_leaves(trainable))
         lp, gp = step("plain")
-        read = {}
+        read, floor = {}, None
         for key, (impl, swap) in runs.items():
             with patched(*(swap or ("_launch_fa_hm", None))):
                 lk, gk = step(impl)
             (_, leaves), (piece, slices) = cs._grad_errors(names, gk, gp, cs._lora_factor)
-            read[key] = {"loss": lk.item(),
-                         "scale": {n: v for n, v in leaves.items() if n.endswith("/scale")},
-                         "worst_other": max((v, n) for n, v in leaves.items()
-                                            if not n.endswith("/scale")),
-                         "worst_slice": (slices[piece], piece)}
+            cond = cs._scale_leaf_errors(names, gk, gp, values)
+            if floor is None:  # the reference attention's, read first
+                floor = (leaves, {**leaves, **cond}, slices)
+            ff, gap = cs.FLOOR_FACTOR, abs(lk.item() - lp.item()) > cs.TRAIN_LOSS_TOL
+            sl = bool(cs._over(slices, floor[2], cs.TRAIN_SLICE_TOL, ff))
+            read[key] = {
+                "loss": lk.item(),
+                "scale": {n: v for n, v in leaves.items() if n.endswith("/scale")},
+                "cond": cond,
+                "worst_other": max((v, n) for n, v in leaves.items()
+                                   if not n.endswith("/scale")),
+                "worst_slice": (slices[piece], piece),
+                "caught": {
+                    "old": gap or sl or bool(cs._over(leaves, floor[0], cs.TRAIN_GRAD_TOL, ff)),
+                    "new": gap or sl or bool(cs._over({**leaves, **cond}, floor[1],
+                                                      cs.TRAIN_GRAD_TOL, ff))},
+            }
             del gk
         emit("qwen-route", seed=seed, plain_loss=lp.item(), read=read)
         del frozen, trainable, gp
@@ -235,5 +272,5 @@ cs.phase_device()
 cs.phase_build()
 fwd_accuracy()
 phi_layer([0, 1, 2, 3])
-qwen_route([0, 1, 2])
+qwen_route([0, 1, 2, 3])
 emit("done")

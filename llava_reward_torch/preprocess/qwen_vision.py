@@ -1,5 +1,5 @@
-"""Qwen2.5-VL image geometry in numpy (the port's own copy of
-``llava_reward_tpu/preprocess/qwen_vision.py:38-74,92-99,140-240``).
+"""Qwen2.5-VL host-side image processing (the port's own copy of
+``llava_reward_tpu/preprocess/qwen_vision.py``, images).
 
 - ``smart_resize``: factor-28 sizes within [min_pixels, max_pixels];
 - ``patch_norm_vectors``: the CLIP mean / std in the patch-flat
@@ -14,28 +14,28 @@
 - ``mrope_position_ids``: M-RoPE (t, h, w) positions of a token stream.
 
 ``QwenProcessedSample`` is what ``preprocess/collate.collate_qwen_samples``
-takes; ``sample_from_patches`` builds one from a token stream and one
-image's patches, as ``Qwen25VLProcessor.__call__`` does after decoding and
-resizing (``qwen_vision.py:300-380``, one image). The PIL half of the
-processor (``fetch_image``, ``image_to_patches``) and video arrive with the
-host data path (ROADMAP A8a).
+takes. ``Qwen25VLProcessor`` makes one from a prompt and PIL images
+(``fetch_image``: smart_resize and a bicubic resize; ``image_to_patches``:
+HF's flatten order, f32 normalised or raw uint8 with ``device_preproc``);
+``sample_from_patches`` makes one from a token stream and one image's
+patches. Video comes with ROADMAP A5 and raises.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..ops.pixels import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 
 IMAGE_FACTOR = 28
 MIN_PIXELS = 4 * 28 * 28
 MAX_PIXELS = 16384 * 28 * 28
 MAX_RATIO = 200
 
-OPENAI_CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
-OPENAI_CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 
 
 def round_by_factor(number: float, factor: int) -> int:
@@ -75,12 +75,66 @@ def smart_resize(
     return h_bar, w_bar
 
 
+def fetch_image(
+    image,
+    factor: int = IMAGE_FACTOR,
+    min_pixels: int = MIN_PIXELS,
+    max_pixels: int = MAX_PIXELS,
+):
+    """PIL path of vision_process.py:97-140 (file/URL/base64 IO lives in the
+    data layer)."""
+    from PIL import Image
+
+    img = image.convert("RGB")
+    w, h = img.size
+    h_bar, w_bar = smart_resize(h, w, factor, min_pixels, max_pixels)
+    return img.resize((w_bar, h_bar), Image.BICUBIC)
+
+
 def patch_norm_vectors(C: int = 3, tps: int = 2, ps: int = 14):
     """(patch_dim,) CLIP mean and std in the patch-flat (C, tps, ph, pw) order."""
     rep = tps * ps * ps
     mean = np.repeat(OPENAI_CLIP_MEAN[:C], rep)
     std = np.repeat(OPENAI_CLIP_STD[:C], rep)
     return mean, std
+
+
+def image_to_patches(
+    image,
+    patch_size: int = 14,
+    temporal_patch_size: int = 2,
+    merge_size: int = 2,
+    min_pixels: int = MIN_PIXELS,
+    max_pixels: int = MAX_PIXELS,
+    layout: str = "f32",
+) -> Tuple[np.ndarray, Tuple[int, int, int]]:
+    """PIL image -> (num_patches, C*tps*ps*ps) + grid (t, h, w), in
+    merged-block-major patch order with per-patch flat layout (C, tps, ph, pw)
+    — exactly Qwen2VLImageProcessor._preprocess's flatten order.
+
+    ``layout='f32'``: CLIP-normalised float32 (host does everything);
+    ``layout='u8'``: RAW uint8 patches — normalisation runs on device
+    (patch_norm_vectors), cutting host work and wire bytes 4x."""
+    img = fetch_image(image, patch_size * merge_size, min_pixels, max_pixels)
+    w_bar, h_bar = img.size
+    if layout == "u8":
+        x = np.asarray(img, dtype=np.uint8)
+    else:
+        x = np.asarray(img, dtype=np.float32) / 255.0
+        x = (x - OPENAI_CLIP_MEAN) / OPENAI_CLIP_STD  # (H, W, C)
+    x = x.transpose(2, 0, 1)  # (C, H, W)
+    x = np.tile(x[None], (temporal_patch_size, 1, 1, 1))  # (tps, C, H, W)
+
+    C = x.shape[1]
+    gh, gw = h_bar // patch_size, w_bar // patch_size
+    m = merge_size
+    x = x.reshape(
+        temporal_patch_size, C, gh // m, m, patch_size, gw // m, m, patch_size
+    )
+    # -> (gh/m, gw/m, m, m, C, tps, ps, ps): merged-block-major patch order
+    x = x.transpose(2, 5, 3, 6, 1, 0, 4, 7)
+    patches = x.reshape(gh * gw, C * temporal_patch_size * patch_size * patch_size)
+    return patches, (1, gh, gw)
 
 
 def _merged_block_pos(gh: int, gw: int, m: int) -> np.ndarray:
@@ -217,3 +271,147 @@ def sample_from_patches(
         grid_thw=grid,
         num_img_tokens=n_units,
     )
+
+
+class Qwen25VLProcessor:
+    """Tokenizer + image processor; the prompt must contain ONE literal
+    ``<|image_pad|>`` token (the chat template's vision span)."""
+
+    def __init__(
+        self,
+        tokenizer,
+        patch_size: int = 14,
+        temporal_patch_size: int = 2,
+        merge_size: int = 2,
+        window_size: int = 112,
+        min_pixels: int = 256 * 28 * 28,  # (utils/utils.py:35-37)
+        max_pixels: int = 1280 * 28 * 28,
+        image_token_id: int = 151655,
+        device_preproc: bool = False,
+    ):
+        # ship RAW uint8 patches and normalise on device (4x fewer wire
+        # bytes; models/qwen25_vl.vision_forward). Images only — video
+        # frames stay f32 (they are resampled floats, and u8 rounding
+        # would deviate from the reference)
+        self.device_preproc = device_preproc
+        self.tokenizer = tokenizer
+        self.patch_size = patch_size
+        self.temporal_patch_size = temporal_patch_size
+        self.merge_size = merge_size
+        self.window_size = window_size
+        self.min_pixels = min_pixels
+        self.max_pixels = max_pixels
+        self.image_token_id = image_token_id
+
+    @property
+    def max_patches(self) -> int:
+        return self.max_pixels // (self.patch_size * self.patch_size)
+
+    def _tokenize(self, text: str) -> List[int]:
+        out = self.tokenizer(text)
+        if hasattr(out, "input_ids"):
+            return list(out.input_ids)
+        if isinstance(out, dict):
+            return list(out["input_ids"])
+        return list(out)
+
+    def __call__(
+        self, text: str, images: Sequence = (), videos: Sequence = ()
+    ) -> QwenProcessedSample:
+        ids = np.asarray(self._tokenize(text), dtype=np.int32)
+        if videos:
+            raise NotImplementedError("Qwen video comes with its slice (ROADMAP A5)")
+        if not images:
+            p = np.arange(len(ids), dtype=np.int32)
+            return QwenProcessedSample(
+                ids, np.ones_like(ids), np.stack([p, p, p]),
+                np.full_like(ids, -1), None, None, None, None, None, 0,
+            )
+        # Multi-image: one <|image_pad|> per image in prompt order (the
+        # reference's process_vision_info walks arbitrary per-message image
+        # lists, qwen_vl_utils/vision_process.py:352-377). Each image keeps
+        # its own windowed layout; they concatenate along the patch axis
+        # (window boundaries stay aligned — every image's layout is a whole
+        # number of windows) and full-attention blocks separate images via
+        # per-image segment ids, exactly as HF's cu_seqlens do.
+        m = self.merge_size
+        mm = m * m
+        pad_positions = np.nonzero(ids == self.image_token_id)[0]
+        if len(pad_positions) != len(images):
+            raise ValueError(f"prompt has {len(pad_positions)} <|image_pad|> for "
+                             f"{len(images)} images")
+
+        per_patches, per_grids = [], []
+        for img in images:
+            patches, grid = image_to_patches(
+                img, self.patch_size, self.temporal_patch_size,
+                self.merge_size, self.min_pixels, self.max_pixels,
+                layout="u8" if self.device_preproc else "f32",
+            )
+            per_patches.append(patches)
+            per_grids.append(grid)
+
+        # expand each pad token to its image's merged-unit run; global unit
+        # slots are consecutive across images (image i's units follow i-1's)
+        segs, splice_segs = [], []
+        cursor = 0
+        unit_base = 0
+        for p, grid in zip(pad_positions, per_grids):
+            n_merged = (grid[1] // m) * (grid[2] // m)
+            segs.append(ids[cursor:p])
+            splice_segs.append(np.full(p - cursor, -1, np.int32))
+            segs.append(np.full(n_merged, self.image_token_id, np.int32))
+            splice_segs.append(unit_base + np.arange(n_merged, dtype=np.int32))
+            unit_base += n_merged
+            cursor = p + 1
+        segs.append(ids[cursor:])
+        splice_segs.append(np.full(len(ids) - cursor, -1, np.int32))
+        ids = np.concatenate(segs).astype(np.int32)
+        splice = np.concatenate(splice_segs)
+
+        # windowed layouts concatenate; unit_gather offsets by the previous
+        # images' WINDOWED unit counts, segment ids are i+1 per image
+        w_patches, w_valid, w_rot, gathers = [], [], [], []
+        w_unit_base = 0
+        for i, (patches, grid) in enumerate(zip(per_patches, per_grids)):
+            patch_src, valid, unit_gather, _ = windowize(
+                grid, self.window_size, self.patch_size, self.merge_size
+            )
+            rot = _merged_block_pos(grid[1], grid[2], m)
+            w_patches.append(patches[patch_src] * valid[:, None])
+            w_valid.append((valid.astype(np.int32)) * (i + 1))
+            w_rot.append(rot[patch_src] * valid[:, None].astype(np.int32))
+            gathers.append(unit_gather + w_unit_base)
+            w_unit_base += len(patch_src) // mm
+        return QwenProcessedSample(
+            input_ids=ids,
+            attention_mask=np.ones_like(ids),
+            position_ids=mrope_position_ids(ids, self.image_token_id, per_grids, m),
+            splice_idx=splice,
+            patches=np.concatenate(w_patches, axis=0),
+            patch_valid=np.concatenate(w_valid),
+            rot_pos=np.concatenate(w_rot, axis=0),
+            unit_gather=np.concatenate(gathers),
+            grid_thw=per_grids[0] if len(per_grids) == 1 else tuple(per_grids),
+            num_img_tokens=unit_base,
+        )
+
+
+def apply_qwen_chat_template(tokenizer, prompt: str) -> str:
+    """Dataset-layer prompt construction (reward_dataset.py:404-430: the
+    rendered template is sliced [58:-23] and stripped — the result is the
+    vision span + prompt text)."""
+    text = tokenizer.apply_chat_template(
+        [
+            {
+                "role": "user",
+                "content": [
+                    {"type": "image"},
+                    {"type": "text", "text": prompt},
+                ],
+            }
+        ],
+        tokenize=False,
+        add_generation_prompt=True,
+    )
+    return text[58:-23].strip()

@@ -2,8 +2,8 @@
 (``llava_reward_tpu/reward/model.py``), phi3v and Qwen2.5-VL branches.
 
 The pair (chosen, rejected) is scored by stacking along the batch axis in
-one forward. The LLaVA-NeXT branch (ROADMAP slice 6) and phi3v's u8
-device-pixel path (ROADMAP A8b) raise.
+one forward. phi3v's uint8 pixels are prepared on the batch's device
+(``ops/pixels.py``). The LLaVA-NeXT branch (ROADMAP slice 6) raises.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from ..core.config import Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..models import phi3v, qwen25_vl
+from ..ops.pixels import hd_resize_u8_bank, prepare_pixel_bank
 from . import heads, skipca
 
 
@@ -35,10 +36,11 @@ def rms_eps_of(cfg) -> float:
 
 
 class RewardBatch(NamedTuple):
-    """Static-shape batch: the first ten fields of the JAX package's
-    ``RewardBatch`` (phi3v's device-pixel fields come with ROADMAP A8b).
-    Qwen2.5-VL puts its windowed patch array in ``pixel_values`` (f32 / bf16,
-    or uint8 normalised on the device) and adds the qwen fields."""
+    """Static-shape batch, the JAX package's ``RewardBatch``. Qwen2.5-VL puts
+    its windowed patch array in ``pixel_values`` (f32 / bf16, or uint8
+    normalised on the device) and adds the qwen fields. phi3v's uint8 forms:
+    crops only (B, nc, 336, 336, 3) with ``crop_grid``, or the decoded
+    original (B, Hs, Ws, 3) with ``crop_grid`` and ``resize_tabs``."""
 
     input_ids: torch.Tensor  # (B, S)
     attention_mask: torch.Tensor  # (B, S)
@@ -50,6 +52,8 @@ class RewardBatch(NamedTuple):
     patch_valid: Optional[torch.Tensor] = None  # qwen (B, P) segment ids, 0 = pad
     rot_pos: Optional[torch.Tensor] = None  # qwen (B, P, 2)
     unit_gather: Optional[torch.Tensor] = None  # qwen (B, U)
+    crop_grid: Optional[torch.Tensor] = None  # phi3v u8 path: (B, 2) (hc, wc)
+    resize_tabs: Optional[dict] = None  # phi3v device-resize path: bilinear tap tables
 
 
 class RewardOutput(NamedTuple):
@@ -123,10 +127,18 @@ def reward_forward(
                                    position_ids)
         pixel_values = batch.pixel_values
         if pixel_values is not None and pixel_values.dtype == torch.uint8:
-            raise NotImplementedError(
-                "phi3v's u8 device-side pixel preparation (ops/pixels.py) is ROADMAP A8b "
-                "(serving slice 3)"
-            )
+            # device-side preparation (``model.py:158-176``): u8 crops -> the
+            # normalised bank with the global view; from the decoded original,
+            # the PIL-exact HD resize, white padding and crop split first
+            if batch.crop_grid is None:
+                raise ValueError("uint8 phi3v pixels need crop_grid")
+            if batch.resize_tabs is not None:
+                t = batch.resize_tabs
+                pixel_values = hd_resize_u8_bank(
+                    pixel_values, t["hidx"], t["hw"], t["vidx"], t["vw"], t["vbias"],
+                    t["col_start"], t["slot_perm"], t["tflag"])
+            pixel_values = prepare_pixel_bank(pixel_values, batch.crop_grid,
+                                              dtype=torch.float32)
         out = phi3v.forward(
             params["backbone"], cfg, batch.input_ids, attention_mask, position_ids,
             pixel_values, batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
@@ -180,6 +192,8 @@ def paired_forward(
     def cat(name, a, b):
         if a is None:
             return None
+        if isinstance(a, dict):  # resize_tabs
+            return {k: torch.cat([a[k], b[k]]) for k in a}
         return torch.cat([a, b], dim=1 if name == "position_ids" else 0)
 
     stacked = RewardBatch(*[cat(n, a, b) for n, a, b in

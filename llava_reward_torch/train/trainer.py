@@ -13,6 +13,7 @@ sharded-batch arguments (multi-card runs) and wandb logging.
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import time
@@ -25,6 +26,8 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.logging import init_logger
 from ..evalx.metrics import pairwise_metrics, pointwise_metrics
 from ..io.artifact import save_reward_artifact
+from ..io.hf_phi3v import hf_state_dict_from_params
+from ..io.torch_io import save_torch_state_dict
 from ..lora.lora import (DEFAULT_TARGETS, QWEN_TARGETS, peft_adapter_config,
                          stacked_to_peft_state, vision_stacked_to_peft_state)
 from ..preprocess.collate import to_reward_batch
@@ -208,12 +211,10 @@ class RewardTrainer:
 
     def save_artifact(self, path: str) -> None:
         """pytorch_model.bin (heads + projector) + lora/ + reward_config.yaml
-        (``trainer.py:331-451``). Full fine-tuning's backbone export waits
-        for the HF-layout writer (ROADMAP A8) and raises."""
+        (``trainer.py:331-451``); under full fine-tuning also the whole
+        phi3v backbone as an HF-layout checkpoint in ``full_model/`` (a qwen
+        backbone is not exported, as in the JAX package)."""
         trainable = self.state.trainable
-        if trainable.get("backbone") is not None:
-            raise NotImplementedError(
-                "exporting a full fine-tuned backbone needs the HF-layout writer (ROADMAP A8)")
         lora_state = lora_config = None
         if trainable.get("lora") is not None and self.lora_rank > 0:
             dec_cfg = self.cfg.text if self.model_type == "qwen" else self.cfg.decoder
@@ -234,7 +235,48 @@ class RewardTrainer:
                              projector_params=trainable.get("projector"),
                              lora_state=lora_state, lora_config=lora_config,
                              model_type=self.model_type)
+        if trainable.get("backbone") is not None:
+            if self.model_type == "phi3v":
+                self._save_full_model(os.path.join(path, "full_model"), trainable["backbone"])
+            else:
+                logger.warning("full-FT export only implemented for phi3v; backbone not saved")
         logger.info("saved reward artifact to %s", path)
+
+    def _save_full_model(self, path: str, backbone: dict) -> None:
+        """The fine-tuned backbone (and the frozen lm_head, if any) as an
+        HF-layout bf16 ``pytorch_model.bin`` with its ``config.json``, so the
+        full-checkpoint loaders read it (save_model, deepspeed.py:277-332)."""
+        sd = hf_state_dict_from_params(backbone, self.cfg)
+        lm_head = self.frozen.get("backbone", {}).get("lm_head")
+        if lm_head is not None:
+            sd["lm_head.weight"] = lm_head.detach().cpu().T.contiguous()
+        save_torch_state_dict(sd, os.path.join(path, "pytorch_model.bin"), torch.bfloat16)
+        dc = self.cfg.decoder
+        cfg_json = {
+            "model_type": "phi3_v",
+            "vocab_size": dc.vocab_size,
+            "hidden_size": dc.hidden_size,
+            "intermediate_size": dc.intermediate_size,
+            "num_hidden_layers": dc.num_layers,
+            "num_attention_heads": dc.num_heads,
+            "num_key_value_heads": dc.num_kv_heads,
+            "rms_norm_eps": dc.rms_norm_eps,
+            "rope_theta": dc.rope_theta,
+            "max_position_embeddings": dc.max_position_embeddings,
+            "original_max_position_embeddings": dc.original_max_position_embeddings,
+            "sliding_window": dc.sliding_window,
+            "pad_token_id": dc.pad_token_id,
+            "eos_token_id": dc.eos_token_id,
+        }
+        if dc.rope_scaling is not None:
+            cfg_json["rope_scaling"] = {
+                "type": dc.rope_scaling.rope_type,
+                "short_factor": list(dc.rope_scaling.short_factor),
+                "long_factor": list(dc.rope_scaling.long_factor),
+            }
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(cfg_json, f, indent=2)
+        logger.info("saved full fine-tuned backbone to %s", path)
 
     def clean_old_checkpoints(self) -> None:
         """Keep the newest ``max_ckpt_num`` global_step dirs

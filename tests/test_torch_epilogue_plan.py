@@ -10,6 +10,11 @@ tests/test_torch_cuda_kernels.py).
   LoRA scale leaf, |d dscale| / (||g_b|| ||b|| / |scale|), on synthetic
   tensors: a cancelling sum reads small, g_b moved by a relative e reads e.
 - ``chip_smoke._kernel_name``: ptxas's mangled kernel names, read back.
+- ``chip_smoke._scale_identity``: dscale = <g_b, b> / scale on a route's own
+  gradients holds far below its bound in f32 and bf16, and a cut or
+  mis-wired scale gradient breaks it.
+- ``chip_smoke._scale_bias``: a kernel whose softmax scale is off by
+  (1 + e) reads about e / 0.01; a sound one, rounded to bf16, near 0.
 """
 
 import numpy as np
@@ -169,3 +174,62 @@ def test_over_holds_each_reading_to_its_floor():
 ])
 def test_kernel_names_from_ptxas(mangled, name):
     assert cs._kernel_name(mangled) == name
+
+
+def _lora_grads(dtype, cut_scale=False, seed=0):
+    """One LoRA layer applied as the models apply it (``x @ a @ b * scale``
+    in the activations' dtype), its a / b / scale gradients by autograd."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(512, 384, generator=gen).to(dtype)
+    g = torch.randn(512, 1024, generator=gen).to(dtype)
+    a = torch.randn(384, 16, generator=gen).mul_(0.1).requires_grad_()
+    b = torch.randn(16, 1024, generator=gen).mul_(1e-2).requires_grad_()
+    scale = torch.tensor(2.0, requires_grad=True)
+    s = scale.detach() if cut_scale else scale  # a cut scale gradient
+    out = (x @ a.to(dtype)) @ b.to(dtype) * s.to(dtype)
+    if cut_scale:
+        out = out + 0.0 * scale
+    grads = torch.autograd.grad((out.float() * g.float()).sum(), [a, b, scale])
+    names = ["lora/q/a", "lora/q/b", "lora/q/scale"]
+    return names, grads, {"lora/q/a": a, "lora/q/b": b, "lora/q/scale": scale}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scale_identity_holds_on_any_route(dtype):
+    """dscale = <g_b, b> / scale: far below the bound in f32 and in bf16 (the
+    rounding reads ~2^-9 / sqrt(M) of the bound over M outputs)."""
+    names, grads, values = _lora_grads(dtype)
+    got = cs._scale_identity(names, grads, values)
+    assert set(got) == {"lora/q/scale"}
+    assert got["lora/q/scale"] < cs.SCALE_IDENTITY_TOL / 3
+
+
+def test_scale_identity_catches_a_cut_or_miswired_scale_gradient():
+    """A cut scale gradient reads |<g_b, b> / scale| over its bound, about
+    1 / sqrt(N) over the N = r x out terms of the sum (16384 here), and a
+    gradient of another layer about as much."""
+    names, grads, values = _lora_grads(torch.float32, cut_scale=True)
+    assert cs._scale_identity(names, grads, values)["lora/q/scale"] > 10 * cs.SCALE_IDENTITY_TOL
+    names, grads, values = _lora_grads(torch.float32)
+    other = _lora_grads(torch.float32, seed=1)[1]
+    wired = [grads[0], grads[1], other[2]]  # another layer's scale gradient
+    assert cs._scale_identity(names, wired, values)["lora/q/scale"] > 10 * cs.SCALE_IDENTITY_TOL
+
+
+@pytest.mark.parametrize("e", [0.0, 0.003, 0.01, -0.01])
+def test_scale_bias_reads_a_softmax_scale_fault(e):
+    """r = <kernel - p(s), d> / <d, d>: a kernel at scale s (1 + e) reads
+    about e / 0.01; rounding noise on a sound one reads near 0."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 256, 32, generator=gen) for _ in range(3))
+    s = 32 ** -0.5
+
+    def attn(scale):
+        return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+
+    p, p2 = attn(s), attn(s * cs.SCALE_STEP)
+    kernel = attn(s * (1 + e)).bfloat16().float()  # rounded as a bf16 kernel's output
+    r = cs._scale_bias([(kernel, p, p2)])
+    assert abs(r - e / (cs.SCALE_STEP - 1)) < 0.02 + 0.05 * abs(e) / 0.01
+    if e == 0.0:
+        assert abs(r) < cs.SCALE_BIAS_TOL / 3

@@ -172,7 +172,9 @@ def test_lane_aligned_slice_through_plain_kernels_matches_pallas():
 def test_other_families_and_u8_pixels_wait_for_their_slices(tiny):
     """Qwen2.5-VL is ported (its parity tests: tests/test_torch_qwen_*.py): a
     text-only qwen batch scores like the JAX package's. LLaVA-NeXT (slice 6)
-    and phi3v's u8 device pixels (slice 3) still raise."""
+    still raises. phi3v's u8 device pixels are ported
+    (tests/test_torch_pixels.py, test_torch_sample_e2e.py); a u8 bank
+    without its crop grid is refused, as the JAX package asserts."""
     jcfg, tcfg, jr, tr, jtree, ttree = tiny
     qj = qwen_tiny_config(vision_depth=2)
     qt = tconfig.qwen_tiny_config(vision_depth=2)
@@ -197,5 +199,5 @@ def test_other_families_and_u8_pixels_wait_for_their_slices(tiny):
         t_reward(ttree, object(), tr, _tb(_batch(jcfg, [0], [N_IMG])))
     fields = list(_batch(jcfg, [0], [N_IMG]))
     fields[2] = np.zeros(fields[2].shape, np.uint8)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="crop_grid"):
         t_reward(ttree, tcfg, tr, _tb(tuple(fields)))

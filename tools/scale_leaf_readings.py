@@ -1,5 +1,5 @@
-"""Readings behind the one-number LoRA scale-leaf bounds of chip_smoke.py's
-training checks, on one H100, for the port in a given checkout.
+"""Readings behind chip_smoke.py's softmax-scale and LoRA scale-leaf checks,
+on one H100, for the port in a given checkout.
 
 The measuring code is this tree's chip_smoke.py; the package and its CUDA
 kernels come from ``--root`` (this checkout by default), so the same readings
@@ -15,25 +15,30 @@ Each reading is one ``READING {json}`` line:
   version's, at the Qwen2.5-VL decoder's GQA shape and Phi-3.5-V's decoder
   shape (relative L2 error; ``shrink``, the error's projection on the exact
   output, a scale bias; the mean error).
+- ``bias``: phase 3's attention checks (B1 at CLIP's and the decoder's
+  shapes, B3 at its three, B8 at its five) at seeds 0-3: the scale-bias
+  reading ``r`` of each, and which bound fails it (``tensor``: the kernel
+  against its plain version; ``r``: the scale-bias bound); with
+  ``--controls`` also with a fault planted at the kernel's launch (softmax
+  scale x1.003 and x1.01, kv_start off by one, q/k rounded to fp8 e4m3).
 - ``phi3v-layer``: phase 6's one-decoder-layer check at seeds 0-3: every
   leaf's relative L2 gradient error against the plain versions through the
   kernels (twice), and through the reference attention (``xla``); with
-  ``--controls`` also through B3 with a fault planted at its launch (softmax
-  scale x1.003 and x1.01, kv_start off by one, q/k rounded to fp8 e4m3).
-- ``qwen-route``: phase 6q's one full-depth LoRA step at seeds 0-3: the scale
-  leaves' errors through the kernels (twice) and the reference attention,
-  the worst other leaf and layer slice; with the kernel route's B8 swapped
-  for its plain version, with ``--swap-b3`` also its B3, and with
-  ``--controls`` through B3 with each planted fault.
+  ``--controls`` also through B3 with each planted fault.
+- ``phi3v-route``, ``qwen-route``: phase 6's and phase 6q's full-depth LoRA
+  step at seeds 0-3: the scale leaves' errors through the kernels (twice)
+  and the reference attention, the worst other leaf and layer slice; with
+  the kernel route's B8 swapped for its plain version, with ``--swap-b3``
+  also its B3, and with ``--controls`` through B3 with each planted fault.
 
-Each scale leaf is read two ways: ``rel``, its relative L2 error, which
-chip_smoke.py's checks bound, and ``cond``, the conditioned error
-(``_scale_leaf_errors``: |d dscale| / (||g_b|| ||b|| / |scale|)), which they
-print beside it. Each run carries ``caught``, whether the check fails it,
-under the rule in force (``old``: a scale leaf's rel within max(5e-2, 1.5 x
-the reference's) in the one-layer check, within the route's floor rule in
-the step) and under the conditioned rule that was weighed against it
-(``new``: cond in place of rel, under the tensor leaves' bounds).
+Each scale leaf is read three ways: ``rel``, its relative L2 error against
+the plain route; ``cond``, the conditioned error (``_scale_leaf_errors``:
+|d dscale| / (||g_b|| ||b|| / |scale|)); and ``ident``, the route's own
+identity reading (``_scale_identity``), which chip_smoke.py's checks bound.
+Each run carries ``caught``: whether the tensor leaves' bounds fail it
+(``tensors``), and whether the identity bound does (``identity``). Two more
+faults are planted into the kernel route's scale gradients themselves: cut
+(zero), and (in the step) each layer's taken from the next layer.
 """
 from __future__ import annotations
 
@@ -71,22 +76,56 @@ def emit(kind, **kw):
                                    "t": round(time.time() - T0, 1)}), flush=True)
 
 
+def _fp8(t):
+    return t.to(torch.float8_e4m3fn).to(t.dtype)
+
+
+def _planted(name, scale, kv_start):
+    if name == "scale*1.003":
+        scale = scale * 1.003
+    elif name == "scale*1.01":
+        scale = scale * 1.01
+    elif name == "kv_start+1":
+        kv_start = kv_start + 1
+    return scale, kv_start
+
+
 def planted_b3(name):
     """B3 with a fault planted at its launch wrapper."""
     real = fa._launch_fa_hm
 
     def launch(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=None,
                segments=False):
-        if name == "scale*1.003":
-            scale = scale * 1.003
-        elif name == "scale*1.01":
-            scale = scale * 1.01
-        elif name == "kv_start+1":
-            kv_start = kv_start + 1
-        elif name == "fp8 q/k":
-            qt = qt.to(torch.float8_e4m3fn).to(qt.dtype)
-            kt = kt.to(torch.float8_e4m3fn).to(kt.dtype)
+        scale, kv_start = _planted(name, scale, kv_start)
+        if name == "fp8 q/k":
+            qt, kt = _fp8(qt), _fp8(kt)
         return real(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask, segments)
+    return launch
+
+
+def planted_b1(name):
+    """B1 with a fault planted at its launch wrapper (fp8: the q and k
+    columns of the fused projection)."""
+    real = fa._launch_fa_direct
+
+    def launch(qkv, cos, sin, kv_start, n_heads, D, causal, window, scale, q_len):
+        scale, kv_start = _planted(name, scale, kv_start)
+        if name == "fp8 q/k":
+            qkv = torch.cat([_fp8(qkv[..., : 2 * n_heads * D]), qkv[..., 2 * n_heads * D:]], -1)
+        return real(qkv, cos, sin, kv_start, n_heads, D, causal, window, scale, q_len)
+    return launch
+
+
+def planted_b8(name):
+    """B8 with a fault planted at its launch wrapper."""
+    real = fa._launch_fa_bwd
+
+    def launch(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_mask=None,
+               segments=False):
+        scale, kv_start = _planted(name, scale, kv_start)
+        if name == "fp8 q/k":
+            qt, kt = _fp8(qt), _fp8(kt)
+        return real(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_mask, segments)
     return launch
 
 
@@ -158,6 +197,77 @@ def fwd_accuracy():
             torch.cuda.empty_cache()
 
 
+def _cut(names, grads, roll=False):
+    """The gradients with every LoRA scale leaf's zeroed, or (``roll``) each
+    layer's taken from the next layer."""
+    return [(torch.roll(g, 1, 0) if roll else torch.zeros_like(g))
+            if n.endswith("/scale") else g for n, g in zip(names, grads)]
+
+
+def bias_checks(seeds):
+    """Phase 3's attention checks, the kernels sound and with each planted
+    fault, at each seed (the check's inputs drawn from a generator of that
+    seed; timing skipped)."""
+    cfg, qcfg = cs.phi35_vision_config(), cs.qwen25_vl_7b_config()
+    tc = qcfg.text
+    variants = ["sound"] + (list(CONTROLS) if args.controls else [])
+    launch = {"B1": ("_launch_fa_direct", planted_b1), "B3": ("_launch_fa_hm", planted_b3),
+              "B8": ("_launch_fa_bwd", planted_b8)}
+    seg = None
+
+    def checks(gen):
+        nonlocal seg
+        if seg is None:
+            seg = torch.from_numpy(np.stack([cs.windowize(g)[1] for g in cs.QWEN_GRIDS])
+                                   .astype(np.int32)).cuda()
+        return [
+            ("B1", "CLIP", lambda: cs.check_direct("B1 CLIP", gen, 136, 640, 16, 64, False,
+                                                   False, [0] * 136, 577, cfg)),
+            ("B1", "decoder", lambda: cs.check_direct(
+                "B1 decoder", gen, 8, 2560, 32, 96, True, True, [0, 300, 0, 1000, 0, 7, 0, 64],
+                2560, cfg)),
+            ("B3", "phi3v", lambda: cs.check_prep_and_hm(gen, cfg)[-1]),
+            ("B3", "qwen GQA", lambda: cs.check_hm_gqa(gen, qcfg)),
+            ("B3", "segments", lambda: cs.check_hm_segments(gen)),
+            ("B8", "segments", lambda: cs.check_bwd("B8 segments", gen, 2, 16, cs.QWEN_PATCHES,
+                                                    80, False, [0, 0], mask=seg, segments=True)),
+            ("B8", "key mask", lambda: cs.check_bwd("B8 key mask", gen, 2, 16, cs.QWEN_PATCHES,
+                                                    80, False, [0, 0],
+                                                    mask=(seg != 0).to(torch.int32))),
+            ("B8", "qwen GQA", lambda: cs.check_bwd("B8 GQA", gen, 2, tc.num_heads, cs.QWEN_SEQ,
+                                                    tc.head_dim, True, [0, 40],
+                                                    Hk=tc.num_kv_heads)),
+            ("B8", "CLIP", lambda: cs.check_bwd("B8 CLIP", gen, 34, 16, 577, 64, False,
+                                                [0] * 34)),
+            ("B8", "decoder", lambda: cs.check_bwd("B8 decoder", gen, 2, 32, 2560, 96, True,
+                                                   [0, 40])),
+        ]
+
+    failures = []
+    real = (cs.fail, cs.time_ms, cs._launch_split)
+    cs.fail = failures.append
+    cs.time_ms = lambda fn, iters=10, warmup=2: float("nan")
+    cs._launch_split = lambda fn, names, reps=3: "not timed"
+    try:
+        for seed in seeds:
+            for variant in variants:
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                read = {}
+                for kernel, shape, run in checks(gen):
+                    attr, plant = launch[kernel]
+                    del failures[:]
+                    with patched(attr, None if variant == "sound" else plant(variant)):
+                        row = run()
+                    read[f"{kernel} {shape}"] = {
+                        "r": row["scale_bias"], "max_abs_err": row["max_abs_err"],
+                        "caught": {"tensor": any("disagrees" in f for f in failures),
+                                   "r": any("scale bias" in f for f in failures)}}
+                    torch.cuda.empty_cache()
+                emit("bias", seed=seed, variant=variant, read=read)
+    finally:
+        cs.fail, cs.time_ms, cs._launch_split = real
+
+
 def phi_layer(seeds):
     """Phase 6's one-layer check (chip_smoke._layer_parity) at each seed,
     from the generator state phase 6 reaches it with."""
@@ -198,27 +308,62 @@ def phi_layer(seeds):
                for r, g in grads.items() if r != "plain"}
         cond = {r: cs._scale_leaf_errors(names, g, grads["plain"], values)
                 for r, g in grads.items() if r != "plain"}
+        ident = {r: cs._scale_identity(names, g, values) for r, g in grads.items()}
+        # planted into the scale gradient itself: cut (zero)
+        ident["cut dscale"] = cs._scale_identity(names, _cut(names, grads["auto"]), values)
         tol = cs.LAYER_GRAD_TOL
 
         def caught(r):
-            tensors = any(v > tol for n, v in rel[r].items() if n not in cond[r])
-            old = tensors or any(rel[r][n] > max(tol, cs.FLOOR_FACTOR * rel["xla"][n])
-                                 for n in cond[r])
-            return {"old": old, "new": tensors or any(v > tol for v in cond[r].values())}
+            return {"tensors": any(v > tol for v in cs._tensor_leaves(rel[r]).values()),
+                    "identity": any(v > cs.SCALE_IDENTITY_TOL for v in ident[r].values())}
 
-        emit("phi3v-layer", seed=seed, rel=rel, cond=cond,
-             caught={r: caught(r) for r in rel if r != "xla"},
+        emit("phi3v-layer", seed=seed, rel=rel, cond=cond, ident=ident,
+             caught={**{r: caught(r) for r in rel if r != "xla"}, "cut dscale": {
+                 "identity": any(v > cs.SCALE_IDENTITY_TOL
+                                 for v in ident["cut dscale"].values())}},
              scale_grad={r: {n: float(t.float()) for n, t in zip(names, g)
                              if n.endswith("/scale")} for r, g in grads.items()})
         del grads, lp, trainable
 
 
-def qwen_route(seeds):
-    """Phase 6q's full-depth LoRA step (chip_smoke._route_parity's readings)
-    at each seed."""
+def _phi3v_setup(seed):
+    """Phase 6's state and pair, from the generator state phase 6 draws them
+    with; its route check holds each leaf to the bound alone (floor factor 0)."""
+    cfg = cs.phi35_vision_config()
+    rcfg = cs.RewardConfig(is_general_preference=True, value_head_dim=2,
+                           add_cross_attention=True, layer_id=cfg.decoder.num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frozen = {"backbone": cs.phi3v.init_params(cfg, gen, torch.bfloat16, "cuda")}
+    trainable = cs._trainable(cfg, rcfg, gen)
+    chosen, rejected = cs._halves(cs.make_request(cfg, gen, 1, 2560, {1: 40}), 1)
+
+    def make_loss(impl):
+        return cs.make_pairwise_loss_fn(cfg, rcfg, attn_impl=impl, remat=True)
+    return frozen, trainable, chosen, rejected, make_loss, 0.0
+
+
+def _qwen_setup(seed):
+    """Phase 6q's state and pair; its route check holds each leaf to the
+    larger of the bound and FLOOR_FACTOR times its drift floor."""
     qcfg = cs.qwen25_vl_7b_config()
     rcfg = cs.RewardConfig(is_general_preference=True, value_head_dim=2,
                            add_cross_attention=True, layer_id=qcfg.text.num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frozen = {"backbone": cs.qwen25_vl.init_params(qcfg, gen, torch.bfloat16, "cuda")}
+    trainable = cs._qwen_trainable(qcfg, rcfg, gen, frozen["backbone"])
+    rng = np.random.default_rng(seed)
+    chosen, rejected = cs._halves(cs.qwen_request(qcfg, rng, cs.QWEN_GRIDS, {1: 40}), 1)
+
+    def make_loss(impl):
+        return cs.make_pairwise_loss_fn(qcfg, rcfg, attn_impl=impl, remat=True,
+                                        projector_path=cs.PROJECTOR_PATHS["qwen"])
+    return frozen, trainable, chosen, rejected, make_loss, cs.FLOOR_FACTOR
+
+
+def route(kind, setup, seeds):
+    """A full-depth LoRA step's route check (chip_smoke._route_parity's
+    readings) at each seed: phase 6's (``phi3v-route``) or phase 6q's
+    (``qwen-route``)."""
     runs = {"xla": ("xla", None), "auto": ("auto", None), "auto#2": ("auto", None),
             "B3 + plain B8": ("auto", ("_launch_fa_bwd", b8_plain))}
     if args.swap_b3:
@@ -227,50 +372,54 @@ def qwen_route(seeds):
         runs.update({c: ("auto", ("_launch_fa_hm", planted_b3(c))) for c in CONTROLS})
     for seed in seeds:
         torch.cuda.empty_cache()
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        frozen = {"backbone": cs.qwen25_vl.init_params(qcfg, gen, torch.bfloat16, "cuda")}
-        trainable = cs._qwen_trainable(qcfg, rcfg, gen, frozen["backbone"])
-        rng = np.random.default_rng(seed)
-        chosen, rejected = cs._halves(cs.qwen_request(qcfg, rng, cs.QWEN_GRIDS, {1: 40}), 1)
+        frozen, trainable, chosen, rejected, make_loss, ff = setup(seed)
 
         def step(impl):
-            loss = cs.make_pairwise_loss_fn(qcfg, rcfg, attn_impl=impl, remat=True,
-                                            projector_path=cs.PROJECTOR_PATHS["qwen"])
-            return cs._loss_and_grads(loss, trainable, frozen, chosen, rejected)
+            return cs._loss_and_grads(make_loss(impl), trainable, frozen, chosen, rejected)
 
         names = [n for n, _ in cs._named_leaves(trainable)]
         values = dict(cs._named_leaves(trainable))
         lp, gp = step("plain")
-        read, floor = {}, None
+        read, floor = {"plain": {"ident": cs._scale_identity(names, gp, values)}}, None
         for key, (impl, swap) in runs.items():
             with patched(*(swap or ("_launch_fa_hm", None))):
                 lk, gk = step(impl)
             (_, leaves), (piece, slices) = cs._grad_errors(names, gk, gp, cs._lora_factor)
             cond = cs._scale_leaf_errors(names, gk, gp, values)
+            ident = cs._scale_identity(names, gk, values)
             if floor is None:  # the reference attention's, read first
-                floor = (leaves, {**leaves, **cond}, slices)
-            ff, gap = cs.FLOOR_FACTOR, abs(lk.item() - lp.item()) > cs.TRAIN_LOSS_TOL
-            sl = bool(cs._over(slices, floor[2], cs.TRAIN_SLICE_TOL, ff))
+                floor = (cs._tensor_leaves(leaves), slices)
+            gap = abs(lk.item() - lp.item()) > cs.TRAIN_LOSS_TOL
+            sl = bool(cs._over(slices, floor[1], cs.TRAIN_SLICE_TOL, ff))
+            tensors = cs._tensor_leaves(leaves)
             read[key] = {
                 "loss": lk.item(),
                 "scale": {n: v for n, v in leaves.items() if n.endswith("/scale")},
                 "cond": cond,
-                "worst_other": max((v, n) for n, v in leaves.items()
-                                   if not n.endswith("/scale")),
+                "ident": ident,
+                "worst_other": max((v, n) for n, v in tensors.items()),
                 "worst_slice": (slices[piece], piece),
                 "caught": {
-                    "old": gap or sl or bool(cs._over(leaves, floor[0], cs.TRAIN_GRAD_TOL, ff)),
-                    "new": gap or sl or bool(cs._over({**leaves, **cond}, floor[1],
-                                                      cs.TRAIN_GRAD_TOL, ff))},
+                    "tensors": gap or sl or bool(cs._over(tensors, floor[0], cs.TRAIN_GRAD_TOL,
+                                                          ff)),
+                    "identity": any(v > cs.SCALE_IDENTITY_TOL for v in ident.values())},
             }
+            if key == "auto":  # planted into the scale gradients: cut, and shifted a layer
+                for name, g in (("cut dscale", _cut(names, gk)),
+                                ("dscale of the next layer", _cut(names, gk, roll=True))):
+                    idt = cs._scale_identity(names, g, values)
+                    read[name] = {"ident": idt, "caught": {
+                        "identity": any(v > cs.SCALE_IDENTITY_TOL for v in idt.values())}}
             del gk
-        emit("qwen-route", seed=seed, plain_loss=lp.item(), read=read)
+        emit(kind, seed=seed, plain_loss=lp.item(), read=read)
         del frozen, trainable, gp
 
 
 cs.phase_device()
 cs.phase_build()
 fwd_accuracy()
+bias_checks([0, 1, 2, 3])
 phi_layer([0, 1, 2, 3])
-qwen_route([0, 1, 2, 3])
+route("phi3v-route", _phi3v_setup, [0, 1, 2, 3])
+route("qwen-route", _qwen_setup, [0, 1, 2, 3])
 emit("done")

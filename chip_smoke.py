@@ -25,7 +25,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      printed) and its three launches are timed apart with torch.profiler;
      B1, B3 and B8 also give a scale-bias reading r, the projection of the
      kernel's error on the direction a 1 % softmax-scale change moves the
-     plain version's output, held to SCALE_BIAS_TOL;
+     plain version's output, held to SCALE_BIAS_TOL; last, the kernels at
+     the LLaVA-NeXT-13B decoder's shapes (B1 and B8 at 40 heads x 128 MHA,
+     RoPE, causal, seq 2976, B1's shared memory at head_dim 128 held to the
+     card's limit, B1 timed at B=8 too; B4-B6 and the GEMM at 8 x 2976 rows
+     of 5120 / 13824);
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -51,6 +55,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      each other; the same device checks on seeded synthetic geometries, and a
      16x1 panorama with a two-image prompt scored on the host-bank fallback.
      Host preparation, device pixel (CUDA events) and score times printed;
+  [http] phase 4's tree behind the port's HTTP server (RewardService,
+     max_batch 8, seq 2560, 10 ms batch window, ThreadingHTTPServer on
+     127.0.0.1): /healthz, /score_pair on two sample PNG paths, /score on two
+     base64 images, four /score_pair requests queued behind a one-image
+     request that holds the card (one B=8 device call), four more at once
+     free-running; every answer's rewards bit-equal to make_score_fn on the
+     same collated samples, the decisions the same across buckets;
   [load] a 2-layer full-width Phi-3.5-vision base checkpoint (HF keys, the
      published config.json at 2 layers) and a reward artifact (LoRA r=128,
      heads, projector) written to a temporary directory, read back through
@@ -59,6 +70,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      tree built in memory, B4-B7 launched by the W8A8 load; the same for
      Qwen2.5-VL-7B with 2 decoder layers and the whole tower, bf16. Load time
      and bytes read printed;
+  [eval] batch_rm_inference on the sample rows (4 pairs, one stacked B=8
+     call; 8 pointwise rows) on phase 4's tree, rewards against [data]'s u8
+     request; the pairwise run again with a torch.profiler trace, its device
+     time summed by kernel; then the command lines as subprocesses: python -m
+     llava_reward_torch.eval_batch_inference over [load]'s phi3v checkpoint in
+     bf16 and with --load_in_8bit, python -m llava_reward_torch.train_llava_reward
+     in its smoke mode on the card (--bf16: the tiny config's head_dim 16
+     and 8 run B3 / B8 zero-padded to 64), and the eval CLI on the artifact
+     it wrote; each command line's own kernel launches, as it prints them;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -108,6 +128,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      with AdamW's moments does not fit one card), the tower at its 32 blocks
      and every width: B8's segment mode in the four full blocks, compared with
      the plain route the same way, then one make_train_step step;
+  [llava] LLaVA-NeXT-13B at full width and depth (the configuration parsed
+     from tools/manifests/llava_v16_vicuna_13b/config.json, random bf16
+     weights; 4 pairs of seeded 672 x 672 images through LlavaNextProcessor,
+     2928 image tokens a row, seq 2976; a value head on the top two
+     principal directions of the rows' readout states): scoring on the fused
+     layout in bf16 and with the decoder W8A8, B=2 (one side left-padded) and
+     B=8, against the plain route at B=2, W8A8 against bf16 (rewards and
+     every decision); decoder layer 0 through the kernels against the
+     plain versions (bf16, W8A8); one decoder layer's LoRA gradients (B3 /
+     B8 at 40 x 128 MHA); LoRA steps at B=2 (r=128, alpha 256 on
+     QWEN_TARGETS, fp32 heads and LoRA, remat), with launch counts, s/step
+     and the peak GiB;
   7. one JSON line listing every kernel, then the result line.
 
 Depths and repetitions are as in the earlier slices; the script's time has
@@ -118,6 +150,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 import math
@@ -127,22 +160,28 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import zlib
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
 from PIL import Image
 
-from llava_reward_torch.core.config import RewardConfig, phi35_vision_config, qwen25_vl_7b_config
-from llava_reward_torch.evalx.adaptor import (RewardAdaptor, cast_params, load_reward_adaptor,
-                                              merge_for_scoring)
+from llava_reward_torch.core.config import (LlavaNextConfig, RewardConfig, phi35_vision_config,
+                                            phi3v_tiny_config, qwen25_vl_7b_config)
+from llava_reward_torch.evalx import batch_inference
+from llava_reward_torch.evalx.adaptor import (RewardAdaptor, cast_params, llava_config_from_pretrain,
+                                              load_reward_adaptor, merge_for_scoring)
+from llava_reward_torch.evalx.server import RewardService, _load_image, make_handler
 from llava_reward_torch.io import artifact, hf_phi3v, hf_qwen
 from llava_reward_torch.io.torch_io import save_torch_state_dict
 from llava_reward_torch.lora.lora import (DEFAULT_TARGETS, QWEN_TARGETS, init_lora,
                                           init_vision_lora, peft_adapter_config,
                                           peft_state_to_stacked, stacked_to_peft_state)
-from llava_reward_torch.models import clip_vit, phi3, phi3v, qwen25_vl
+from llava_reward_torch.models import clip_vit, llava_next, phi3, phi3v, qwen25_vl
 from llava_reward_torch.models.clip_vit import layer_slice
 from llava_reward_torch.ops import cuda_lib
 from llava_reward_torch.ops import flash_attention as fa
@@ -153,6 +192,8 @@ from llava_reward_torch.ops.rope import rope_cos_sin_for_config
 from llava_reward_torch.preprocess import native
 from llava_reward_torch.preprocess.collate import (collate_qwen_samples, collate_samples,
                                                    to_reward_batch)
+from llava_reward_torch.preprocess.llava_processor import (LlavaNextProcessor,
+                                                           apply_llava_chat_template)
 from llava_reward_torch.preprocess.phi3v_processor import (Phi3VProcessor,
                                                            apply_phi3v_chat_template,
                                                            build_img_gather_idx,
@@ -160,6 +201,7 @@ from llava_reward_torch.preprocess.phi3v_processor import (Phi3VProcessor,
 from llava_reward_torch.preprocess.qwen_vision import (Qwen25VLProcessor,
                                                        apply_qwen_chat_template,
                                                        sample_from_patches, windowize)
+from llava_reward_torch.reward import heads
 from llava_reward_torch.reward.model import RewardBatch, init_head_params, reward_forward
 from llava_reward_torch.reward.preference import preference_prob
 from llava_reward_torch.train.optim import make_optimizer, tree_leaves, tree_map
@@ -167,6 +209,7 @@ from llava_reward_torch.train.train_step import (PROJECTOR_PATHS, assemble_param
                                                  init_train_state, make_pairwise_loss_fn,
                                                  make_train_step)
 from llava_reward_torch.train.trainer import RewardTrainer
+from llava_reward_torch.utils.profiling import kernel_launches as launches
 from llava_reward_torch.utils.quantize import quantize_stacked_layers
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
@@ -268,6 +311,12 @@ FLOOR_FACTOR = 1.5  # phase 6q: a leaf's bound is at least this times its own dr
 SCALE_STEP = 1.01
 SCALE_BIAS_TOL = 0.15
 LORA_R, LORA_ALPHA, LR, TOTAL_STEPS = 128, 256, 2e-4, 100
+# LLaVA-NeXT-13B: 23 CLIP and 40 decoder layers; rewards of ~0.3 from the
+# principal-direction head (_principal_head): bf16 kernels against the plain
+# route held as the other families' are, the W8A8 decoder as qwen's, and W8A8
+# against bf16 to LLAVA_W8A8_VS_BF16_TOL, each well below the rewards' size
+LLAVA_REWARD_TOL = REWARD_TOL
+LLAVA_W8A8_VS_BF16_TOL = 4e-2
 
 KERNELS = {
     "fa_direct": dict(
@@ -325,10 +374,6 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def launches() -> dict:
-    return {**fa.LAUNCHES, **qe.LAUNCHES, **im.LAUNCHES}
 
 
 def reset_counters() -> None:
@@ -450,6 +495,9 @@ def _cos_sin(cfg, kv_start, S, device):
     mask = _leftpad_rows(kv_start, S, device).to(torch.int32)
     pos = torch.cumsum(mask, -1) - 1
     pos = torch.where(mask == 0, torch.ones_like(pos), pos)
+    if hasattr(cfg, "text"):  # LLaVA-NeXT's vicuna rope: a degenerate M-RoPE
+        return qwen25_vl._mrope_cos_sin(pos[None].expand(3, *pos.shape), cfg.text,
+                                        torch.bfloat16)
     return rope_cos_sin_for_config(pos, cfg.decoder, dtype=torch.bfloat16)
 
 
@@ -1052,6 +1100,63 @@ def phase_kernels(cfg, qcfg):
     torch.cuda.empty_cache()
     rows += check_int8_matmul(gen, qcfg.text, QWEN_M)
     torch.cuda.empty_cache()
+    # the LLaVA-NeXT-13B decoder's shapes: printed, held like the others, and
+    # left out of the kernels line, whose rows keep the shapes of the runs
+    # before LLaVA came, so that each kernel's series reads on
+    check_llava_kernels(gen, LlavaNextConfig())
+    return rows
+
+
+def check_llava_kernels(gen, lcfg):
+    """The kernels at the LLaVA-NeXT-13B decoder's shapes (40 heads x 128,
+    MHA, RoPE, causal; 5120 wide, I = 13824): B1 at the B=2 request's (seq
+    2976 padded to 3072, valid_len 2976, one row left-padded) against its
+    plain version and timed at B=8 beside SDPA; B8 at the LoRA step's (2, 40,
+    2976, 128); B4-B6 and the GEMM at the W8A8 B=8 request's rows (8 x 2976).
+    B1's shared memory a block at head_dim 128 with RoPE is held to the
+    card's limit."""
+    tc = lcfg.text
+    s_pad = fa._fused_s_pad(LLAVA_SEQ)
+    smem = _direct_smem_bytes(tc.head_dim, True)
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    227 * 1024)
+    if smem > optin:
+        fail(f"llava: B1's shared memory at head_dim {tc.head_dim} with RoPE, {smem} bytes, "
+             f"exceeds the card's {optin} a block")
+    rows = [check_direct("B1 LLaVA decoder (B=2 request)", gen, 2, s_pad, tc.num_heads,
+                         tc.head_dim, True, True, [0, LLAVA_PAD], LLAVA_SEQ, lcfg)]
+    say("llava", f"B1 at head_dim {tc.head_dim} with RoPE: seq {LLAVA_SEQ} padded to {s_pad} "
+        f"(valid_len {LLAVA_SEQ}); shared memory a block {smem / 1024:.1f} KiB "
+        f"(Smem<{tc.head_dim}, true>::bytes) of the card's {optin / 1024:.1f} KiB")
+    qkv = torch.randn(8, s_pad, 3 * tc.q_size, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    kv8 = [0] * 4 + [LLAVA_PAD] * 4
+    cos, sin = _cos_sin(lcfg, kv8, s_pad, "cuda")
+    kv = torch.tensor(kv8, dtype=torch.int32, device="cuda")
+    kw = dict(n_heads=tc.num_heads, head_dim=tc.head_dim, causal=True, sliding_window=None,
+              scale=tc.head_dim ** -0.5, valid_len=LLAVA_SEQ)
+    ms8 = time_ms(lambda: fa._fused_qkv_attention_direct(qkv, cos, sin, kv, **kw))
+    q, k, v = (fa._rope_plain(t, cos, sin) if i < 2 else t for i, t in enumerate(
+        qkv.view(8, s_pad, 3, tc.num_heads, tc.head_dim).unbind(2)))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    mask = _sdpa_mask(kv8, s_pad, LLAVA_SEQ, True, "cuda")
+    lib8 = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=tc.head_dim ** -0.5))
+    flops = 4 * tc.head_dim * tc.num_heads * _pairs_allowed(s_pad, kv8, LLAVA_SEQ, True)
+    nbytes = 2 * 8 * s_pad * 3 * tc.q_size + 2 * 8 * s_pad * tc.q_size + 4 * 8 * s_pad * \
+        tc.head_dim
+    b8, b8_by = bound_ms(flops, nbytes)
+    say("kernel", f"B1 LLaVA decoder (B=8 request): qkv {tuple(qkv.shape)} H={tc.num_heads} "
+        f"D={tc.head_dim} causal rope kv_start=[0]*4+[{LLAVA_PAD}]*4 q_len={LLAVA_SEQ}; kernel "
+        f"{ms8:.4f} ms, library (SDPA, boolean mask) {lib8:.4f} ms, bound {b8:.4f} ms ({b8_by})")
+    del qkv, q, k, v, mask, cos, sin
+    rows.append(check_bwd("B8 LLaVA decoder (LoRA step, B=2)", gen, 2, tc.num_heads, LLAVA_SEQ,
+                          tc.head_dim, True, [0, LLAVA_PAD]))
+    torch.cuda.empty_cache()
+    rows += check_quant_epilogues(gen, tc, 8 * LLAVA_SEQ)
+    torch.cuda.empty_cache()
+    rows += check_int8_matmul(gen, tc, 8 * LLAVA_SEQ)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1284,9 +1389,10 @@ PARITY_BAR = 2.03e-05  # PARITY.md: max reward gap of two f32 routes
 
 class SmokeTok:
     """A word tokenizer of the smoke's own: crc32 of each word into the
-    vocabulary, ``<|image_pad|>`` its own id, and chat templates of the
-    lengths the dataset layer slices (Phi-3's 22-character assistant cue;
-    Qwen2.5-VL's 58-character system preamble and 23-character cue)."""
+    vocabulary, ``<|image_pad|>`` (Qwen2.5-VL) and ``<image>`` (LLaVA-NeXT)
+    the image id, and chat templates of the lengths the dataset layer slices
+    (Phi-3's 22-character assistant cue; Qwen2.5-VL's 58-character system
+    preamble and 23-character cue)."""
 
     eos_token = "<|endoftext|>"
 
@@ -1294,7 +1400,7 @@ class SmokeTok:
         self.vocab_size, self.image_token_id = vocab_size, image_token_id
 
     def __call__(self, text):
-        return {"input_ids": [self.image_token_id if w == "<|image_pad|>" else
+        return {"input_ids": [self.image_token_id if w in ("<|image_pad|>", "<image>") else
                               3 + zlib.crc32(w.encode()) % (self.vocab_size - 16)
                               for w in text.split()]}
 
@@ -1498,7 +1604,7 @@ def phase_data(cfg, rcfg, params, reps=3):
     say("data", f"host f32 fallback (a 16x1 panorama; two images in one prompt): pixel_values "
         f"{tuple(rb.pixel_values.shape)}, seq {fb_seq}, host {fb_s:.4f} s, rewards "
         f"{r.float().cpu().numpy().round(6).tolist()}; phase {time.perf_counter() - t_phase:.1f} s")
-    return counts, batches["u8"]
+    return counts, batches["u8"], rewards["u8"]
 
 
 # ------------------------------------------------------------------ [load]
@@ -1590,114 +1696,115 @@ def _qwen_sample_batch(qcfg):
     return to_reward_batch(batch, device="cuda"), (seq, patches)
 
 
-def phase_load(cfg, rcfg, params, qcfg, data_batch):
+def phase_load(cfg, rcfg, params, qcfg, data_batch, tmp):
     """Write a 2-layer, full-width Phi-3.5-vision base checkpoint (HF keys,
     the published config.json at 2 layers) and a reward artifact (LoRA r=128
     on DEFAULT_TARGETS, heads, projector), load them through
     load_reward_adaptor in bf16 and W8A8 and score the sample pairs; then
     Qwen2.5-VL-7B with 2 decoder layers and the whole 32-block tower, bf16.
-    The files go to a temporary directory under build/, removed after."""
+    The files go to ``tmp`` (a temporary directory under build/); the
+    phi3v pair stays there for [eval], the qwen one is removed. Returns the
+    launches and the phi3v (base, artifact) directories."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(3)
     counts = dict.fromkeys(launches(), 0)
-    os.makedirs("build", exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="smoke_load_", dir="build") as tmp:
-        # --- phi3v: phase 4's tree cut to 2 decoder layers
-        base, pm = os.path.join(tmp, "phi3v_base"), os.path.join(tmp, "phi3v_pm")
-        os.makedirs(base)
-        with open(os.path.join(base, "config.json"), "w") as f:
-            json.dump(_manifest_config("phi35_vision_instruct", 2), f)
-        cfg2 = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=2))
-        bb = params["backbone"]
-        tree = {**bb, "decoder": {**bb["decoder"], "layers": tree_map(
-            lambda t: t[:2], bb["decoder"]["layers"])}}
-        lora = init_lora(cfg2.decoder, LORA_R, LORA_ALPHA, gen, device="cuda")
-        for t in lora.values():
-            t["b"].normal_(0.0, 1e-3, generator=gen)
-        proj = tree_map(lambda t: (t.float() * 1.5).to(t.dtype), bb["vision"]["img_projection"])
-        t0 = time.perf_counter()
-        save_torch_state_dict(hf_phi3v.hf_state_dict_from_params(tree, cfg2),
-                              os.path.join(base, "pytorch_model.bin"))
-        _write_artifact(pm, rcfg, params["head"], proj, lora, cfg2.decoder, DEFAULT_TARGETS,
-                        "phi3v")
-        write_s, nbytes = time.perf_counter() - t0, _dir_bytes(base, pm)
-        # the same tree in memory: f32, the stored adapters and projector merged
-        merged = merge_for_scoring(tree_map(lambda t: t.float(), tree), "phi3v",
-                                   lora=_bf16_lora(lora),
-                                   projector=tree_map(lambda t: t.float(), proj))
-        n_clip = cfg.vision.num_active_layers
-        got, r, load_s, gap = _load_and_score(
-            "load", base, pm, "phi3v",
-            {"backbone": cast_params(merged, torch.bfloat16), "head": params["head"]},
-            data_batch, {"fa_direct": n_clip + 2})
-        counts = {k: counts[k] + got[k] for k in counts}
-        say("load", f"phi3v: wrote {nbytes / 1e9:.3f} GB (base: 2 decoder layers, every width "
-            f"and the CLIP tower; artifact: LoRA r={LORA_R} on {list(DEFAULT_TARGETS)}, heads, "
-            f"projector) in {write_s:.2f} s; load_reward_adaptor bf16 read {nbytes / 1e9:.3f} GB "
-            f"in {load_s:.2f} s; the tree equals the written one leaf for leaf after the merge; "
-            f"sample-pair rewards {r.float().cpu().numpy().round(6).tolist()}, against the "
-            f"in-memory tree's: max gap {gap:.3e} (tol {PARITY_BAR:g}); launches {got}")
-        # W8A8: the merged f32 decoder quantized, then the rest cast
-        qdec = {**merged["decoder"], "layers": quantize_stacked_layers(
-            merged["decoder"]["layers"], scheme="w8a8")}
-        want = {"backbone": cast_params({**merged, "decoder": qdec}, torch.bfloat16),
-                "head": params["head"]}
-        w8 = {"rms_quant": 4, "silu_mul_quant": 2, "row_quant": 2, "int8_matmul": 8}
-        got, rq, load_q, gapq = _load_and_score("load-w8a8", base, pm, "phi3v", want,
-                                                data_batch, {"fa_direct": n_clip + 2, **w8},
-                                                quantize="w8a8")
-        counts = {k: counts[k] + got[k] for k in counts}
-        say("load", f"phi3v W8A8: load_reward_adaptor(quantize='w8a8') in {load_q:.2f} s; codes "
-            f"and scales equal to quantizing the merged tree; rewards "
-            f"{rq.float().cpu().numpy().round(6).tolist()} (the bf16 load's beside, for "
-            f"information: {r.float().cpu().numpy().round(6).tolist()}), against the in-memory "
-            f"W8A8 tree's: max gap {gapq:.3e}; launches {got}")
-        del merged, qdec, want, tree, lora, proj
-        shutil.rmtree(base)
-        shutil.rmtree(pm)
-        torch.cuda.empty_cache()
+    # --- phi3v: phase 4's tree cut to 2 decoder layers
+    base, pm = os.path.join(tmp, "phi3v_base"), os.path.join(tmp, "phi3v_pm")
+    os.makedirs(base)
+    with open(os.path.join(base, "config.json"), "w") as f:
+        json.dump(_manifest_config("phi35_vision_instruct", 2), f)
+    cfg2 = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=2))
+    bb = params["backbone"]
+    tree = {**bb, "decoder": {**bb["decoder"], "layers": tree_map(
+        lambda t: t[:2], bb["decoder"]["layers"])}}
+    lora = init_lora(cfg2.decoder, LORA_R, LORA_ALPHA, gen, device="cuda")
+    for t in lora.values():
+        t["b"].normal_(0.0, 1e-3, generator=gen)
+    proj = tree_map(lambda t: (t.float() * 1.5).to(t.dtype), bb["vision"]["img_projection"])
+    t0 = time.perf_counter()
+    save_torch_state_dict(hf_phi3v.hf_state_dict_from_params(tree, cfg2),
+                          os.path.join(base, "pytorch_model.bin"))
+    _write_artifact(pm, rcfg, params["head"], proj, lora, cfg2.decoder, DEFAULT_TARGETS,
+                    "phi3v")
+    write_s, nbytes = time.perf_counter() - t0, _dir_bytes(base, pm)
+    # the same tree in memory: f32, the stored adapters and projector merged
+    merged = merge_for_scoring(tree_map(lambda t: t.float(), tree), "phi3v",
+                               lora=_bf16_lora(lora),
+                               projector=tree_map(lambda t: t.float(), proj))
+    n_clip = cfg.vision.num_active_layers
+    got, r, load_s, gap = _load_and_score(
+        "load", base, pm, "phi3v",
+        {"backbone": cast_params(merged, torch.bfloat16), "head": params["head"]},
+        data_batch, {"fa_direct": n_clip + 2})
+    counts = {k: counts[k] + got[k] for k in counts}
+    say("load", f"phi3v: wrote {nbytes / 1e9:.3f} GB (base: 2 decoder layers, every width "
+        f"and the CLIP tower; artifact: LoRA r={LORA_R} on {list(DEFAULT_TARGETS)}, heads, "
+        f"projector) in {write_s:.2f} s; load_reward_adaptor bf16 read {nbytes / 1e9:.3f} GB "
+        f"in {load_s:.2f} s; the tree equals the written one leaf for leaf after the merge; "
+        f"sample-pair rewards {r.float().cpu().numpy().round(6).tolist()}, against the "
+        f"in-memory tree's: max gap {gap:.3e} (tol {PARITY_BAR:g}); launches {got}")
+    # W8A8: the merged f32 decoder quantized, then the rest cast
+    qdec = {**merged["decoder"], "layers": quantize_stacked_layers(
+        merged["decoder"]["layers"], scheme="w8a8")}
+    want = {"backbone": cast_params({**merged, "decoder": qdec}, torch.bfloat16),
+            "head": params["head"]}
+    w8 = {"rms_quant": 4, "silu_mul_quant": 2, "row_quant": 2, "int8_matmul": 8}
+    got, rq, load_q, gapq = _load_and_score("load-w8a8", base, pm, "phi3v", want,
+                                            data_batch, {"fa_direct": n_clip + 2, **w8},
+                                            quantize="w8a8")
+    counts = {k: counts[k] + got[k] for k in counts}
+    say("load", f"phi3v W8A8: load_reward_adaptor(quantize='w8a8') in {load_q:.2f} s; codes "
+        f"and scales equal to quantizing the merged tree; rewards "
+        f"{rq.float().cpu().numpy().round(6).tolist()} (the bf16 load's beside, for "
+        f"information: {r.float().cpu().numpy().round(6).tolist()}), against the in-memory "
+        f"W8A8 tree's: max gap {gapq:.3e}; launches {got}")
+    del merged, qdec, want, tree, lora, proj
+    phi3v_dirs = (base, pm)
+    torch.cuda.empty_cache()
 
-        # --- qwen: 2 decoder layers, the whole tower
-        qcfg2 = dataclasses.replace(qcfg, text=dataclasses.replace(qcfg.text, num_layers=2))
-        qrcfg = RewardConfig(is_general_preference=True, value_head_dim=2,
-                             add_cross_attention=True, layer_id=2)
-        qtree = qwen25_vl.init_params(qcfg2, gen, torch.bfloat16, "cuda")
-        qhead = init_head_params(qcfg2, qrcfg, gen, torch.bfloat16, "cuda")
-        qlora = init_lora(qcfg2.text, LORA_R, LORA_ALPHA, gen, targets=QWEN_TARGETS,
-                          device="cuda")
-        for t in qlora.values():
-            t["b"].normal_(0.0, 1e-3, generator=gen)
-        merger = tree_map(lambda t: (t.float() * 1.25).to(t.dtype), qtree["visual"]["merger"])
-        base, pm = os.path.join(tmp, "qwen_base"), os.path.join(tmp, "qwen_pm")
-        os.makedirs(base)
-        with open(os.path.join(base, "config.json"), "w") as f:
-            json.dump(_manifest_config("qwen25_vl_7b_instruct", 2), f)
-        t0 = time.perf_counter()
-        save_torch_state_dict(hf_qwen.hf_state_dict_from_params(qtree, qcfg2),
-                              os.path.join(base, "pytorch_model.bin"))
-        _write_artifact(pm, qrcfg, qhead, merger, qlora, qcfg2.text, QWEN_TARGETS, "qwen")
-        write_s, nbytes = time.perf_counter() - t0, _dir_bytes(base, pm)
-        merged = merge_for_scoring(tree_map(lambda t: t.float(), qtree), "qwen",
-                                   lora=_bf16_lora(qlora),
-                                   projector=tree_map(lambda t: t.float(), merger))
-        want = {"backbone": cast_params(merged, torch.bfloat16), "head": qhead}
-        del merged, qtree
-        batch, (qseq, qpatches) = _qwen_sample_batch(qcfg2)
-        n_full = len(qcfg.vision.fullatt_block_indexes)
-        got, r, load_s, gap = _load_and_score("load-qwen", base, pm, "qwen", want, batch,
-                                              {"prep": 3 * 2, "fa_hm": 2 + n_full})
-        counts = {k: counts[k] + got[k] for k in counts}
-        say("load", f"qwen: wrote {nbytes / 1e9:.3f} GB (base: the {qcfg.vision.depth}-block "
-            f"tower and 2 decoder layers at every width; artifact: LoRA r={LORA_R} on "
-            f"{list(QWEN_TARGETS)}, heads, merger) in {write_s:.2f} s; load_reward_adaptor bf16 "
-            f"read {nbytes / 1e9:.3f} GB in {load_s:.2f} s; the tree equals the written one "
-            f"leaf for leaf after the merge and fusion; sample pairs (u8 patches, seq {qseq}, "
-            f"{qpatches} patches): rewards {r.float().cpu().numpy().round(6).tolist()}, against "
-            f"the in-memory tree's: max gap {gap:.3e} (tol {PARITY_BAR:g}); launches {got}")
-        del want
+    # --- qwen: 2 decoder layers, the whole tower
+    qcfg2 = dataclasses.replace(qcfg, text=dataclasses.replace(qcfg.text, num_layers=2))
+    qrcfg = RewardConfig(is_general_preference=True, value_head_dim=2,
+                         add_cross_attention=True, layer_id=2)
+    qtree = qwen25_vl.init_params(qcfg2, gen, torch.bfloat16, "cuda")
+    qhead = init_head_params(qcfg2, qrcfg, gen, torch.bfloat16, "cuda")
+    qlora = init_lora(qcfg2.text, LORA_R, LORA_ALPHA, gen, targets=QWEN_TARGETS,
+                      device="cuda")
+    for t in qlora.values():
+        t["b"].normal_(0.0, 1e-3, generator=gen)
+    merger = tree_map(lambda t: (t.float() * 1.25).to(t.dtype), qtree["visual"]["merger"])
+    base, pm = os.path.join(tmp, "qwen_base"), os.path.join(tmp, "qwen_pm")
+    os.makedirs(base)
+    with open(os.path.join(base, "config.json"), "w") as f:
+        json.dump(_manifest_config("qwen25_vl_7b_instruct", 2), f)
+    t0 = time.perf_counter()
+    save_torch_state_dict(hf_qwen.hf_state_dict_from_params(qtree, qcfg2),
+                          os.path.join(base, "pytorch_model.bin"))
+    _write_artifact(pm, qrcfg, qhead, merger, qlora, qcfg2.text, QWEN_TARGETS, "qwen")
+    write_s, nbytes = time.perf_counter() - t0, _dir_bytes(base, pm)
+    merged = merge_for_scoring(tree_map(lambda t: t.float(), qtree), "qwen",
+                               lora=_bf16_lora(qlora),
+                               projector=tree_map(lambda t: t.float(), merger))
+    want = {"backbone": cast_params(merged, torch.bfloat16), "head": qhead}
+    del merged, qtree
+    batch, (qseq, qpatches) = _qwen_sample_batch(qcfg2)
+    n_full = len(qcfg.vision.fullatt_block_indexes)
+    got, r, load_s, gap = _load_and_score("load-qwen", base, pm, "qwen", want, batch,
+                                          {"prep": 3 * 2, "fa_hm": 2 + n_full})
+    counts = {k: counts[k] + got[k] for k in counts}
+    say("load", f"qwen: wrote {nbytes / 1e9:.3f} GB (base: the {qcfg.vision.depth}-block "
+        f"tower and 2 decoder layers at every width; artifact: LoRA r={LORA_R} on "
+        f"{list(QWEN_TARGETS)}, heads, merger) in {write_s:.2f} s; load_reward_adaptor bf16 "
+        f"read {nbytes / 1e9:.3f} GB in {load_s:.2f} s; the tree equals the written one "
+        f"leaf for leaf after the merge and fusion; sample pairs (u8 patches, seq {qseq}, "
+        f"{qpatches} patches): rewards {r.float().cpu().numpy().round(6).tolist()}, against "
+        f"the in-memory tree's: max gap {gap:.3e} (tol {PARITY_BAR:g}); launches {got}")
+    del want
+    shutil.rmtree(base)
+    shutil.rmtree(pm)
     torch.cuda.empty_cache()
     say("load", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, phi3v_dirs
 
 
 def qwen_request(qcfg, rng, grids, left_pad):
@@ -2480,6 +2587,709 @@ def phase_train_qwen(qcfg, steps=5):
     return {k: counts[k] + full_counts[k] for k in counts}
 
 
+# ------------------------------------------------------------------ [http]
+
+
+HTTP_SEQ = 2560  # phase 4's sequence: 16+1 crops of the sample images fit
+
+
+def _http(url, path, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _pair_request(row):
+    return {"prompt": row["prompt"], "chosen": row["chosen_path"],
+            "rejected": row["reject_path"]}
+
+
+def _request_launches(cfg, B):
+    """Attention launches of one scoring request of B rows (phi3v or LLaVA):
+    B1 in each active CLIP layer; in each decoder layer B1 when the row's
+    head groups times B reach 32 (``flash_attention.py:1221-1232``), B2 x3
+    + B3 below."""
+    dec = cfg.decoder if hasattr(cfg, "decoder") else cfg.text
+    n_clip, n_dec = cfg.vision.num_active_layers, dec.num_layers
+    groups = dec.num_heads // fa._direct_group(dec.num_heads, dec.head_dim)
+    if B * groups >= 32:
+        return {"fa_direct": n_clip + n_dec}
+    return {"fa_direct": n_clip, "prep": 3 * n_dec, "fa_hm": n_dec}
+
+
+def _serving_launches(cfg, sizes):
+    """Launches of the serving path for device calls of ``sizes`` rows."""
+    want = dict.fromkeys(launches(), 0)
+    for b in sizes:
+        for k, v in _request_launches(cfg, b).items():
+            want[k] += v
+    return want
+
+
+def phase_http(cfg, rcfg, params, reps=3):
+    """Serve phase 4's tree over HTTP: RewardService (max_batch 8, seq 2560,
+    10 ms batch window) behind a ThreadingHTTPServer on 127.0.0.1, the
+    registry's default processor (u8 crops) and the smoke's own tokenizer.
+    /healthz; /score_pair on two sample PNG paths (one warm request, then
+    ``reps`` timed); /score on two base64 images; four /score_pair requests
+    from four threads that queue while the card is held by a one-image
+    request, so that the batcher takes them as one B=8 call; then four more
+    from four threads at once, free-running. Every answer's rewards are
+    bit-equal to a direct make_score_fn call on the same collated samples
+    at the same bucket; across buckets (B=8 against B=2) the decisions agree."""
+    t_phase = time.perf_counter()
+    tok = SmokeTok(cfg.decoder.vocab_size)
+    adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
+    proc = Phi3VProcessor(tok, num_crops=cfg.num_crops, device_preproc=True)
+    service = RewardService(adaptor, tok, proc, seq_len=HTTP_SEQ, max_batch=8,
+                            batch_window_ms=10)
+    calls, service_score = [], service._score
+
+    def counted(p, batch):  # the rows of every device call the service makes
+        calls.append(batch.input_ids.shape[0])
+        return service_score(p, batch)
+
+    service._score = counted
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    rows = _sample_rows()
+    score = adaptor.make_score_fn()
+    text = lambda row: apply_phi3v_chat_template(tok, row["prompt"])  # noqa: E731
+
+    def direct(samples):
+        """make_score_fn on the service's own collation at its bucket."""
+        pad = service._bucket(len(samples)) - len(samples)
+        batch = to_reward_batch(service._collate_family(list(samples) + [samples[-1]] * pad),
+                                "cuda")
+        with torch.inference_mode():
+            return score(params, batch).float().cpu().numpy()[: len(samples)]
+
+    def samples_of(row, keys=("chosen_path", "reject_path")):
+        return [proc(text(row), [_load_image(row[k])]) for k in keys]
+
+    def pair_rewards(out):
+        return np.asarray([out["chosen_reward"], out["rejected_reward"]], np.float32)
+
+    try:
+        reset_counters()  # the main path's run starts here
+        if _http(url, "/healthz") != {"ok": True}:
+            fail("http: /healthz")
+        times = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            out = _http(url, "/score_pair", _pair_request(rows[0]))
+            times.append(time.perf_counter() - t0)
+        got, want = pair_rewards(out), direct(samples_of(rows[0]))
+        if not np.array_equal(got, want) or not 0.0 <= out["prob"] <= 1.0:
+            fail(f"http: /score_pair rewards {got.tolist()} != direct {want.tolist()}")
+        b64 = ["data:image/png;base64," + base64.b64encode(_read(rows[1][k])).decode()
+               for k in ("chosen_path", "reject_path")]
+        sc = _http(url, "/score", {"caption": rows[1]["prompt"], "images": b64})
+        if (not np.array_equal(np.asarray(sc["rewards"], np.float32),
+                               direct(samples_of(rows[1])))
+                or "prob_first_over_second" not in sc):
+            fail(f"http: /score on base64 images {sc}")
+
+        # four pairs queued behind a held card: one B=8 call
+        results, order = {}, []
+        queue = service._queue
+        put0 = queue.unfinished_tasks  # counts puts: the service never calls task_done
+
+        def post(key, path, payload):
+            results[key] = _http(url, path, payload)
+
+        held = time.perf_counter()
+        service._lock.acquire()
+        try:
+            blocker = threading.Thread(target=post, args=("one", "/score", {
+                "caption": rows[3]["prompt"], "images": [rows[3]["chosen_path"]]}))
+            blocker.start()
+            while not (queue.unfinished_tasks == put0 + 1 and queue.qsize() == 0):
+                time.sleep(0.002)  # queued and taken by the batcher, now waiting for the card
+            time.sleep(0.2)  # past its 10 ms window: nothing more joins that call
+            threads = []
+            t_four = time.perf_counter()
+            for i in range(4):  # one at a time into the queue: their order is known
+                threads.append(threading.Thread(target=post, args=(i, "/score_pair",
+                                                                    _pair_request(rows[i]))))
+                threads[-1].start()
+                while queue.qsize() < i + 1:
+                    time.sleep(0.002)
+                order.append(i)
+            queued_s = time.perf_counter() - t_four
+        finally:
+            service._lock.release()
+            held_s = time.perf_counter() - held
+        for t in threads + [blocker]:
+            t.join(timeout=300)
+        four_s = time.perf_counter() - t_four
+        held_calls = calls[reps + 2:]
+        if sorted(results, key=str) != [0, 1, 2, 3, "one"] or held_calls != [1, 8]:
+            fail(f"http: the four queued requests were not one B=8 call: {held_calls}")
+        coalesced = np.concatenate([pair_rewards(results[i]) for i in order])
+        want8 = direct([s for i in order for s in samples_of(rows[i])])
+        if not np.array_equal(coalesced, want8):
+            fail("http: the B=8 call's rewards differ from the direct call on the same samples")
+        b2 = np.concatenate([direct(samples_of(rows[i])) for i in order])
+
+        def decisions(r):
+            return [bool(_prob(torch.from_numpy(r[2 * j: 2 * j + 2]), 1, rcfg) > 0.5)
+                    for j in range(len(r) // 2)]
+
+        # four more at once, free-running: however the 10 ms window splits them
+        n0 = len(calls)
+        free = [threading.Thread(target=post, args=(f"free{i}", "/score_pair",
+                                                     _pair_request(rows[i])))
+                for i in range(4)]
+        t0 = time.perf_counter()
+        for t in free:
+            t.start()
+        for t in free:
+            t.join(timeout=300)
+        free_s = time.perf_counter() - t0
+        free_sizes = calls[n0:]
+        free_r = np.concatenate([pair_rewards(results[f"free{i}"]) for i in range(4)])
+        gaps = {k: float(np.abs(r - b2).max()) for k, r in (("B=8", coalesced), ("free", free_r))}
+        if not decisions(coalesced) == decisions(free_r) == decisions(b2):
+            fail(f"http: decisions across buckets differ: B=8 {decisions(coalesced)}, "
+                 f"free-running {decisions(free_r)}, B=2 {decisions(b2)}")
+        sizes = list(calls)
+        got = launches()  # ... and ends here
+    finally:
+        server.shutdown()
+        server.server_close()
+    # and the direct calls made for the comparisons: B=2 x2, B=8, B=2 x4
+    want = _serving_launches(cfg, sizes + [2, 2, 8] + [2] * 4)
+    if got != want:
+        fail(f"http: launches {got} != {want} for device calls {sizes}")
+    say("http", f"/healthz ok; /score_pair (two sample PNG paths, B=2 bucket): "
+        f"{float(np.median(times[1:])):.4f} s/request (median of {len(times) - 1} after one "
+        f"warm: {[round(t, 4) for t in times]}), rewards {pair_rewards(out).round(6).tolist()} "
+        f"prob {out['prob']:.6f}, bit-equal to make_score_fn on the same collated samples; "
+        f"/score (two base64 images) prob_first_over_second "
+        f"{sc['prob_first_over_second']:.6f}, bit-equal too")
+    say("http", f"four /score_pair from four threads, queued behind a one-image request "
+        f"holding the card: device calls {held_calls} (that request, then the four pairs as "
+        f"one B=8 call); queued in {queued_s:.4f} s, answered {four_s:.4f} s after the first "
+        f"was sent (the card held back {held_s:.4f} s by the smoke); B=8 rewards bit-equal to "
+        f"make_score_fn on the 8 samples; against each pair alone at B=2: max gap "
+        f"{gaps['B=8']:.3e}, same decisions")
+    say("http", f"four /score_pair from four threads at once, free-running: device calls "
+        f"{free_sizes} (the 10 ms window against each request's host preparation), wall "
+        f"{free_s:.4f} s; against each pair alone at B=2: max gap {gaps['free']:.3e}, same "
+        f"decisions")
+    say("http", f"launches {got} over {len(sizes)} service calls {sizes} and 7 direct calls; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+# ------------------------------------------------------------------ [eval]
+
+
+SAMPLE_POINTS = "data/sample_test/non_pairwise_sample.json"
+
+
+def _device_top(trace_path, n=8):
+    """From a torch.profiler Chrome trace: the device time by kernel name (the
+    ``n`` largest), the device's busy time, and the span from the first
+    device event to the last."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                                         "gpu_memset")]
+    if not dev:
+        fail(f"eval: the profile {trace_path} holds no device event")
+    by = {}
+    for e in dev:
+        by[e["name"]] = by.get(e["name"], 0.0) + e["dur"] / 1e3
+    span = (max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)) / 1e3
+    busy = sum(by.values())
+    return sorted(by.items(), key=lambda kv: -kv[1])[:n], busy, span, len(dev)
+
+
+def _cli(logdir, tag, module, *args):
+    """``python -m module args`` from the checkout's root, started in the
+    background, its output to files under ``logdir``."""
+    path = os.path.join(logdir, tag.replace(" ", "_").replace("'", "") + ".out")
+    out = open(path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, path, time.perf_counter()
+
+
+def _cli_results(started, timeout=900):
+    """Wait for every command line of ``started`` (tag -> ``_cli``); each must
+    exit 0. Returns tag -> (the metrics JSON its output ends with or None,
+    its output, its seconds from start to exit)."""
+    done, t_end = {}, time.perf_counter() + timeout
+    while len(done) < len(started):
+        for tag, (proc, out, path, t0) in started.items():
+            if tag not in done and proc.poll() is not None:
+                done[tag] = time.perf_counter() - t0
+                out.close()
+        if time.perf_counter() > t_end:
+            for proc, *_ in started.values():
+                proc.kill()
+            fail(f"eval: command lines still running after {timeout} s: "
+                 f"{sorted(set(started) - set(done))}")
+        time.sleep(0.1)
+    res = {}
+    for tag, (proc, _, path, _) in started.items():
+        with open(path) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            fail(f"{tag}: exit {proc.returncode}\n{text[-4000:]}")
+        at = text.rfind("\n{")
+        res[tag] = (json.loads(text[at + 1:]) if at >= 0 else None, text, done[tag])
+    return res
+
+
+def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
+    """batch_rm_inference on the sample rows (pairwise: 4 pairs stacked into
+    one B=8 call at seq 2560; pointwise: 8 rows) on phase 4's tree, the
+    registry's default processor (u8 crops); the pairwise run once more with
+    a profile, whose device time is summed by kernel. Then the command
+    lines as a user runs them: the eval CLI over [load]'s 2-layer full-width
+    checkpoint in bf16 and with --load_in_8bit, the train CLI in its smoke
+    mode on the card, and the eval CLI on the artifact that wrote (over a
+    tiny base checkpoint of the smoke config)."""
+    t_phase = time.perf_counter()
+    tok = SmokeTok(cfg.decoder.vocab_size)
+    adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
+    proc = Phi3VProcessor(tok, num_crops=cfg.num_crops, device_preproc=True)
+    rows = _sample_rows()
+    with open(SAMPLE_POINTS) as f:
+        points = json.load(f)
+    n_clip, n_dec = cfg.vision.num_active_layers, cfg.decoder.num_layers
+    seen = []
+    orig = batch_inference.preference_prob
+
+    def recording(chosen, rejected, **kw):
+        # the rewards the stacked call produced, before the probabilities
+        # (which batch_rm_inference takes in the rewards' dtype, bf16 here,
+        # as the JAX package does)
+        seen.append(torch.cat([chosen, rejected]).float())
+        return orig(chosen, rejected, **kw)
+
+    kw = dict(batch_size=4, seq_len=DATA_SEQ, num_workers=4, progress=False)
+    batch_inference.preference_prob = recording
+    try:
+        reset_counters()  # the main path's run starts here
+        t0 = time.perf_counter()
+        pm = batch_inference.batch_rm_inference(adaptor, rows, tok, proc, **kw)
+        pair_s = time.perf_counter() - t0
+        after_pairs = launches()
+        t0 = time.perf_counter()
+        pt = batch_inference.batch_rm_inference(adaptor, points, tok, proc, **kw)
+        point_s = time.perf_counter() - t0
+        got = launches()  # ... and ends here
+        prof_dir = os.path.join(tmp, "eval_profile")
+        reset_counters()
+        t0 = time.perf_counter()
+        pm2 = batch_inference.batch_rm_inference(adaptor, rows, tok, proc, profile_dir=prof_dir,
+                                                 **kw)
+        prof_s = time.perf_counter() - t0
+        prof_counts = launches()
+    finally:
+        batch_inference.preference_prob = orig
+    per8 = {"fa_direct": n_clip + n_dec}  # one B=8 call
+    if after_pairs != {k: per8.get(k, 0) for k in after_pairs}:
+        fail(f"eval: pairwise launches {after_pairs} != {per8}")
+    if got != {k: 3 * per8.get(k, 0) for k in got}:  # the eight rows: two B=4 calls, B1 again
+        fail(f"eval: pairwise + pointwise launches {got}")
+    got_r = seen[0]
+    gap = (got_r - data_rewards.float()).abs().max().item()
+    probs = _prob(got_r, 4, rcfg)
+    same = bool(((probs > 0.5) == (_prob(data_rewards, 4, rcfg) > 0.5)).all())
+    if pm["num_pairs"] != 4 or not same or pt["num_samples"] != len(points):
+        fail(f"eval: metrics {pm} / {pt}, decisions against [data]'s u8 request {same}")
+    if pm2["num_pairs"] != 4 or prof_counts != after_pairs:
+        fail(f"eval: the profiled run {pm2}, launches {prof_counts}")
+    top, busy, span, n_ev = _device_top(os.path.join(prof_dir, "trace.json"))
+    say("eval", f"batch_rm_inference, {SAMPLE_PAIRS} (4 pairs, one stacked B=8 call, seq "
+        f"{DATA_SEQ}): {pm} (its probabilities in bf16, the rewards' dtype); {pair_s:.3f} s in "
+        f"all (loader threads, host preparation and the card); rewards against [data]'s u8-crop "
+        f"request on the same rows: max gap {gap:.3e}; probabilities in f32 "
+        f"{probs.cpu().numpy().round(6).tolist()}, same decisions {same}")
+    say("eval", f"batch_rm_inference, {SAMPLE_POINTS} ({len(points)} rows, two B=4 calls): "
+        f"{pt}; {point_s:.3f} s; launches of both runs {got}")
+    say("eval", f"profile of the pairwise run (torch.profiler, CUDA activity; {prof_s:.3f} s "
+        f"with the profiler on): {n_ev} device events, device busy {busy:.2f} ms in a span of "
+        f"{span:.2f} ms from the first device event to the last (idle share "
+        f"{1 - busy / span:.3f}); the largest by device time: "
+        + "; ".join(f"{name[:60]} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in top))
+
+    # the command lines, as subprocesses: bf16 and W8A8 evals over [load]'s
+    # checkpoint and the train CLI's smoke mode, started together
+    base, pm_dir = phi3v_dirs
+    ev = ["--pretrain", base, "--pm_path", pm_dir, "--dataset", SAMPLE_PAIRS,
+          "--micro_batch_size", "4", "--seq_len", str(DATA_SEQ), "--num_workers", "4",
+          "--device", "cuda"]
+    train_dir = os.path.join(tmp, "train_cli")
+    torch.cuda.empty_cache()  # the card's memory to the three processes beside this one
+    started = {
+        "eval-cli bf16": _cli(tmp, "eval-cli bf16", "llava_reward_torch.eval_batch_inference",
+                              *ev),
+        "eval-cli w8a8": _cli(tmp, "eval-cli w8a8", "llava_reward_torch.eval_batch_inference",
+                              *ev, "--load_in_8bit"),
+        "train-cli": _cli(tmp, "train-cli", "llava_reward_torch.train_llava_reward",
+                          "--dataset", SAMPLE_PAIRS, "--max_epochs", "1",
+                          "--micro_train_batch_size", "2", "--seq_len", "1024",
+                          "--is_general_preference", "--value_head_dim", "2", "--lora_rank", "4",
+                          "--lora_alpha", "8", "--ft_projector", "--bf16", "--save_path",
+                          os.path.join(train_dir, "save"), "--ckpt_path",
+                          os.path.join(train_dir, "ckpt"), "--num_workers", "2",
+                          "--device", "cuda"),
+    }
+    # a base checkpoint of the smoke config for the train CLI's artifact
+    tiny = phi3v_tiny_config(num_crops=4)
+    tiny_base = os.path.join(tmp, "tiny_base")
+    os.makedirs(tiny_base)
+    tree = phi3v.init_params(tiny, torch.Generator(device="cuda").manual_seed(5),
+                             torch.float32, "cuda")
+    save_torch_state_dict(hf_phi3v.hf_state_dict_from_params(tree, tiny),
+                          os.path.join(tiny_base, "pytorch_model.bin"))
+    d = tiny.decoder
+    with open(os.path.join(tiny_base, "config.json"), "w") as f:
+        json.dump({"model_type": "phi3_v", "vocab_size": d.vocab_size,
+                   "hidden_size": d.hidden_size, "intermediate_size": d.intermediate_size,
+                   "num_hidden_layers": d.num_layers, "num_attention_heads": d.num_heads,
+                   "num_key_value_heads": d.num_kv_heads, "pad_token_id": d.pad_token_id,
+                   "eos_token_id": d.eos_token_id}, f)
+    res = _cli_results(started)
+    artifact_dir = os.path.join(train_dir, "save", "epoch_0")
+    files = sorted(os.path.relpath(os.path.join(r, f), artifact_dir)
+                   for r, _, fs in os.walk(artifact_dir) for f in fs)
+    tag = "eval-cli on the train CLI's artifact"
+    res.update(_cli_results({tag: _cli(tmp, tag, "llava_reward_torch.eval_batch_inference",
+                                       "--pretrain", tiny_base, "--pm_path", artifact_dir,
+                                       "--dataset", SAMPLE_PAIRS, "--micro_batch_size", "4",
+                                       "--num_workers", "4", "--device", "cuda")}))
+    for tag in ("eval-cli bf16", "eval-cli w8a8", "eval-cli on the train CLI's artifact"):
+        m = res[tag][0]
+        if not m or m.get("num_pairs") != 4 or not 0.0 <= m["mean_prob"] <= 1.0:
+            fail(f"eval: {tag} printed {m}")
+    # each command line's own launches: one stacked B=8 call for the evals
+    # (B1 in CLIP and the 2 decoder layers; W8A8 adds the 2 layers' B4 x2,
+    # B5, B6 and four GEMMs); the tiny config's head_dim 16 and 8 run B3
+    # (and B8 in training) zero-padded to 64
+    w8 = {"rms_quant": 4, "silu_mul_quant": 2, "row_quant": 2, "int8_matmul": 8}
+    tiny_hm = {"fa_hm": tiny.vision.num_active_layers + d.num_layers}
+    want = {"eval-cli bf16": {"fa_direct": n_clip + 2},
+            "eval-cli w8a8": {"fa_direct": n_clip + 2, **w8},
+            "eval-cli on the train CLI's artifact": tiny_hm}
+    cli_launches = {}
+    for tag, (_, text, _) in res.items():
+        found = re.findall(r"^kernel launches (\{.*\})$", text, re.M)
+        if len(found) != 1:
+            fail(f"eval: {tag} printed {len(found)} kernel launches lines")
+        got_cli = cli_launches[tag] = json.loads(found[0])
+        ran = {k for k, v in got_cli.items() if v}
+        if tag == "train-cli":
+            ok = ran == {"fa_hm", "fa_bwd"}
+        else:
+            ok = got_cli == {k: want[tag].get(k, 0) for k in got_cli}
+        if not ok:
+            fail(f"eval: {tag} launched {got_cli} (expected {want.get(tag, 'B3 and B8 only')})")
+    fallback = {t: "hash tokenizer" in r[1] for t, r in res.items() if t.startswith("eval")}
+    train_log = [ln for ln in res["train-cli"][1].splitlines() if ln.strip()][-3:]
+    say("eval", "python -m llava_reward_torch.eval_batch_inference over [load]'s 2-layer "
+        f"full-width checkpoint: bf16 {res['eval-cli bf16'][0]} in {res['eval-cli bf16'][2]:.1f} "
+        f"s; --load_in_8bit {res['eval-cli w8a8'][0]} in {res['eval-cli w8a8'][2]:.1f} s "
+        f"(the three command lines started together); the hash-tokenizer fallback: {fallback}")
+    on_artifact = res["eval-cli on the train CLI's artifact"][0]
+    say("eval", f"the command lines' kernel launches: {cli_launches}")
+    say("eval", f"python -m llava_reward_torch.train_llava_reward (smoke mode: tiny config, "
+        f"--bf16, one epoch on the sample pairs, --device cuda): exit 0 in {res['train-cli'][2]:.1f} s, "
+        f"artifact {files}; its last log lines {train_log}; the eval CLI on that artifact over "
+        f"a tiny base checkpoint: {on_artifact}")
+    say("eval", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: got[k] + prof_counts[k] for k in got}
+
+
+# ------------------------------------------------------------------ [llava]
+
+
+LLAVA_SEQ = 2976  # bench.py:metric_llava_int8: 2928 image tokens and the prompt
+LLAVA_MANIFEST = os.path.join("tools", "manifests", "llava_v16_vicuna_13b")
+LLAVA_PAD = 32  # left pads of the rejected rows (2928 image tokens + 13 more fill 2941)
+
+
+def _direct_smem_bytes(D, rope, bq=128, bk=64, stages=3):
+    """B1's dynamic shared memory a block: ``Smem<D, ROPE>::bytes`` of
+    csrc/flash_attention.cu (its BQ, BK and STAGES): the Q tile, a K and a V
+    ring, with RoPE the K tiles' cos / sin rows, and the barriers."""
+    return (bq * D * 2 + 2 * stages * bk * D * 2 + (stages * bk * 2 * D * 2 if rope else 0)
+            + (2 + 4 * stages) * 8)
+
+
+def _llava_requests(lcfg, tok, proc):
+    """Four pairs of seeded 672 x 672 images (4 + 1 tiles, 2928 image tokens
+    each) through LlavaNextProcessor at seq 2976: every chosen row fills the
+    sequence, every rejected row is left-padded by LLAVA_PAD. Returns the
+    B=2 request (the first pair) and the B=8 one (rows c0..c3, r0..r3), on
+    the card, with the host seconds the eight samples took."""
+    base = "a photo of a quiet harbour at dusk, which is better".split()
+    n_fixed = len(proc(apply_llava_chat_template(tok, " ".join(base)),
+                       [_synthetic(672, 672, 0)]).input_ids)
+    if n_fixed + LLAVA_PAD > LLAVA_SEQ:
+        fail(f"llava: a {n_fixed}-token sample leaves no room for {LLAVA_PAD} pads")
+    t0 = time.perf_counter()
+    chosen, rejected = [], []
+    for j in range(4):
+        words_c = base + [f"w{i}" for i in range(LLAVA_SEQ - n_fixed)]
+        words_r = base + [f"w{i}" for i in range(LLAVA_SEQ - n_fixed - LLAVA_PAD)]
+        chosen.append(proc(apply_llava_chat_template(tok, " ".join(words_c)),
+                           [_synthetic(672, 672, 40 + 2 * j)]))
+        rejected.append(proc(apply_llava_chat_template(tok, " ".join(words_r)),
+                             [_synthetic(672, 672, 41 + 2 * j)]))
+    host_s = time.perf_counter() - t0
+    if {s.num_img_tokens for s in chosen + rejected} != {2928}:
+        fail(f"llava: image tokens {[s.num_img_tokens for s in chosen + rejected]}")
+    pad = lcfg.text.pad_token_id
+    req2 = to_reward_batch(collate_samples([chosen[0], rejected[0]], LLAVA_SEQ, pad), "cuda")
+    req8 = to_reward_batch(collate_samples(chosen + rejected, LLAVA_SEQ, pad), "cuda")
+    return req2, req8, host_s
+
+
+def _skew(r, pairs):
+    """The GPM decision's c0 r1 - c1 r0 of each pair of rewards ``r``."""
+    c, q = r[:pairs].double(), r[pairs:].double()
+    return (c[:, 0] * q[:, 1] - c[:, 1] * q[:, 0]).cpu().numpy().round(6).tolist()
+
+
+@torch.inference_mode()
+def _principal_head(lcfg, rcfg, params, req):
+    """A value head that reads the two directions along which the request's
+    readout states (the final hidden state at each row's EOS, bf16, the
+    kernels' route) vary most: their top principal directions, as columns of
+    norm 1/sqrt(H). A random head (std 1/(H+1)) reads a random plane, where
+    the rows differ by about as much as two routes' drift through 40 layers
+    of random weights, so their decisions would be the drift's: with this
+    one the rewards are ~0.3 and each pair's c0 r1 - c1 r0 a large part of
+    |c| |r|. Returns the head and the states' singular values."""
+    out = reward_forward(params, lcfg, rcfg, req)
+    idx = heads.eos_index_from_mask(req.attention_mask)
+    x = out.last_hidden[torch.arange(idx.shape[0], device=idx.device), idx].float()
+    _, sv, vt = torch.linalg.svd(x - x.mean(0), full_matrices=False)
+    w = (vt[:2].T / x.shape[1] ** 0.5).to(params["head"]["value_head"]["kernel"].dtype)
+    return ({**params["head"], "value_head": {"kernel": w.contiguous()}},
+            sv.cpu().numpy().round(3).tolist())
+
+
+def _llava_positions(mask):
+    pos = torch.cumsum(mask.to(torch.int32), -1) - 1
+    pos = torch.where(mask == 0, torch.ones_like(pos), pos)
+    return pos[None].expand(3, *pos.shape)
+
+
+@torch.inference_mode()
+def _llava_layer_checks(lcfg, params, qparams, req):
+    """Decoder layer 0 at full width from the B=2 request's embeddings, bf16
+    (B1 at head_dim 128, RoPE, causal, the sequence padded 2976 -> 3072 with
+    valid_len) and W8A8 (+ B4 x2, B5, B6, four GEMMs), through the kernels
+    against the plain versions: the worst row's relative L2 error of the
+    layer's update on valid tokens, beside the reference attention's."""
+    tc = lcfg.text
+    h = params["backbone"]["text"]["embed_tokens"][req.input_ids.long()]
+    cos, sin = qwen25_vl._mrope_cos_sin(_llava_positions(req.attention_mask), tc, h.dtype)
+    valid = req.attention_mask[..., None].to(h.dtype)
+    for tag, tree, tol in (("bf16", params, QWEN_PART_TOL), ("W8A8", qparams,
+                                                             QWEN_W8A8_PART_TOL)):
+        lp = layer_slice(tree["backbone"]["text"]["layers"], 0)
+        outs = {}
+        for i in ("auto", "plain", "xla"):
+            reset_counters()
+            outs[i] = (qwen25_vl._decoder_layer(h, lp, tc, cos, sin, req.attention_mask, i)
+                       - h) * valid
+            if i == "auto":
+                ran = {k: v for k, v in launches().items() if v}
+        err, floor = (max(_rel_err(a, b) for a, b in zip(outs[i], outs["plain"]))
+                      for i in ("auto", "xla"))
+        finite = bool(torch.isfinite(outs["auto"]).all())
+        say("llava", f"decoder layer 0 {tag} {tuple(h.shape)}, kernels vs plain versions: "
+            f"relative L2 error {err:.3e} (tol {tol:g}); reference attention vs plain "
+            f"{floor:.3e}; finite {finite}; launches {ran}")
+        if err > tol or not finite or ran.get("fa_direct", 0) + ran.get("fa_hm", 0) != 1:
+            fail(f"llava: decoder layer 0 {tag} through the kernels disagrees with the plain "
+                 "versions")
+
+
+def _llava_layer_grads(lcfg, frozen, trainable, req, gen):
+    """Decoder layer 0 on the separate layout with its LoRA slice (B3 forward,
+    B8 backward, MHA 40 x 128 in left-pad mode), from one input and one
+    upstream gradient (zero on left-pad rows, as on the path): the gradients
+    of its input and LoRA leaves through the kernels against the plain
+    versions, _qwen_layer_parity's bound, the reference attention beside."""
+    tc = lcfg.text
+    mask = req.attention_mask
+    cos, sin = qwen25_vl._mrope_cos_sin(_llava_positions(mask), tc, torch.bfloat16)
+    h = torch.randn(2, LLAVA_SEQ, tc.hidden_size, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn(h.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = w * mask[:, :, None].to(w.dtype)
+    lp = layer_slice(frozen["backbone"]["text"]["layers"], 0)
+    grads = {}
+    for impl in ("auto", "plain", "xla"):
+        x = h.clone().requires_grad_()
+        lora = tree_map(lambda t: t[0].detach().requires_grad_(), trainable["lora"])
+        reset_counters()
+        out = qwen25_vl._decoder_layer(x, lp, tc, cos, sin, mask, impl, lora)
+        grads[impl] = torch.autograd.grad((out.float() * w.float()).sum(),
+                                          [x] + tree_leaves(lora))
+        if impl == "auto" and (fa.LAUNCHES["fa_hm"], fa.LAUNCHES["fa_bwd"]) != (1, 1):
+            fail(f"llava: decoder layer launches {fa.LAUNCHES}")
+    names = ["h"] + [n for n, _ in _named_leaves(trainable["lora"])]
+    rels = {n: _rel_err(a, b) for n, a, b in zip(names, grads["auto"], grads["plain"])}
+    floor = {n: _rel_err(a, b) for n, a, b in zip(names, grads["xla"], grads["plain"])}
+    tensors = _tensor_leaves(rels)
+    worst = max(tensors, key=tensors.get)
+    say("llava", f"decoder layer 0 {tuple(h.shape)}, LoRA on {len(trainable['lora'])} targets, "
+        f"kernels vs plain versions: worst relative L2 gradient error {rels[worst]:.3e} at "
+        f"{worst} (tol {LAYER_GRAD_TOL:g}, tensor leaves; the scale leaves for information); "
+        f"kernels (reference attention): "
+        + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in rels.items()))
+    _check_identity("llava", names, {"kernels": grads["auto"], "plain": grads["plain"],
+                                     "reference": grads["xla"]}, dict(_named_leaves(lora)))
+    if rels[worst] > LAYER_GRAD_TOL or not all(bool(torch.isfinite(g).all())
+                                               for g in grads["auto"]):
+        fail("llava: the decoder layer's gradients through the kernels disagree with the plain "
+             "versions")
+
+
+def phase_llava(reps=3, steps=3):
+    """LLaVA-NeXT-13B at full width and depth (CLIP ViT-L/14-336 with 23
+    active layers; vicuna 40 x 5120, 40 heads x 128 MHA, I = 13824), the
+    configuration parsed from the published config.json, random bf16
+    weights from a seed (the kernels at its decoder's shapes are held in
+    phase 3: ``check_llava_kernels``). Scoring through
+    RewardAdaptor(model_type="llava") on the fused layout, with a value head
+    on the rows' principal directions (``_principal_head``), bf16 and with
+    the decoder W8A8, B=2 (one side left-padded) and B=8, W8A8 against bf16;
+    decoder layer 0 through the kernels against the plain versions; one
+    layer's LoRA gradients; and LoRA steps at B=2 (r=128, alpha 256 on
+    QWEN_TARGETS, fp32 heads and LoRA, remat)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    lcfg = LlavaNextConfig()
+    parsed = llava_config_from_pretrain(LLAVA_MANIFEST)
+    if (parsed.text, parsed.vision, parsed.grid_pinpoints) != (lcfg.text, lcfg.vision,
+                                                               lcfg.grid_pinpoints):
+        fail(f"llava: the published config.json parses to {parsed}, not {lcfg}")
+    tc, vc = lcfg.text, lcfg.vision
+    n_clip, n_dec = vc.num_active_layers, tc.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    # the model: the training layout, and the fused scoring layout beside it
+    t0 = time.perf_counter()
+    rcfg = RewardConfig(is_general_preference=True, value_head_dim=2, layer_id=n_dec)
+    backbone = llava_next.init_params(lcfg, gen, torch.bfloat16, "cuda")
+    head = init_head_params(lcfg, rcfg, gen, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(backbone))
+    n_dec_params = sum(t.numel() for t in _leaves(backbone["text"]["layers"]))
+    say("llava", f"LLaVA-NeXT-13B random bf16 params: {n_params / 1e9:.3f} B ({n_dec_params / 1e9:.3f} "
+        f"B in the decoder layers) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; config.json of {LLAVA_MANIFEST} parses "
+        f"to the defaults (text {tc.num_layers} x {tc.hidden_size}, {tc.num_heads} x "
+        f"{tc.head_dim} MHA, I={tc.intermediate_size}; CLIP {n_clip} active layers)")
+    tok = SmokeTok(tc.vocab_size, tc.image_token_id)
+    proc = LlavaNextProcessor(tok, image_token_id=tc.image_token_id,
+                              grid_pinpoints=lcfg.grid_pinpoints)
+    req2, req8, host_s = _llava_requests(lcfg, tok, proc)
+    say("llava", f"requests: 8 samples of seeded 672 x 672 images through LlavaNextProcessor in "
+        f"{host_s:.3f} s on the host; pixel_values {tuple(req8.pixel_values.shape)} f32, 2928 "
+        f"image tokens a row, seq {LLAVA_SEQ}, left pads B=2 "
+        f"{(1 - req2.attention_mask).sum(1).tolist()}, B=8 "
+        f"{(1 - req8.attention_mask).sum(1).tolist()}")
+    params = {"backbone": merge_for_scoring(backbone, "llava"), "head": head}
+    params["head"], spread = _principal_head(lcfg, rcfg, params, req8)
+    say("llava", f"value head: the two principal directions of the B=8 request's readout "
+        f"states (bf16, the kernels' route), columns of norm 1/sqrt({tc.hidden_size}); the "
+        f"states' singular values about their mean {spread}")
+    torch.cuda.synchronize()
+    # per request: B1 in the 23 CLIP layers and the 40 decoder layers (B x 40
+    # head groups >= 32 at B=2 already), no B2 / B3
+    attn2, attn8 = _request_launches(lcfg, 2), _request_launches(lcfg, 8)
+    torch.cuda.reset_peak_memory_stats()
+    bf16_launches, bf16_r, bf16_t = serve_and_check(
+        "llava", lcfg, rcfg, params, req2, req8, attn2, attn8, reps, "llava", LLAVA_REWARD_TOL)
+    say("llava", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 serving; the "
+        f"training layout held beside the fused one)")
+
+    t0 = time.perf_counter()
+    text = params["backbone"]["text"]
+    qparams = {**params, "backbone": {**params["backbone"], "text": {
+        **text, "layers": quantize_stacked_layers(text["layers"], scheme="w8a8")}}}
+    torch.cuda.synchronize()
+    quantized = [k for k, v in qparams["backbone"]["text"]["layers"].items()
+                 if isinstance(v, dict) and isinstance(v.get("kernel"), dict)]
+    say("llava-w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s, one layer at a "
+        f"time: {quantized}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
+          "int8_matmul": 4 * n_dec}
+    torch.cuda.reset_peak_memory_stats()
+    w8_launches, w8_r, w8_t = serve_and_check(
+        "llava-w8a8", lcfg, rcfg, qparams, req2, req8, {**attn2, **w8}, {**attn8, **w8}, reps,
+        "llava", QWEN_W8A8_REWARD_TOL)
+    say("llava-w8a8", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # W8A8 against bf16, through the kernels: every pair's decision, and the
+    # rewards within LLAVA_W8A8_VS_BF16_TOL
+    for name, rb, rq, pairs in (("B=2", bf16_r[0], w8_r[0], 1), ("B=8", bf16_r[1], w8_r[1], 4)):
+        rb, rq = rb.float(), rq.float()
+        same = bool(((_prob(rb, pairs, rcfg) > 0.5) == (_prob(rq, pairs, rcfg) > 0.5)).all())
+        gap = (rb - rq).abs().max().item()
+        say("llava-w8a8", f"{name}: W8A8 rewards {rq.cpu().numpy().round(6).tolist()} against "
+            f"bf16 {rb.cpu().numpy().round(6).tolist()}: max gap {gap:.3e} (tol "
+            f"{LLAVA_W8A8_VS_BF16_TOL:g}, |bf16 reward| up to {rb.abs().max().item():.3e}); "
+            f"c0 r1 - c1 r0 per pair W8A8 {_skew(rq, pairs)} bf16 {_skew(rb, pairs)}; same "
+            f"decisions {same}; {w8_t[name]:.4f} s/request beside bf16 {bf16_t[name]:.4f}")
+        if not same or gap > LLAVA_W8A8_VS_BF16_TOL:
+            fail(f"llava: W8A8 and bf16 {name} rewards or decisions differ")
+    _llava_layer_checks(lcfg, params, qparams, req2)
+    del params, qparams, text
+    torch.cuda.empty_cache()
+
+    # LoRA on the training layout
+    frozen = {"backbone": backbone}
+    trainable = {"head": init_head_params(lcfg, rcfg, gen, torch.float32, "cuda"),
+                 "lora": init_lora(tc, LORA_R, LORA_ALPHA, gen, targets=QWEN_TARGETS,
+                                   device="cuda")}
+    for t in trainable["lora"].values():
+        t["b"].normal_(0.0, 1e-3, generator=gen)
+    n_lora = sum(t.numel() for t in tree_leaves(trainable["lora"]))
+    _llava_layer_grads(lcfg, frozen, trainable, req2, gen)
+    chosen, rejected = _halves(req2, 1)
+    tx = make_optimizer(LR, TOTAL_STEPS)
+    step = make_train_step(make_pairwise_loss_fn(lcfg, rcfg, attn_impl="auto", remat=True,
+                                                 projector_path=PROJECTOR_PATHS["llava"]), tx)
+    state = init_train_state(trainable, tx)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # the training path's run starts here
+    state, losses, norms, times = _timed_steps(step, state, frozen, chosen, rejected, steps)
+    counts = launches()  # ... and ends here
+    # per step: B1 in CLIP (frozen: no backward, no recompute); B3 forward and
+    # its remat recompute and B8 in each decoder layer
+    _expect(f"llava {steps} LoRA steps B=2", counts,
+            {"fa_direct": steps * n_clip, "fa_hm": steps * 2 * n_dec, "fa_bwd": steps * n_dec})
+    med = float(np.median(times[1:]))
+    say("llava", f"LoRA r={LORA_R} alpha {LORA_ALPHA} on {list(QWEN_TARGETS)} ({n_lora / 1e6:.1f} "
+        f"M params, fp32, fp32 heads), remat, B=2 seq {LLAVA_SEQ}: loss per step "
+        f"{[round(x, 6) for x in losses]}, grad_norm {[round(x, 4) for x in norms]}; "
+        f"{med:.4f} s/step (median after one warm step, {[round(t, 4) for t in times]}), "
+        f"{1 / med:.3f} pairs/s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {counts}: fa_hm and fa_bwd at (2, {tc.num_heads}, {LLAVA_SEQ}, "
+        f"{tc.head_dim}), fa_direct at CLIP's ({chosen.pixel_values.shape[1] * 2}, "
+        f"{vc.num_heads}, 640, {vc.head_dim})")
+    del state, frozen, trainable, backbone
+    torch.cuda.empty_cache()
+    say("llava", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: bf16_launches[k] + w8_launches[k] + counts[k] for k in counts}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2494,24 +3304,30 @@ def main() -> int:
     # launches: summed over the main paths' runs, each counted from zero: the
     # serving runs (phi3v bf16, decoder W8A8, tower + decoder W8A8; the sample
     # pairs from their image files in three pixel modes and the host-bank
-    # fallback; the loaded checkpoints, bf16 and W8A8, and qwen's; qwen bf16
+    # fallback; the HTTP server's requests; the loaded checkpoints, bf16 and
+    # W8A8, and qwen's; batch evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16
     # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
-    # LoRA steps and its full fine-tuning step)
+    # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps)
     served, params = phase_serve(cfg, rcfg)
-    data, data_batch = phase_data(cfg, rcfg, params)
-    loaded = phase_load(cfg, rcfg, params, qcfg, data_batch)
+    data, data_batch, data_rewards = phase_data(cfg, rcfg, params)
+    http = phase_http(cfg, rcfg, params)
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_load_", dir="build") as tmp:
+        loaded, phi3v_dirs = phase_load(cfg, rcfg, params, qcfg, data_batch, tmp)
+        evaled = phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp)
     del params, data_batch
     torch.cuda.empty_cache()
-    runs = [served, data, loaded, phase_serve_qwen(qcfg), phase_train(cfg, rcfg),
+    runs = [served, data, http, loaded, evaled, phase_serve_qwen(qcfg), phase_train(cfg, rcfg),
             phase_train_qwen(qcfg)]
+    runs.append(phase_llava())
     counts = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     kernels = []
     for name, meta in KERNELS.items():
-        # one row per kernel: its last check (B1 and B8 at the phi3v
-        # decoder's shapes, which dominate their time on the path; B2, B4-B7
-        # at the qwen decoder's, the GEMM at gate_up; B3 in its segment mode
-        # at the qwen vision tower's; B9 at the CLIP tower's B=8 shape)
+        # one row per kernel: its last check before LLaVA's (B1 and B8 at the
+        # phi3v decoder's shapes, which dominate their time on the path; B2,
+        # B4-B7 at the qwen decoder's, the GEMM at gate_up; B3 in its segment
+        # mode at the qwen vision tower's; B9 at the CLIP tower's B=8 shape)
         row = [r for r in rows if r["name"] == name][-1]
         kernels.append({"name": name, **meta, "launches": counts[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -4,9 +4,9 @@ The port keeps its own copy of the JAX package's configs
 (``llava_reward_tpu/core/config.py``: VisionConfig, RopeScalingConfig,
 DecoderConfig, Phi3VConfig, phi35_vision_config, phi3v_tiny_config,
 RewardConfig with its checkpoint-contract helpers, QwenVisionConfig,
-QwenTextConfig, Qwen25VLConfig, qwen25_vl_7b_config, qwen_tiny_config),
-su-RoPE factor tables verbatim, so that it imports nothing from that
-package. The LLaVA-NeXT config arrives with its slice.
+QwenTextConfig, Qwen25VLConfig, qwen25_vl_7b_config, qwen_tiny_config,
+LlavaNextConfig, llava_tiny_config), su-RoPE factor tables verbatim, so that
+it imports nothing from that package.
 """
 
 from __future__ import annotations
@@ -339,6 +339,72 @@ def qwen_tiny_config(
         ),
         min_pixels=4 * 28 * 28,
         max_pixels=16 * 28 * 28,
+    )
+
+
+@dataclass(frozen=True)
+class LlavaNextConfig:
+    """LLaVA-v1.6: CLIP ViT-L/14-336 tower + anyres tiling + 2-layer GELU
+    projector + a vicuna (llama) decoder. The decoder reuses the qwen text
+    layer structure (separate q/k/v/gate/up, no biases, standard rope via a
+    degenerate mrope section). Defaults: llava-v1.6-vicuna-13b
+    (``config.py:350-378``)."""
+
+    text: QwenTextConfig = field(
+        default_factory=lambda: QwenTextConfig(
+            vocab_size=32064,
+            hidden_size=5120,
+            intermediate_size=13824,
+            num_layers=40,
+            num_heads=40,
+            num_kv_heads=40,
+            rms_norm_eps=1e-5,
+            rope_theta=10000.0,
+            max_position_embeddings=4096,
+            mrope_section=(64, 0, 0),  # head_dim 128 -> standard 1D rope
+            pad_token_id=0,
+            eos_token_id=2,
+            image_token_id=32000,
+        )
+    )
+    vision: VisionConfig = field(default_factory=VisionConfig)
+    grid_pinpoints: Tuple[Tuple[int, int], ...] = (
+        (336, 672), (672, 336), (672, 672), (1008, 336), (336, 1008),
+    )
+    projector_hidden_act: str = "gelu"
+
+
+def llava_tiny_config(
+    num_layers: int = 2,
+    hidden_size: int = 64,
+    num_heads: int = 4,
+    vision_layers: int = 2,
+    vision_hidden: int = 32,
+    vocab_size: int = 512,
+) -> LlavaNextConfig:
+    return LlavaNextConfig(
+        text=QwenTextConfig(
+            vocab_size=vocab_size,
+            hidden_size=hidden_size,
+            intermediate_size=hidden_size * 2,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            num_kv_heads=num_heads,
+            rms_norm_eps=1e-5,
+            rope_theta=10000.0,
+            mrope_section=(hidden_size // num_heads // 2, 0, 0),
+            pad_token_id=0,
+            eos_token_id=2,
+            image_token_id=vocab_size - 2,
+        ),
+        vision=VisionConfig(
+            hidden_size=vision_hidden,
+            intermediate_size=vision_hidden * 4,
+            num_layers=vision_layers,
+            num_heads=4,
+            image_size=336,
+            patch_size=14,
+        ),
     )
 
 

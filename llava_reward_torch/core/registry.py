@@ -5,9 +5,9 @@ counterpart of the reference's dispatch on the model name
 (rw_model_general_preference.py:113-159, reward_adaptor_loader.py:31-152,
 train_llava_reward.py:27-50).
 
-The processors ship uint8 pixels by default, prepared on the card
-(``LRT_DEVICE_PREPROC=0`` opts out, as in the JAX package). LLaVA-NeXT
-comes with its slice (ROADMAP A4) and raises.
+The phi3v and qwen processors ship uint8 pixels by default, prepared on the
+card (``LRT_DEVICE_PREPROC=0`` opts out, as in the JAX package); LLaVA-NeXT's
+anyres processor ships the host f32 bank.
 """
 
 from __future__ import annotations
@@ -128,7 +128,42 @@ def _qwen_family() -> ModelFamily:
 
 
 def _llava_family() -> ModelFamily:
-    raise NotImplementedError("LLaVA-NeXT comes with its slice (ROADMAP A4)")
+    from ..data.datasets import LlavaPairwiseRewardDataset, PointwiseRewardDataset
+    from ..evalx.adaptor import llava_config_from_pretrain
+    from ..io.hf_llava import params_from_hf_state_dict
+    from ..lora.lora import QWEN_TARGETS
+    from ..models import llava_next
+    from ..preprocess.llava_processor import LlavaNextProcessor
+    from .config import llava_tiny_config
+
+    def set_proj(backbone, proj):
+        backbone["vision"]["projector"] = proj
+
+    def make_proc(tok, cfg):
+        return LlavaNextProcessor(tok, image_token_id=cfg.text.image_token_id,
+                                  grid_pinpoints=cfg.grid_pinpoints)
+
+    def tok_setup(tok):
+        tok.padding_side = "left"
+        tok.truncation_side = "right"
+
+    return ModelFamily(
+        name="llava",
+        config_from_pretrain=llava_config_from_pretrain,
+        tiny_config=llava_tiny_config,
+        init_params=llava_next.init_params,
+        params_from_sd=params_from_hf_state_dict,
+        make_processor=make_proc,
+        pairwise_dataset=LlavaPairwiseRewardDataset,
+        pointwise_dataset=PointwiseRewardDataset,
+        lora_targets=QWEN_TARGETS,
+        decoder_cfg=lambda cfg: cfg.text,
+        get_projector=lambda b: b["vision"]["projector"],
+        set_projector=set_proj,
+        projector_path=("vision", "projector"),
+        supports_skipca=False,  # not wired in the reference (rw:372-375)
+        tokenizer_setup=tok_setup,
+    )
 
 
 _FAMILIES = {"phi3v": _phi3v_family, "qwen": _qwen_family, "llava": _llava_family}

@@ -10,8 +10,9 @@ Reference (llava_reward/datasets/reward_dataset.py, utils/utils.py:120-192):
 
 Items are processed samples; collation pads to a static sequence length.
 Image decode and HD geometry run in the loader's worker threads
-(``data/loader.py``), overlapped with the card's work. The LLaVA-NeXT
-dataset comes with that model (ROADMAP A4).
+(``data/loader.py``), overlapped with the card's work. Phi-3.5-vision,
+Qwen2.5-VL and LLaVA-NeXT (pairwise; its pointwise rows take the phi3v
+dataset, as in the JAX package's registry).
 """
 
 from __future__ import annotations
@@ -242,6 +243,25 @@ class PointwiseRewardDataset:
         batch = collate_samples([i[0] for i in items], seq_len, pad_token_id)
         labels = np.asarray([i[1] for i in items], np.float32)
         return batch, labels
+
+
+class LlavaPairwiseRewardDataset(PairwiseRewardDataset):
+    """LLaVA-v1.6 pairwise dataset (``datasets.py:246-262``; reward_dataset.py:
+    267-350): chat template sliced [0:-11] + EOS; the anyres samples collate
+    as the phi3v ones do (the f32 bank, full tiles)."""
+
+    def __getitem__(self, idx: int):
+        from ..preprocess.llava_processor import apply_llava_chat_template
+
+        prompt, chosen, reject, c_rate, r_rate = parse_pairwise_row(self.rows[idx])
+        if isinstance(prompt, list):
+            pc = apply_llava_chat_template(self.tokenizer, prompt[0])
+            pr = apply_llava_chat_template(self.tokenizer, prompt[1])
+        else:
+            pc = pr = apply_llava_chat_template(self.tokenizer, prompt)
+        chosen_s = self.processor(pc, [self._open(chosen)])
+        reject_s = self.processor(pr, [self._open(reject)])
+        return chosen_s, reject_s, float(c_rate), float(r_rate)
 
 
 def _qwen_budgets(processor, patch_budget, unit_budget):

@@ -3,13 +3,14 @@
 ``RewardAdaptor`` holds the configs, the param tree and the device;
 ``make_score_fn`` returns the function that answers scoring requests,
 memoised per ``(attn_impl, training)`` as in the JAX package.
-``model_type`` is ``"phi3v"`` or ``"qwen"``; a qwen tree may be in the
-fused-projection layout (``models/qwen25_vl.fuse_decoder_projections``,
-as ``load_reward_adaptor`` leaves it) or the separate one.
-``merge_for_scoring`` is the tail of the JAX package's
-``load_reward_adaptor`` (``adaptor.py:380-489``): a trained LoRA folded into
-the decoder, a trained projector put in its slot, and for qwen the
-projections fused, so that the scoring route reads what training wrote.
+``model_type`` is ``"phi3v"``, ``"qwen"`` or ``"llava"``; a qwen or llava
+tree may be in the fused-projection layout
+(``models/qwen25_vl.fuse_decoder_projections``, as ``load_reward_adaptor``
+leaves it) or the separate one. ``merge_for_scoring`` is the tail of the JAX
+package's ``load_reward_adaptor`` (``adaptor.py:380-489``): a trained LoRA
+folded into the decoder, a trained projector put in its slot, and for qwen
+and llava the projections fused, so that the scoring route reads what
+training wrote.
 
 ``load_reward_adaptor`` rebuilds a reward model from a base checkpoint
 directory and a reward artifact (``adaptor.py:292-516``, the contract of
@@ -18,7 +19,6 @@ the base checkpoint's config.json, strict key checks, the PEFT adapter
 merged at load, the heads and projector from pytorch_model.bin, then an
 optional quantization of the decoder and a cast. The configs of
 ``*_config_from_pretrain`` are the JAX package's, field for field.
-LLaVA-NeXT's loader comes with that model (ROADMAP A4) and raises.
 """
 
 from __future__ import annotations
@@ -32,12 +32,13 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..core.config import (DecoderConfig, Phi3VConfig, Qwen25VLConfig, QwenTextConfig,
-                           QwenVisionConfig, RewardConfig, RopeScalingConfig, VisionConfig,
-                           phi35_vision_config, qwen25_vl_7b_config)
+from ..core.config import (DecoderConfig, LlavaNextConfig, Phi3VConfig, Qwen25VLConfig,
+                           QwenTextConfig, QwenVisionConfig, RewardConfig, RopeScalingConfig,
+                           VisionConfig, phi35_vision_config, qwen25_vl_7b_config)
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..io.artifact import (check_artifact_keys, load_head_params, load_projector_params,
-                           load_qwen_merger_params, load_reward_config)
+from ..io.artifact import (check_artifact_keys, load_head_params, load_llava_projector_params,
+                           load_projector_params, load_qwen_merger_params, load_reward_config)
+from ..io.hf_llava import params_from_hf_state_dict as llava_params
 from ..io.hf_phi3v import params_from_hf_state_dict as phi3v_params
 from ..io.hf_qwen import params_from_hf_state_dict as qwen_params
 from ..io.torch_io import load_torch_state_dict
@@ -63,24 +64,31 @@ def batch_to_device(batch: RewardBatch, device: torch.device) -> RewardBatch:
     return RewardBatch(*[_to_device(x, device) for x in batch])
 
 
+# per family: (vision subtree, decoder subtree, projector slot)
+_SLOTS = {"phi3v": ("vision", "decoder", "img_projection"),
+          "qwen": ("visual", "text", "merger"),
+          "llava": ("vision", "text", "projector")}
+_CONFIGS = {"phi3v": Phi3VConfig, "qwen": Qwen25VLConfig, "llava": LlavaNextConfig}
+
+
 def merge_for_scoring(backbone: dict, model_type: str, lora: Optional[dict] = None,
                       projector: Optional[dict] = None) -> dict:
     """The backbone tree a trained artifact scores with: ``lora`` (a stacked
     tree, e.g. ``peft_state_to_stacked`` of the artifact's adapter) merged
     into the decoder's layers in their dtype, ``projector`` (phi3v's
-    ``img_projection`` or qwen's merger) in its slot, and a qwen decoder in
-    the fused inference layout, which takes no adapters and so comes after
-    the merge. The input tree is not modified."""
-    vis, dec = {"phi3v": ("vision", "decoder"), "qwen": ("visual", "text")}[model_type]
+    ``img_projection``, qwen's merger or llava's projector) in its slot, and a
+    qwen or llava decoder in the fused inference layout
+    (``adaptor.py:479-487``), which takes no adapters and so comes after the
+    merge. The input tree is not modified."""
+    vis, dec, slot = _SLOTS[model_type]
     out = dict(backbone)
     layers = out[dec]["layers"]
     if lora is not None:
         layers = merge_lora(layers, lora)
-    if model_type == "qwen":
+    if model_type in ("qwen", "llava"):
         layers = fuse_decoder_projections(layers)
     out[dec] = {**out[dec], "layers": layers}
     if projector is not None:
-        slot = "img_projection" if model_type == "phi3v" else "merger"
         like = out[vis][slot]["fc1"]["kernel"]  # the slot's device and dtype
         out[vis] = {**out[vis], slot: tree_map(
             lambda t: t.to(device=like.device, dtype=like.dtype), projector)}
@@ -92,7 +100,7 @@ class RewardAdaptor:
     """Model + configs on one device; ``device`` defaults to ``"cuda"`` and
     raises where there is none."""
 
-    cfg: Union[Phi3VConfig, Qwen25VLConfig]
+    cfg: Union[Phi3VConfig, Qwen25VLConfig, LlavaNextConfig]
     rcfg: RewardConfig
     params: dict  # {'backbone': ..., 'head': ...}
     model_type: str = "phi3v"
@@ -101,11 +109,10 @@ class RewardAdaptor:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        want = {"phi3v": Phi3VConfig, "qwen": Qwen25VLConfig}.get(self.model_type)
+        want = _CONFIGS.get(self.model_type)
         if want is None:
-            raise NotImplementedError(
-                f"model_type {self.model_type!r}: LLaVA-NeXT is ROADMAP slice 6"
-            )
+            raise ValueError(f"unknown model_type {self.model_type!r}; choose from "
+                             f"{sorted(_CONFIGS)}")
         if not isinstance(self.cfg, want):
             raise ValueError(f"model_type {self.model_type!r} takes a {want.__name__}, "
                              f"got {type(self.cfg).__name__}")
@@ -194,8 +201,42 @@ def phi3v_config_from_pretrain(pretrain: str) -> Phi3VConfig:
     return Phi3VConfig(decoder=decoder_config_from_hf_json(cj), vision=VisionConfig())
 
 
-def llava_config_from_pretrain(pretrain: str):
-    raise NotImplementedError("LLaVA-NeXT comes with its slice (ROADMAP A4)")
+def llava_config_from_pretrain(pretrain: str) -> LlavaNextConfig:
+    """config.json -> LlavaNextConfig (nested text_config / vision_config;
+    ``adaptor.py:105-150``)."""
+    cj = _read_json(pretrain)
+    if cj is None:
+        return LlavaNextConfig()
+    tj = cj.get("text_config", {})
+    vj = cj.get("vision_config", {})
+    hd = tj.get("hidden_size", 5120) // tj.get("num_attention_heads", 40)
+    text = QwenTextConfig(
+        vocab_size=tj.get("vocab_size", 32064),
+        hidden_size=tj.get("hidden_size", 5120),
+        intermediate_size=tj.get("intermediate_size", 13824),
+        num_layers=tj.get("num_hidden_layers", 40),
+        num_heads=tj.get("num_attention_heads", 40),
+        num_kv_heads=tj.get("num_key_value_heads", tj.get("num_attention_heads", 40)),
+        rms_norm_eps=tj.get("rms_norm_eps", 1e-5),
+        rope_theta=tj.get("rope_theta", 10000.0),
+        max_position_embeddings=tj.get("max_position_embeddings", 4096),
+        mrope_section=(hd // 2, 0, 0),
+        pad_token_id=tj.get("pad_token_id") or 0,
+        eos_token_id=tj.get("eos_token_id", 2),
+        image_token_id=cj.get("image_token_index", 32000),
+    )
+    vision = VisionConfig(
+        hidden_size=vj.get("hidden_size", 1024),
+        intermediate_size=vj.get("intermediate_size", 4096),
+        num_layers=vj.get("num_hidden_layers", 24),
+        num_heads=vj.get("num_attention_heads", 16),
+        image_size=vj.get("image_size", 336),
+        patch_size=vj.get("patch_size", 14),
+        feature_layer_idx=cj.get("vision_feature_layer", -2),
+    )
+    pins = cj.get("image_grid_pinpoints",
+                  [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]])
+    return LlavaNextConfig(text=text, vision=vision, grid_pinpoints=tuple(tuple(p) for p in pins))
 
 
 def qwen_config_from_pretrain(pretrain: str) -> Qwen25VLConfig:
@@ -327,9 +368,8 @@ def load_reward_adaptor(
     every scheme, as in the JAX package (``adaptor.py:460-470``).
     """
     dev = resolve_device(device)
-    if model_type not in ("phi3v", "qwen"):
-        raise NotImplementedError(f"model_type {model_type!r}: phi3v and qwen load here "
-                                  "(LLaVA-NeXT is ROADMAP A4)")
+    if model_type not in _SLOTS:
+        raise ValueError(f"unknown model_type {model_type!r}; choose from {sorted(_SLOTS)}")
     rcfg = load_reward_config(pm_path)
     sd = load_torch_state_dict(pretrain)
 
@@ -346,8 +386,9 @@ def load_reward_adaptor(
         backbone = phi3v_params(sd, cfg, dtype=dtype, strict=strict, ignore_head_keys=full_ckpt)
         decoder_cfg, default_targets = cfg.decoder, DEFAULT_TARGETS
     else:
-        cfg = qwen_config_from_pretrain(cfg_dir)
-        backbone = qwen_params(sd, cfg, dtype=dtype, strict=strict, ignore_head_keys=full_ckpt)
+        cfg, load = ((qwen_config_from_pretrain(cfg_dir), qwen_params) if model_type == "qwen"
+                     else (llava_config_from_pretrain(cfg_dir), llava_params))
+        backbone = load(sd, cfg, dtype=dtype, strict=strict, ignore_head_keys=full_ckpt)
         decoder_cfg, default_targets = cfg.text, QWEN_TARGETS
     del sd
     backbone = tree_map(lambda t: t.to(dev), backbone)
@@ -387,17 +428,18 @@ def load_reward_adaptor(
     head = load_head_params(pm_path, rcfg, dtype=dtype, device=dev)
     projector = None
     if ft_projector:
-        load = load_projector_params if model_type == "phi3v" else load_qwen_merger_params
+        load = {"phi3v": load_projector_params, "qwen": load_qwen_merger_params,
+                "llava": load_llava_projector_params}[model_type]
         projector = load(pm_path, dtype=dtype, device=dev)
-    # the decoder's LoRA merged, the projector in its slot, qwen's projections
-    # fused (the JAX package fuses after quantizing; the scales are per output
-    # column, so the codes are the same either way)
+    # the decoder's LoRA merged, the projector in its slot, qwen's and llava's
+    # projections fused (the JAX package fuses after quantizing; the scales are
+    # per output column, so the codes are the same either way)
     backbone = merge_for_scoring(backbone, model_type, lora=lora, projector=projector)
 
     if quantize:
         scheme = {"w8a8": "w8a8", "nf4": "nf4"}.get(quantize, "absmax")
         bits = 4 if quantize in ("nf4", "int4") else 8
-        dec = "decoder" if model_type == "phi3v" else "text"
+        dec = _SLOTS[model_type][1]
         backbone[dec] = {**backbone[dec], "layers": quantize_stacked_layers(
             backbone[dec]["layers"], bits=bits, scheme=scheme, min_size=quantize_min_size)}
 

@@ -7,7 +7,9 @@ written and read unchanged:
                            projector keys (phi3v: model.vision_embed_tokens.
                            img_projection.{0,2}.{weight,bias}; qwen:
                            visual.merger.ln_q.weight and
-                           visual.merger.mlp.{0,2}.{weight,bias}), bf16
+                           visual.merger.mlp.{0,2}.{weight,bias}; llava:
+                           multi_modal_projector.linear_{1,2}.
+                           {weight,bias}), bf16
     lora/                  PEFT adapter: adapter_config.json + adapter_model.bin
     reward_config.yaml     {add_cross_attention, general_preference_tau,
                             is_general_preference, value_head_dim}
@@ -111,21 +113,21 @@ def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 def projector_state_dict(projector_params: dict,
                          model_type: str = "phi3v") -> Dict[str, torch.Tensor]:
     """A trained projector's torch keys per family (``artifact.py:153-180``):
-    phi3v's ``img_projection`` MLP, qwen's merger (``ln_q`` + the MLP)."""
+    phi3v's ``img_projection`` MLP, qwen's merger (``ln_q`` + the MLP),
+    llava's ``multi_modal_projector.linear_{1,2}``."""
+    idx = ("0", "2")
     if model_type == "phi3v":
         pre, sd = "model.vision_embed_tokens.img_projection", {}
     elif model_type == "qwen":
         pre = "visual.merger.mlp"
         sd = {"visual.merger.ln_q.weight": projector_params["ln_q"].detach().cpu()}
+    elif model_type == "llava":
+        pre, sd, idx = "multi_modal_projector", {}, ("linear_1", "linear_2")
     else:
-        raise NotImplementedError(
-            f"the {model_type!r} projector keys come with its port (ROADMAP: LLaVA-NeXT)")
-    sd.update({
-        f"{pre}.0.weight": _t(projector_params["fc1"]["kernel"]),
-        f"{pre}.0.bias": projector_params["fc1"]["bias"].detach().cpu(),
-        f"{pre}.2.weight": _t(projector_params["fc2"]["kernel"]),
-        f"{pre}.2.bias": projector_params["fc2"]["bias"].detach().cpu(),
-    })
+        raise ValueError(f"unknown model_type {model_type!r}")
+    for fc, i in zip(("fc1", "fc2"), idx):
+        sd[f"{pre}.{i}.weight"] = _t(projector_params[fc]["kernel"])
+        sd[f"{pre}.{i}.bias"] = projector_params[fc]["bias"].detach().cpu()
     return sd
 
 
@@ -206,9 +208,9 @@ def load_head_params(pm_path: str, rcfg: RewardConfig, dtype=torch.float32,
     return head
 
 
-def _load_mlp(pm_path: str, family: str, dtype, dev):
+def _load_mlp(pm_path: str, family: str, dtype, dev, idx=("0", "2")):
     """(keys of ``family`` re-keyed by their last two path parts, the
-    ``{fc1, fc2}`` tree of its ``{0,2}.{weight,bias}`` entries), or (None, None)."""
+    ``{fc1, fc2}`` tree of its ``{idx}.{weight,bias}`` entries), or (None, None)."""
     sd = _load_state_dict(os.path.join(pm_path, "pytorch_model.bin"))
     proj = {".".join(k.split(".")[-2:]): v for k, v in sd.items() if family in k}
     if not proj:
@@ -216,7 +218,7 @@ def _load_mlp(pm_path: str, family: str, dtype, dev):
     return proj, {
         fc: {"kernel": _to(proj[f"{i}.weight"].T.contiguous(), dtype, dev),
              "bias": _to(proj[f"{i}.bias"], dtype, dev)}
-        for fc, i in (("fc1", 0), ("fc2", 2))
+        for fc, i in zip(("fc1", "fc2"), idx)
     }
 
 
@@ -236,3 +238,12 @@ def load_qwen_merger_params(pm_path: str, dtype=torch.float32,
     if proj is None:
         return None
     return {"ln_q": _to(proj["ln_q.weight"], dtype, dev), **mlp}
+
+
+def load_llava_projector_params(pm_path: str, dtype=torch.float32,
+                                device=DEFAULT_DEVICE) -> Optional[dict]:
+    """LLaVA's ``multi_modal_projector`` from the artifact, re-keyed by
+    ``linear_{1,2}`` (``artifact.py:130-150``; reward_adaptor_loader.py:143-148),
+    or None."""
+    return _load_mlp(pm_path, "multi_modal_projector", dtype, resolve_device(device),
+                     idx=("linear_1", "linear_2"))[1]

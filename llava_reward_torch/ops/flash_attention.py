@@ -541,8 +541,20 @@ def flash_attention(
             raise ValueError(f"unknown mask_layout {mask_layout!r}")
     if sliding_window is not None and sliding_window >= S:
         sliding_window = None
-    return _FlashAttentionCore.apply(q, k, v, kv_start, key_mask, causal, sliding_window, scale,
-                                     plain, key_mask is not None and mask_layout == "segments")
+    D_pad = D if plain or not on_card(q) else padded_head_dim(D)
+    if D_pad != D:  # zero columns add nothing to q.k, and give zero output columns
+        q, k, v = (torch.nn.functional.pad(t, (0, D_pad - D)) for t in (q, k, v))
+    out = _FlashAttentionCore.apply(q, k, v, kv_start, key_mask, causal, sliding_window, scale,
+                                    plain, key_mask is not None and mask_layout == "segments")
+    return out[..., :D] if D_pad != D else out
+
+
+def padded_head_dim(D: int) -> int:
+    """The head_dim B3 and B8 run a head of ``D`` at: the smallest of
+    ``HM_HEAD_DIMS`` that holds it (the Pallas kernels zero-pad head_dim to a
+    lane multiple, ``flash_attention.py:329-343``), else ``D`` itself, which
+    the launch refuses."""
+    return next((d for d in HM_HEAD_DIMS if d >= D), D)
 
 
 def _kv_start_from_mask(mask, B, device):

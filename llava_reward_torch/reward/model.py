@@ -1,9 +1,11 @@
 """The reward model: backbone forward + SkipCA + value head read-out
-(``llava_reward_tpu/reward/model.py``), phi3v and Qwen2.5-VL branches.
+(``llava_reward_tpu/reward/model.py``), phi3v, Qwen2.5-VL and LLaVA-NeXT
+branches.
 
 The pair (chosen, rejected) is scored by stacking along the batch axis in
 one forward. phi3v's uint8 pixels are prepared on the batch's device
-(``ops/pixels.py``). The LLaVA-NeXT branch (ROADMAP slice 6) raises.
+(``ops/pixels.py``). SkipCA is not wired for LLaVA, as in the reference
+(rw_model_general_preference.py:372-375).
 """
 
 from __future__ import annotations
@@ -12,15 +14,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.config import Phi3VConfig, Qwen25VLConfig, RewardConfig
+from ..core.config import LlavaNextConfig, Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..models import phi3v, qwen25_vl
+from ..models import llava_next, phi3v, qwen25_vl
 from ..ops.pixels import hd_resize_u8_bank, prepare_pixel_bank
 from . import heads, skipca
 
 
 def _is_qwen(cfg) -> bool:
     return isinstance(cfg, Qwen25VLConfig)
+
+
+def _is_llava(cfg) -> bool:
+    return isinstance(cfg, LlavaNextConfig)
 
 
 def hidden_size_of(cfg) -> int:
@@ -82,11 +88,11 @@ def init_head_params(
     return p
 
 
-def _check_ported(cfg) -> None:
-    if not isinstance(cfg, (Phi3VConfig, Qwen25VLConfig)):
+def _check_family(cfg) -> None:
+    if not isinstance(cfg, (Phi3VConfig, Qwen25VLConfig, LlavaNextConfig)):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: Phi-3.5-vision and Qwen2.5-VL are ported; "
-            "LLaVA-NeXT is ROADMAP slice 6"
+            f"{type(cfg).__name__}: the families are Phi-3.5-vision, Qwen2.5-VL and "
+            "LLaVA-NeXT"
         )
 
 
@@ -104,7 +110,7 @@ def reward_forward(
     prompt_end_index: Optional[torch.Tensor] = None,
     skipca_batch_max: Optional[torch.Tensor] = None,
 ) -> RewardOutput:
-    _check_ported(cfg)
+    _check_family(cfg)
     attention_mask = batch.attention_mask
     collect = None if rcfg.layer_id >= num_layers_of(cfg) else rcfg.layer_id
 
@@ -120,6 +126,15 @@ def reward_forward(
             attn_impl=attn_impl, remat=remat, lora=lora,
         )
         skipca_mode = "qwen"  # per-sample -1e4 mask
+    elif _is_llava(cfg):
+        if vision_lora is not None:
+            raise NotImplementedError("vision LoRA is phi3v's (--train_vision)")
+        out = llava_next.forward(
+            params["backbone"], cfg, batch.input_ids, attention_mask, batch.pixel_values,
+            batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
+            collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora,
+        )
+        skipca_mode = None  # SkipCA is not wired for llava (rw:372-375)
     else:
         # position_ids = cumsum(mask)-1 with pads forced to 1 (model.py:154-156)
         position_ids = torch.cumsum(attention_mask.to(torch.int32), dim=-1) - 1
@@ -148,7 +163,7 @@ def reward_forward(
         skipca_mode = "phi3v"
 
     hidden = out.last_hidden_state if collect is None else out.collected_hidden_state
-    if rcfg.add_cross_attention and out.vision_embedding is not None:
+    if rcfg.add_cross_attention and skipca_mode and out.vision_embedding is not None:
         hidden = skipca.apply(
             params["head"]["skipca"], hidden, out.vision_embedding, batch.num_img_tokens,
             rms_eps=rms_eps_of(cfg), mode=skipca_mode, batch_max=skipca_batch_max,
@@ -187,7 +202,7 @@ def paired_forward(
     Qwen's M-RoPE ``position_ids`` (3, B, S) stack on axis 1. phi3v: each
     half's SkipCA zero-pad width is that half's own max image-token count,
     as in the reference's two separate forwards (qwen masks per sample)."""
-    _check_ported(cfg)
+    _check_family(cfg)
 
     def cat(name, a, b):
         if a is None:

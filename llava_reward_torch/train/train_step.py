@@ -50,10 +50,11 @@ def select_loss_name(rcfg: RewardConfig, cls_based: bool, add_img_eos: bool = Fa
 
 
 # where each family's forward reads the projector from the backbone tree
-# (``train_step.py:59-66``); LLaVA-NeXT's entry comes with its port
+# (``train_step.py:59-66``)
 PROJECTOR_PATHS = {
     "phi3v": ("vision", "img_projection"),
     "qwen": ("visual", "merger"),  # ln_q, fc1, fc2
+    "llava": ("vision", "projector"),  # multi_modal_projector.linear_{1,2}
 }
 
 

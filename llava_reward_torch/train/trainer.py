@@ -7,8 +7,9 @@ As in the JAX package: evaluation works (the reference's crashes), resume
 really resumes (skipping the batches the saved state already consumed), and
 the margin is ``c_rate - r_rate`` under ``margin_loss``. The train-state
 checkpoint is ``torch.save`` of ``{step, trainable, opt_state}`` (the JAX
-package's orbax layout is its own, not the contract). Not here: the mesh /
-sharded-batch arguments (multi-card runs) and wandb logging.
+package's orbax layout is its own, not the contract). ``wandb_logger``, when
+given, receives the train and eval logs (``trainer.py:190-210,299-303``).
+Not here: the mesh / sharded-batch arguments (multi-card runs).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class RewardTrainer:
     def __init__(
         self,
         *,
-        cfg,  # Phi3VConfig, or Qwen25VLConfig with model_type="qwen"
+        cfg,  # Phi3VConfig, Qwen25VLConfig ("qwen") or LlavaNextConfig ("llava")
         rcfg: RewardConfig,
         frozen: dict,
         trainable: dict,
@@ -68,6 +69,7 @@ class RewardTrainer:
         lora_targets: Optional[tuple] = None,
         ckpt_path: Optional[str] = None,
         ckpt_steps: int = -1,
+        wandb_logger=None,
         device=DEFAULT_DEVICE,
     ):
         self.cfg, self.rcfg = cfg, rcfg
@@ -87,12 +89,14 @@ class RewardTrainer:
         self.save_best_model = save_best_model
         self.best_eval_acc = float("-inf")
         if model_type not in PROJECTOR_PATHS:
-            raise NotImplementedError(f"model_type {model_type!r}: phi3v and qwen train here")
+            raise NotImplementedError(
+                f"model_type {model_type!r}: the families are {sorted(PROJECTOR_PATHS)}")
         self.model_type = model_type
         # the trained target list rides into adapter_config.json, so a qwen
-        # run never advertises phi3's fused targets (``trainer.py:102-105``)
+        # or llava run never advertises phi3's fused targets (``trainer.py:102-105``)
         self.lora_targets = lora_targets or (
-            QWEN_TARGETS if model_type == "qwen" else DEFAULT_TARGETS)
+            DEFAULT_TARGETS if model_type == "phi3v" else QWEN_TARGETS)
+        self.wandb = wandb_logger
         self.ckpt_path, self.ckpt_steps = ckpt_path, ckpt_steps
         self.last_train_logs: Dict[str, float] = {}
         if save_best_model and eval_loader is None and eval_steps == -1:
@@ -151,6 +155,9 @@ class RewardTrainer:
                     self.last_train_logs = dict(logs, global_step=global_step)
                     logger.info("epoch %d step %d %s", epoch, global_step,
                                 " ".join(f"{k}={v:.4f}" for k, v in logs.items()))
+                    if self.wandb is not None:
+                        self.wandb.log({f"train/{k}": v for k, v in logs.items()}
+                                       | {"train/global_step": global_step})
                 if eval_steps and eval_steps > 0 and global_step % eval_steps == 0:
                     self.evaluate(global_step)
                 if global_step % save_steps == 0:
@@ -161,6 +168,8 @@ class RewardTrainer:
                     self.save_train_ckpt(self.ckpt_path)
                 global_step += 1
             self.save_artifact(os.path.join(self.save_path, f"epoch_{epoch}"))
+        if self.wandb is not None:
+            self.wandb.finish()
         return self.state
 
     # ------------------------------------------------------------ eval
@@ -179,8 +188,11 @@ class RewardTrainer:
         if self.cls_based:
             rewards, labels = [], []
             for b, y in self.eval_loader:
-                r = self._score(params, lora, vision_lora, b)
-                rewards.extend(r.float().cpu().reshape(-1).tolist())
+                # the first reward dimension, as the cls loss and the batch
+                # scorer read it (the JAX trainer flattens a GPM head's
+                # (B, 2) rewards against B labels: ROADMAP §C)
+                r = self._score(params, lora, vision_lora, b)[..., 0]
+                rewards.extend(r.float().cpu().tolist())
                 labels.extend(torch.as_tensor(y).reshape(-1).tolist())
             pm = pointwise_metrics(rewards, labels)
             metrics = {"eval_acc": pm["accuracy"], "eval_f1": pm["f1"],
@@ -205,6 +217,9 @@ class RewardTrainer:
             self.best_eval_acc = acc
             self.save_artifact(os.path.join(self.save_path, "best"))
             logger.info("new best eval_acc=%.4f -> saved %s/best", acc, self.save_path)
+        if self.wandb is not None:
+            self.wandb.log({f"eval/{k}": v for k, v in metrics.items()}
+                           | {"eval/global_step": global_step})
         return metrics
 
     # ------------------------------------------------------------ saving
@@ -212,12 +227,12 @@ class RewardTrainer:
     def save_artifact(self, path: str) -> None:
         """pytorch_model.bin (heads + projector) + lora/ + reward_config.yaml
         (``trainer.py:331-451``); under full fine-tuning also the whole
-        phi3v backbone as an HF-layout checkpoint in ``full_model/`` (a qwen
-        backbone is not exported, as in the JAX package)."""
+        phi3v backbone as an HF-layout checkpoint in ``full_model/`` (a qwen or
+        llava backbone is not exported, as in the JAX package)."""
         trainable = self.state.trainable
         lora_state = lora_config = None
         if trainable.get("lora") is not None and self.lora_rank > 0:
-            dec_cfg = self.cfg.text if self.model_type == "qwen" else self.cfg.decoder
+            dec_cfg = self.cfg.decoder if self.model_type == "phi3v" else self.cfg.text
             lora_state = stacked_to_peft_state(trainable["lora"], dec_cfg)
             lora_config = peft_adapter_config(self.lora_rank, self.lora_alpha, self.lora_dropout,
                                               targets=tuple(self.lora_targets))

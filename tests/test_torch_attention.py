@@ -164,3 +164,56 @@ def test_fused_dispatch_routes_like_jax(B, H, D, route):
     ref = tatt.fused_rope_attention(qkv, cos, sin, impl="xla", **kw)
     valid = mask.bool().numpy()
     np.testing.assert_allclose(fused.numpy()[valid], ref.numpy()[valid], rtol=TOL, atol=TOL)
+
+
+def test_small_head_dims_run_the_kernels_zero_padded(monkeypatch):
+    """On the card a head_dim the kernels do not take (a tiny config's 16)
+    runs B3 and B8 zero-padded to 64, as the Pallas kernels pad it to a lane
+    width (flash_attention.py:329-343): the output and the gradients equal
+    the JAX function's at head_dim 16. The launches are stood in for here
+    by the plain versions, which record the head_dim they are given."""
+    assert [tfa.padded_head_dim(d) for d in (8, 16, 64, 72, 80, 96, 128, 160)] == \
+        [64, 64, 64, 80, 80, 96, 128, 160]
+    seen = []
+
+    def fwd(qt, kt, vt, kv_start, causal, window, scale, q_len, key_mask=None, segments=False):
+        seen.append(("fa_hm", qt.shape[-1]))
+        return tfa.flash_fwd_hm_plain(qt, kt, vt, kv_start, causal=causal,
+                                      sliding_window=window, scale=scale, q_len=q_len,
+                                      key_mask=key_mask, segments=segments)
+
+    def bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_mask=None,
+            segments=False):
+        seen.append(("fa_bwd", qt.shape[-1]))
+        return tfa.flash_bwd_plain(qt, kt, vt, gt, kv_start, causal=causal,
+                                   sliding_window=window, scale=scale, q_len=q_len,
+                                   key_mask=key_mask, segments=segments)
+
+    monkeypatch.setattr(tfa, "on_card", lambda t: True)
+    monkeypatch.setattr(tfa, "_launch_fa_hm", fwd)
+    monkeypatch.setattr(tfa, "_launch_fa_bwd", bwd)
+    rng = np.random.default_rng(5)
+    B, S, H, D = 2, 96, 2, 16
+    q, k, v, g = (_np(rng, B, S, H, D) for _ in range(4))
+    mask = np.ones((B, S), np.int32)
+    mask[1, :23] = 0
+    g = g * mask[:, :, None, None]  # zero on left-pad rows, as on the training path
+    ts = [_t(x).requires_grad_() for x in (q, k, v)]
+    out = tfa.flash_attention(*ts, causal=True, key_padding_mask=_t(mask))
+    assert out.shape == (B, S, H, D)
+    (out * _t(g)).sum().backward()
+    assert seen == [("fa_hm", 64), ("fa_bwd", 64)]
+
+    import jax
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=True, key_padding_mask=jnp.asarray(mask))
+        return (o * g).sum(), o
+
+    (_, ref), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    valid = mask.astype(bool)  # left-pad query rows depend on the keys visited
+    np.testing.assert_allclose(out.detach().numpy()[valid], np.asarray(ref)[valid],
+                               rtol=TOL, atol=TOL)
+    for t, r in zip(ts, grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=TOL, atol=TOL)

@@ -1,0 +1,265 @@
+"""The port's command lines against the JAX package's, on the CPU:
+
+- ``python -m llava_reward_torch.train_llava_reward`` in its smoke mode (no
+  ``--pretrain``: the tiny config and the crc32 word tokenizer) on
+  ``data/sample_test`` writes an artifact that the JAX ``load_reward_adaptor``
+  reads, with the port's loader scoring the same batch within 2.03e-05
+  (PARITY.md); the JAX train CLI's smoke artifact loads in the port the same
+  way. phi3v (LoRA on DEFAULT_TARGETS, projector) and llava (LoRA on
+  QWEN_TARGETS, ``multi_modal_projector``);
+- ``python -m llava_reward_torch.eval_batch_inference`` on that artifact over a
+  base checkpoint without tokenizer files (the hash-tokenizer fallback; its
+  ids differ between processes, so both CLIs run in this one): the four
+  sample pairs' rewards row by row within eight bf16 steps of the largest
+  (both score in bf16), the same decisions beyond that gap, the mean
+  probability within one step;
+- the pointwise objective on ``data/Unsafebench`` rows (sniffed from the rows);
+- the unported options refuse with the ROADMAP item that brings them, and
+  ``--device`` defaults to cuda, which raises on a machine without one.
+
+JAX twins: tests/test_safety_pointwise_data.py (the pointwise train CLI),
+tests/test_llava_adaptor.py and tests/test_artifact_io.py (artifacts).
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import eval_batch_inference as j_eval_cli
+import train_llava_reward as j_train_cli
+from llava_reward_tpu.core.args import build_train_parser as j_train_parser
+from llava_reward_tpu.core.config import llava_tiny_config, phi3v_tiny_config
+from llava_reward_tpu.evalx import adaptor as jad
+from llava_reward_tpu.io.hf_phi3v import hf_state_dict_from_params as j_phi3v_sd
+from llava_reward_tpu.io.torch_io import save_torch_state_dict as j_save_sd
+from llava_reward_tpu.models import llava_next as jllava
+from llava_reward_tpu.models import phi3v as jphi3v
+from llava_reward_torch import eval_batch_inference as t_eval_cli
+from llava_reward_torch import train_llava_reward as t_train_cli
+from llava_reward_torch.evalx import adaptor as tad
+from test_llava_adaptor import _llava_hf_sd
+from test_torch_llava import _config_json as _llava_config_json
+from test_torch_llava import _pair_fields, _stacked
+from test_torch_llava import _jb as _llava_jb
+from test_torch_llava import _tb as _llava_tb
+from test_torch_loading import _phi3v_config_json
+from test_torch_reward import N_IMG, _batch, _jb, _tb
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PAIRS = os.path.join(ROOT, "data/sample_test/pairwise_sample.json")
+UNSAFE = os.path.join(ROOT, "data/Unsafebench/Unsafebench_train.json")
+PARITY_BAR = 2.03e-05
+# both eval CLIs score in bf16 (their compute dtype): probabilities near 0.5
+# agree to one bf16 step, 2**-8; rewards to eight such steps of the largest
+# (the two round their bf16 activations at different points; the ids of the
+# hash tokenizer, and so the gap, change with each process's hash seed)
+BF16_STEP = 2.0 ** -8
+BF16_REWARD_TOL = 8 * BF16_STEP
+SMOKE = ["--dataset", PAIRS, "--max_epochs", "1", "--micro_train_batch_size", "2",
+         "--is_general_preference", "--value_head_dim", "2", "--lora_rank", "4",
+         "--lora_alpha", "8", "--ft_projector", "--num_workers", "2"]
+SEQ = {"phi3v": "1024", "llava": "2048"}
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
+
+
+@pytest.fixture(scope="module")
+def bases(tmp_path_factory):
+    """Base checkpoints (HF keys, config.json, no tokenizer files) of the
+    smoke mode's tiny configs, from the JAX init."""
+    root = tmp_path_factory.mktemp("bases")
+    out = {}
+    for name, cfg, init, to_sd, cj in (
+            ("phi3v", phi3v_tiny_config(num_crops=4), jphi3v.init_params, j_phi3v_sd,
+             _phi3v_config_json),
+            ("llava", llava_tiny_config(), jllava.init_params, _llava_hf_sd,
+             _llava_config_json)):
+        d = root / name
+        os.makedirs(d)
+        params = _np(init(jax.random.PRNGKey(7), cfg))
+        j_save_sd(to_sd(params, cfg), str(d / "pytorch_model.bin"), torch.float32)
+        with open(d / "config.json", "w") as f:
+            json.dump(cj(cfg), f)
+        out[name] = str(d)
+    return out
+
+
+def _port_train(tmp, model_type, extra=()):
+    t_train_cli.main(["--model_type", model_type, *SMOKE, "--seq_len", SEQ[model_type],
+                      "--save_path", str(tmp / "save"), "--ckpt_path", str(tmp / "ckpt"),
+                      "--device", "cpu", *extra])
+    return str(tmp / "save" / "epoch_0")
+
+
+def _score_both(base, pm, model_type, **kw):
+    """Both packages' loaders on (base, pm) and their rewards on one batch."""
+    ja = jad.load_reward_adaptor(base, pm, model_type=model_type, **kw)
+    ta = tad.load_reward_adaptor(base, pm, model_type=model_type, device="cpu", **kw)
+    if model_type == "phi3v":
+        ja.rcfg.layer_id = ta.rcfg.layer_id = ja.cfg.decoder.num_layers
+        fields = _batch(ja.cfg, [0, 25], [N_IMG, N_IMG - 40])
+        jb, tb = _jb(fields), _tb(fields)
+    else:
+        ja.rcfg.layer_id = ta.rcfg.layer_id = ja.cfg.text.num_layers
+        fields = _stacked([_pair_fields(ta.cfg, [(50, 900), (120, 700)], seed=2)])
+        jb, tb = _llava_jb(fields), _llava_tb(fields)
+    j = np.asarray(ja.make_score_fn()(ja.params, jb))
+    t = ta.make_score_fn()(ta.params, tb).numpy()
+    return j, t
+
+
+@pytest.mark.parametrize("model_type", ["phi3v", "llava"])
+def test_port_train_cli_artifact_loads_in_both_packages(model_type, bases, tmp_path):
+    pm = _port_train(tmp_path, model_type)
+    for f in ("pytorch_model.bin", "reward_config.yaml", "lora/adapter_config.json",
+              "lora/adapter_model.bin"):
+        assert os.path.exists(os.path.join(pm, f)), f
+    with open(os.path.join(pm, "lora", "adapter_config.json")) as f:
+        targets = set(json.load(f)["target_modules"])
+    assert targets == set(tad.DEFAULT_TARGETS if model_type == "phi3v" else tad.QWEN_TARGETS)
+    sd = torch.load(os.path.join(pm, "pytorch_model.bin"), weights_only=True)
+    proj = "img_projection" if model_type == "phi3v" else "multi_modal_projector.linear_1"
+    assert any(proj in k for k in sd), sorted(sd)
+    assert os.path.exists(tmp_path / "ckpt" / "train_state.pt")
+    j, t = _score_both(bases[model_type], pm, model_type)
+    assert np.isfinite(t).all()
+    np.testing.assert_allclose(t, j, rtol=0, atol=PARITY_BAR)
+
+
+def test_jax_train_cli_artifact_loads_in_the_port(bases, tmp_path):
+    """The JAX CLI shards its batch over the suite's eight virtual devices, so
+    the four sample pairs make no full step: it writes its initial trainables
+    (heads, LoRA, projector), which is the artifact's format all the same."""
+    args = j_train_parser().parse_args(
+        ["--model_type", "phi3v", *SMOKE, "--seq_len", SEQ["phi3v"],
+         "--save_path", str(tmp_path / "save"), "--ckpt_path", str(tmp_path / "ckpt")])
+    j_train_cli.train(args)
+    pm = str(tmp_path / "save" / "epoch_0")
+    j, t = _score_both(bases["phi3v"], pm, "phi3v")
+    np.testing.assert_allclose(t, j, rtol=0, atol=PARITY_BAR)
+
+
+@pytest.fixture(scope="module")
+def phi3v_artifact(tmp_path_factory):
+    return _port_train(tmp_path_factory.mktemp("artifact"), "phi3v")
+
+
+def test_eval_cli_matches_the_jax_cli(bases, phi3v_artifact, monkeypatch, capsys):
+    """The four sample pairs, one stacked call of eight rows (the loaded
+    config's 16 crops, as the published one has: sequences of 2944): every
+    row's reward from both CLIs, which score in bf16, within eight bf16 steps
+    of the largest; the same decisions wherever that gap cannot flip them, and
+    the mean probability within one bf16 step. (The accuracies are not
+    compared: both take the probabilities in bf16, where the ties at 0.5
+    depend on each package's rounding.)"""
+    seen = {"jax": [], "torch": []}
+
+    def recording(cls, name, to_np):
+        make = cls.make_score_fn
+
+        def make_score_fn(self, *a, **kw):
+            fn = make(self, *a, **kw)
+
+            def score(params, batch):
+                r = fn(params, batch)
+                seen[name].append(to_np(r))
+                return r
+
+            return score
+
+        monkeypatch.setattr(cls, "make_score_fn", make_score_fn)
+
+    recording(jad.RewardAdaptor, "jax", lambda r: np.asarray(r, np.float32))
+    recording(tad.RewardAdaptor, "torch", lambda r: r.float().numpy())
+    argv = ["--pretrain", bases["phi3v"], "--pm_path", phi3v_artifact, "--dataset", PAIRS,
+            "--micro_batch_size", "4", "--seq_len", "2944", "--num_workers", "1"]
+    tm = t_eval_cli.main([*argv, "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["eval_batch_inference.py", *argv, "--attn_impl", "xla"])
+    capsys.readouterr()
+    j_eval_cli.main()
+    out = capsys.readouterr().out
+    assert "hash tokenizer" in out  # the base has no tokenizer files: the smoke fallback
+    jm = json.loads(out[out.index("{"):])
+    assert tm["num_pairs"] == jm["num_pairs"] == 4
+    (j,), (t,) = seen["jax"], seen["torch"]
+    assert j.shape == t.shape == (8, 2)
+    tol = BF16_REWARD_TOL * np.abs(j).max()
+    np.testing.assert_allclose(t, j, rtol=0, atol=tol)
+    # the GPM decision, sign(c0 r1 - c1 r0), of every pair that a change of
+    # each reward by up to tol cannot flip
+    s_j = j[:4, 0] * j[4:, 1] - j[:4, 1] * j[4:, 0]
+    s_t = t[:4, 0] * t[4:, 1] - t[:4, 1] * t[4:, 0]
+    held = np.abs(s_j) > tol * (np.abs(j[:4]).sum(1) + np.abs(j[4:]).sum(1)) + 2 * tol ** 2
+    assert held.sum() >= 2, (s_j, tol)
+    assert ((s_j > 0) == (s_t > 0))[held].all(), (s_j, s_t)
+    assert tm["mean_prob"] == pytest.approx(jm["mean_prob"], abs=BF16_STEP)
+
+
+def test_pointwise_rows_train_the_cls_objective(tmp_path):
+    """UnsafeBench rows (the reference's pointwise schema, extra keys and
+    all) are sniffed as pointwise: the classification objective trains and
+    its artifact lands."""
+    _port_train(tmp_path, "phi3v", ["--dataset", UNSAFE, "--image_root",
+                                    os.path.join(ROOT, "data"), "--max_samples", "6",
+                                    "--train_split_ratio", "0.67"])
+    pm = tmp_path / "save" / "epoch_0"
+    assert os.path.exists(pm / "pytorch_model.bin")
+    with open(pm / "reward_config.yaml") as f:
+        assert "is_general_preference" in f.read()
+
+
+@pytest.mark.parametrize("flags, item", [(["--load_in_8bit"], "A6"), (["--load_in_4bit"], "A6"),
+                                         (["--mesh_dp", "2"], "A7"), (["--mesh_tp", "2"], "A7")])
+def test_unported_train_options_name_their_roadmap_item(flags, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        _port_train(tmp_path, "phi3v", flags)
+
+
+def test_more_than_one_process_names_a7(tmp_path, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="A7"):
+        _port_train(tmp_path, "phi3v")
+
+
+def test_device_defaults_to_cuda(bases, phi3v_artifact, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the default device is valid here")
+    assert t_train_cli.build_parser().parse_args([]).device == "cuda"
+    assert t_eval_cli.build_parser().parse_args(["--pm_path", "x", "--dataset", "y"]).device == \
+        "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_train_cli.main(["--dataset", PAIRS, "--save_path", str(tmp_path / "s"),
+                          "--ckpt_path", str(tmp_path / "c")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_eval_cli.main(["--pretrain", bases["phi3v"], "--pm_path", phi3v_artifact,
+                         "--dataset", PAIRS])
+
+
+def test_wandb_stays_optional_and_gets_the_logs(tmp_path, monkeypatch):
+    """--use_wandb imports wandb lazily: absent, the run goes on with a
+    warning; present (a stand-in module here), it gets the run's config and
+    the train and eval logs, and is finished."""
+    import types
+
+    calls = []
+    fake = types.SimpleNamespace(init=lambda **kw: calls.append(("init", kw)),
+                                 log=lambda d: calls.append(("log", d)),
+                                 finish=lambda: calls.append(("finish", None)))
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    _port_train(tmp_path / "with", "phi3v", ["--use_wandb", "1", "--wandb_project", "p"])
+    assert calls[0][0] == "init" and calls[0][1]["project"] == "p"
+    logged = [d for kind, d in calls if kind == "log"]
+    assert any("train/preference_loss" in d for d in logged)
+    assert any("eval/eval_acc" in d for d in logged)
+    assert calls[-1] == ("finish", None)
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb raises ImportError
+    _port_train(tmp_path / "without", "phi3v", ["--use_wandb", "1"])
+    assert os.path.exists(tmp_path / "without" / "save" / "epoch_0" / "pytorch_model.bin")

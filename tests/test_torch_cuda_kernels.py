@@ -22,7 +22,8 @@ key, so a pad query leaking into a valid key otherwise than in the plain
 version shows; and two launches on the same inputs, which may differ by one
 bf16 rounding of a gradient (fp32 sums in the order blocks finish), and
 not at all in dk / dv without GQA. Every raw launch refuses an input that
-requires grad. W8A8:
+requires grad; a head_dim below the kernels' (16) runs them zero-padded to
+64, as the Pallas kernels pad to a lane width. W8A8:
 B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
 the streaming B4 / B9 at widths 128-5120 on one row, a prime row count and
 10007 rows (the ring wraps), bf16 weights read as their f32 widening, and the
@@ -474,6 +475,33 @@ def test_attention_functions_run_forward_and_backward_kernels(gen):
     fa.flash_attention(q, k, v).float().sum().backward()
     assert fa.LAUNCHES["fa_hm"] == 1 and fa.LAUNCHES["fa_bwd"] == 1
     assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+def test_small_head_dims_run_the_kernels_zero_padded(gen):
+    """A tiny config's head_dim 16 runs B3 and B8 at 64, zero-padded, and
+    matches the plain route at 16; an fp32 input still raises."""
+    q, k, v = (_randn(gen, 2, 256, 2, 16) for _ in range(3))
+    mask = torch.ones(2, 256, dtype=torch.int32, device="cuda")
+    mask[1, :29] = 0
+    g = _randn(gen, 2, 256, 2, 16) * mask[:, :, None, None]
+    outs, grads = [], []
+    for plain in (False, True):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_counters()
+        out = fa.flash_attention(*ts, causal=True, key_padding_mask=mask, plain=plain)
+        (out.float() * g.float()).sum().backward()
+        if not plain:
+            assert fa.LAUNCHES["fa_hm"] == 1 and fa.LAUNCHES["fa_bwd"] == 1
+        outs.append(out.float())
+        grads.append([t.grad.float() for t in ts])
+    valid = mask.bool()
+    assert outs[0].shape == (2, 256, 2, 16)
+    assert ((outs[0] - outs[1]).abs()[valid] <= ATOL + RTOL * outs[1].abs()[valid]).all()
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 2 ** -7 * b.abs().max().item() + 2 ** -8 * \
+            b.abs().max().item()
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention(q.float(), k.float(), v.float(), causal=True)
 
 
 def test_raw_launches_refuse_inputs_that_require_grad(gen):

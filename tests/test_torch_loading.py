@@ -547,7 +547,8 @@ def test_registry_matches_jax(monkeypatch):
             assert j.make_processor(QTok(), j.tiny_config()).device_preproc is want
         monkeypatch.delenv("LRT_DEVICE_PREPROC")
         assert t.make_processor(QTok(), cfg).device_preproc is True
-    with pytest.raises(NotImplementedError, match="A4"):
-        t_family("llava")
+    t, j = t_family("llava"), j_family("llava")  # LLaVA-NeXT: tests/test_torch_llava.py
+    for field in ("name", "lora_targets", "projector_path", "supports_skipca"):
+        assert getattr(t, field) == getattr(j, field), ("llava", field)
     with pytest.raises(ValueError, match="unknown model_type"):
         t_family("gpt")

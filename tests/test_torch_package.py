@@ -4,7 +4,8 @@
   ``jax`` and ``llava_reward_tpu`` made unimportable;
 - no file of the port, nor ``chip_smoke.py``, names them in an import;
 - an entry point called with its default device on a machine without CUDA
-  raises instead of running on the CPU;
+  raises instead of running on the CPU, the command lines run with
+  ``python -m`` included;
 - a kernel wrapper handed a tensor on the card launches its kernel or
   raises: it never falls back to the plain version.
 """
@@ -115,6 +116,54 @@ def test_qwen_entry_points_raise_without_cuda():
         qwen25_vl.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="cuda"):
         init_head_params(cfg, RewardConfig(), torch.Generator())
+
+
+def test_serving_and_llava_entry_points_raise_without_cuda(tmp_path):
+    """The tenth slice's entry points follow the same device rule: LLaVA-NeXT's
+    model and adaptor, the server, the quick-start scorer and both CLIs."""
+    _no_cuda()
+    from llava_reward_torch import eval_batch_inference, train_llava_reward
+    from llava_reward_torch.core.config import RewardConfig, llava_tiny_config
+    from llava_reward_torch.evalx import server, simple_inference
+    from llava_reward_torch.evalx.adaptor import RewardAdaptor
+    from llava_reward_torch.models import llava_next
+
+    cfg = llava_tiny_config()
+    with pytest.raises(RuntimeError, match="cuda"):
+        RewardAdaptor(cfg, RewardConfig(), {}, model_type="llava")
+    with pytest.raises(RuntimeError, match="cuda"):
+        llava_next.init_params(cfg, torch.Generator())
+    ckpt = ["--pretrain", str(tmp_path), "--pm_path", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        server.main(ckpt)
+    with pytest.raises(RuntimeError, match="cuda"):
+        simple_inference.main([*ckpt, "--caption", "c", "--images", "a.png"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_batch_inference.main([*ckpt, "--dataset", "rows.json"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_llava_reward.main(["--dataset", "rows.json", "--save_path", str(tmp_path)])
+
+
+@pytest.mark.parametrize("module", ["llava_reward_torch.train_llava_reward",
+                                    "llava_reward_torch.eval_batch_inference"])
+def test_python_m_entry_points_refuse_the_cpu_default_without_jax(module, tmp_path):
+    """``python -m`` of each command line, with ``jax`` and the JAX package
+    made unimportable: it gets as far as the device rule and stops there."""
+    _no_cuda()
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = [{module!r}, '--pm_path', {str(tmp_path)!r}, '--dataset', 'rows.json']\n"
+        f"if {module!r}.endswith('train_llava_reward'):\n"
+        f"    sys.argv = [{module!r}, '--dataset', 'rows.json', '--save_path', {str(tmp_path)!r}]\n"
+        f"runpy.run_module({module!r}, run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "torch.cuda.is_available() is False" in out.stderr, \
+        out.stderr[-2000:]
 
 
 def test_card_tensor_never_takes_the_plain_version(monkeypatch):

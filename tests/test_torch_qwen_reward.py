@@ -228,5 +228,7 @@ def test_adaptor_checks_the_model_type(tiny):
     _, tcfg, _, tr, _, tt = tiny
     with pytest.raises(ValueError, match="Qwen25VLConfig"):
         RewardAdaptor(tconfig.phi3v_tiny_config(), tr, tt, model_type="qwen", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="LlavaNextConfig"):
         RewardAdaptor(tcfg, tr, tt, model_type="llava", device="cpu")
+    with pytest.raises(ValueError, match="unknown model_type"):
+        RewardAdaptor(tcfg, tr, tt, model_type="gpt", device="cpu")

@@ -171,8 +171,9 @@ def test_lane_aligned_slice_through_plain_kernels_matches_pallas():
 
 def test_other_families_and_u8_pixels_wait_for_their_slices(tiny):
     """Qwen2.5-VL is ported (its parity tests: tests/test_torch_qwen_*.py): a
-    text-only qwen batch scores like the JAX package's. LLaVA-NeXT (slice 6)
-    still raises. phi3v's u8 device pixels are ported
+    text-only qwen batch scores like the JAX package's. LLaVA-NeXT is ported
+    too (tests/test_torch_llava.py); a config of no family raises. phi3v's
+    u8 device pixels are ported
     (tests/test_torch_pixels.py, test_torch_sample_e2e.py); a u8 bank
     without its crop grid is refused, as the JAX package asserts."""
     jcfg, tcfg, jr, tr, jtree, ttree = tiny
@@ -195,7 +196,7 @@ def test_other_families_and_u8_pixels_wait_for_their_slices(tiny):
     t = t_reward(to_torch(qtree, device="cpu"), qt, qr[1],
                  TBatch(*[None if f is None else torch.from_numpy(f) for f in fields]))
     np.testing.assert_allclose(t.reward.numpy(), np.asarray(j.reward), rtol=0, atol=PARITY_BAR)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="families"):
         t_reward(ttree, object(), tr, _tb(_batch(jcfg, [0], [N_IMG])))
     fields = list(_batch(jcfg, [0], [N_IMG]))
     fields[2] = np.zeros(fields[2].shape, np.uint8)

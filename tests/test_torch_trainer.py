@@ -319,6 +319,6 @@ def test_jax_qwen_artifact_loads_into_the_port(qwen, tmp_path):
 
 def test_trainer_refuses_a_family_it_cannot_train(qwen):
     jcfg, tcfg, jr, tr, *_ = qwen
-    with pytest.raises(NotImplementedError, match="llava"):
+    with pytest.raises(NotImplementedError, match="gpt"):
         RewardTrainer(cfg=tcfg, rcfg=tr, frozen={}, trainable={"head": {}}, tx=toptim.make_optimizer(
-            1e-3, 2), loss_fn=None, train_loader=[], model_type="llava", device="cpu")
+            1e-3, 2), loss_fn=None, train_loader=[], model_type="gpt", device="cpu")

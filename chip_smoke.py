@@ -29,14 +29,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      the LLaVA-NeXT-13B decoder's shapes (B1 and B8 at 40 heads x 128 MHA,
      RoPE, causal, seq 2976, B1's shared memory at head_dim 128 held to the
      card's limit, B1 timed at B=8 too; B4-B6 and the GEMM at 8 x 2976 rows
-     of 5120 / 13824);
+     of 5120 / 13824); and at this slice's new callers' shapes: B3's segment
+     mode over a video's four temporal slices (2, 16, 5120, 80), B6 and the
+     dynamic GEMM at the W8A8 LoRA steps' rows (qwen 2 x 1792, LLaVA
+     2 x 2976), and _Int8LinearCore there (forward through B6 + the GEMM,
+     backward on the tensor cores against the fp32 product);
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
      pairs at B=8, seq 2560, 16+1 crops (B1 in the decoder); B1 runs in the
      CLIP tower for both. The launch counters must show every kernel on
      that path, and the B=2 rewards must match the same forward through the
-     plain versions;
+     plain versions; a value head on the requests' two principal
+     directions, and every pair's decision the same on the kernels, the
+     plain versions and the reference attention (and, in phase 5, in bf16,
+     the decoder W8A8 and the tower W8A8 too);
   5. the same requests with the decoder quantized W8A8 on the card
      (--load_in_8bit; CLIP stays bf16): B4 x2, B5, B6 and four int8 GEMMs per
      decoder layer, counted and checked the same way; then with the CLIP
@@ -77,8 +84,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      llava_reward_torch.eval_batch_inference over [load]'s phi3v checkpoint in
      bf16 and with --load_in_8bit, python -m llava_reward_torch.train_llava_reward
      in its smoke mode on the card (--bf16: the tiny config's head_dim 16
-     and 8 run B3 / B8 zero-padded to 64), and the eval CLI on the artifact
-     it wrote; each command line's own kernel launches, as it prints them;
+     and 8 run B3 / B8 zero-padded to 64), the eval CLI on the artifact it
+     wrote, and the train CLI over [load]'s checkpoint (a word tokenizer
+     written beside it) with --load_in_8bit --bf16 --gradient_checkpointing;
+     each command line's own kernel launches, as it prints them;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -93,7 +102,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      decoder W8A8 (B4 x2, B5, o_proj's B6 + GEMM, four GEMMs per layer).
      From one input, the vision tower and decoder layer 0 (bf16, W8A8)
      through the kernels against the plain versions; a B=8 request's time
-     split between the vision tower and the decoder layers;
+     split between the vision tower and the decoder layers. Then [video]:
+     four pairs of seeded u8 videos (16 frames of 360 x 480 at video_fps 4:
+     8 frames, grid (4, 26, 34), 884 video tokens) through
+     Qwen25VLProcessor(videos=...), B=2 and B=8 on both trees, B3's segment
+     mode over four ids in the full blocks, a value head on the video rows'
+     principal directions, every decision the same across routes and trees;
   6. LoRA training at full width and depth (random bf16 backbone, fp32 heads
      and LoRA r=128, alpha=256 on qkv/o/gate_up/down, AdamW 2e-4 cosine with
      3 % warmup over 100 steps, remat on): one step through the kernels and
@@ -109,7 +123,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      B2/B3 forward and remat recompute, B2 + B8 in every layer's backward),
      one 4-pair step (B=8, seq 2944: B1 in the decoder), one --train_vision
      step (CLIP LoRA: B3 + B8 in the tower; 4 decoder layers), and a
-     RewardTrainer.fit of two steps whose artifact is read back;
+     RewardTrainer.fit of two steps whose artifact is read back; between
+     them, the same LoRA over the decoder quantized W8A8 and NF4 on the card
+     (a layer at a time): decoder layer 0's gradients through the kernels
+     against the plain versions, the loss against the plain route, two
+     steps with their launches (W8A8: B6 + the GEMM a projection, forward
+     and remat recompute), s/step and peak beside bf16;
   6q. Qwen2.5-VL-7B training on the separate q/k/v, gate/up layout (LoRA rides
      there). LoRA at full width and depth: fp32 heads, LoRA r=128 on
      QWEN_TARGETS and the merger as --ft_projector's projector, remat on; the
@@ -120,7 +139,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      trainable leaves, kernels against plain versions); five make_train_step
      steps (counted: B3 in the four full vision blocks, B3 forward and remat
      recompute and B8 in left-pad mode at GQA 28/4 in each of the 28 layers, no
-     B2: the separate layout ropes in torch); one B=8 step; a two-step
+     B2: the separate layout ropes in torch); four more steps with the
+     allocator's state after each and one under torch.profiler (the device's
+     busy share, the kernels by device time); the same LoRA over the decoder
+     W8A8 (seven projections a layer); one B=8 step; a two-step
      RewardTrainer.fit(model_type="qwen") whose artifact (heads, merger,
      QWEN_TARGETS adapters) is read back, merged, fused and scored through
      phase 5q's route. Then full fine-tuning through the vision tower: no LoRA,
@@ -139,7 +161,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain versions (bf16, W8A8); one decoder layer's LoRA gradients (B3 /
      B8 at 40 x 128 MHA); LoRA steps at B=2 (r=128, alpha 256 on
      QWEN_TARGETS, fp32 heads and LoRA, remat), with launch counts, s/step
-     and the peak GiB;
+     and the peak GiB, then the same over the decoder in W8A8 (the bf16
+     layers released once quantized);
   7. one JSON line listing every kernel, then the result line.
 
 Depths and repetitions are as in the earlier slices; the script's time has
@@ -210,7 +233,8 @@ from llava_reward_torch.train.train_step import (PROJECTOR_PATHS, assemble_param
                                                  make_train_step)
 from llava_reward_torch.train.trainer import RewardTrainer
 from llava_reward_torch.utils.profiling import kernel_launches as launches
-from llava_reward_torch.utils.quantize import quantize_stacked_layers
+from llava_reward_torch.utils.quantize import (W8A8_KEY, int8_linear, quantize_array_w8a8,
+                                               quantize_stacked_layers)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores (data sheet)
@@ -299,15 +323,19 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_SLICE_TOL, LAYER_GRAD_TOL = 5e-3, 0.25, 0.
 SCALE_IDENTITY_TOL = 2e-4
 FLOOR_FACTOR = 1.5  # phase 6q: a leaf's bound is at least this times its own drift floor
 # phase 3's scale-bias reading of B1, B3 and B8: with p(s) the plain version at
-# the launch's softmax scale s and d = p(SCALE_STEP s) - p(s) on valid rows,
-# r = <kernel - p(s), d> / <d, d> (fp64; B8 over dq, dk and dv together). A
-# kernel whose scale is off by a factor (1 + e) reads about e / (SCALE_STEP -
-# 1); rounding noise projects onto d to near 0 over millions of elements.
-# On an H100 (tools/scale_leaf_readings.py --controls, seeds 0-3, every shape
-# of phase 3) the sound kernels read +0.016 to +0.037 (B1, B3; the same at
-# every seed) and |r| < 1e-4 (B8); a planted x1.003 read 0.303-0.315, x1.01
-# 0.963-1.000, q/k in fp8 -0.12 to -0.18. The bound keeps 4x from the sound
-# readings and 6.4x below x1.01; x1.003 reads 2x over it (PERF.md §6).
+# the launch's softmax scale s and d = q(SCALE_STEP s) - q(s) on valid rows,
+# r = <kernel - p(s), d> / <d, d> (fp64; B8 over dq, dk and dv together). q is
+# the plain version on the same inputs widened to fp32 (B1, B3), so that d
+# carries no bf16 rounding of the output; B8's outputs are fp32 already, and
+# there q = p. A kernel whose scale is off by a factor (1 + e) reads about
+# e / (SCALE_STEP - 1); rounding noise projects onto d to near 0 over millions
+# of elements. With d taken from the bf16 outputs p instead, the sound B1
+# and B3 read +0.016 to +0.037 at every seed: p's own output rounding sits in
+# both kernel - p and d. Against an fp64 softmax kernel and plain version
+# each read |r| <= 0.0016 (tools/scale_leaf_readings.py --fp64, PERF.md §6).
+# On an H100 (--controls, seeds 0-3, every shape of phase 3) a planted x1.003
+# read 0.303-0.315, x1.01 0.963-1.000, q/k in fp8 -0.12 to -0.18, B8 sound
+# |r| < 1e-4. The bound sits 6.4x below x1.01; x1.003 reads 2x over it.
 SCALE_STEP = 1.01
 SCALE_BIAS_TOL = 0.15
 LORA_R, LORA_ALPHA, LR, TOTAL_STEPS = 128, 256, 2e-4, 100
@@ -522,12 +550,13 @@ def check_direct(name, gen, B, S, H, D, causal, rope, kv_start, q_len, cfg):
     run = lambda: fa._fused_qkv_attention_direct(qkv, cos, sin, kv, **kw)  # noqa: E731
     out = run()
     ref = fa.fa_direct_plain(qkv, cos, sin, kv, **kw)
-    ref2 = fa.fa_direct_plain(qkv, cos, sin, kv, **{**kw, "scale": kw["scale"] * SCALE_STEP})
+    q32 = [fa.fa_direct_plain(qkv.float(), cos, sin, kv, **{**kw, "scale": kw["scale"] * f})
+           for f in (1, SCALE_STEP)]
     torch.cuda.synchronize()
     valid = _leftpad_rows(kv_start, S, dev) & (torch.arange(S, device=dev) < q_len)[None]
     err, within = _attn_err(out[valid], ref[valid])
-    r = _scale_bias([(out[valid], ref[valid], ref2[valid])])
-    del ref2
+    r = _scale_bias([(out[valid], ref[valid], *(t[valid] for t in q32))])
+    del q32
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(run)
     plain_ms = time_ms(lambda: fa.fa_direct_plain(qkv, cos, sin, kv, **kw), iters=2, warmup=1)
@@ -580,12 +609,14 @@ def check_prep_and_hm(gen, cfg):
     args = (kv, None, True, None, D ** -0.5)
     run = lambda: fa._flash_fwd_hm(q, k, v, *args, q_len=S)  # noqa: E731
     out = run()
-    ref, ref2 = (fa.flash_fwd_hm_plain(q, k, v, kv, causal=True, sliding_window=None,
-                                       scale=D ** -0.5 * f, q_len=S) for f in (1, SCALE_STEP))
+    ref, *q32 = (fa.flash_fwd_hm_plain(*(t.to(dt) for t in (q, k, v)), kv, causal=True,
+                                       sliding_window=None, scale=D ** -0.5 * f, q_len=S)
+                 for dt, f in ((q.dtype, 1), (torch.float32, 1), (torch.float32, SCALE_STEP)))
     torch.cuda.synchronize()
     valid = _leftpad_rows(kv_start, S, dev)  # (B, S) query rows
     err, within = _attn_err(out.transpose(1, 2)[valid], ref.transpose(1, 2)[valid])
-    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, ref2))])
+    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, *q32))])
+    del q32
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(run)
     plain_ms = time_ms(lambda: fa.flash_fwd_hm_plain(
@@ -638,26 +669,30 @@ def _segment_pairs(seg):
     return n
 
 
-def check_hm_segments(gen):
+def check_hm_segments(gen, rows=None, what="qwen vision"):
     """B3's segment mode at the Qwen2.5-VL vision tower's full-attention
     blocks, B=8: 16 heads x 80 over 1280 patches, one row with 272 pad slots
-    among them (a 28 x 36 image windowized), non-causal."""
+    among them (a 28 x 36 image windowized), non-causal; or over the segment
+    id ``rows`` given (a video's: one id per temporal slice)."""
     dev = "cuda"
-    B, H, S, D = 8, 16, QWEN_PATCHES, 80
-    rows = [windowize(QWEN_GRIDS[0])[1]] * (B - 1) + [windowize(QWEN_GRIDS[1])[1]]
+    if rows is None:
+        rows = [windowize(QWEN_GRIDS[0])[1]] * 7 + [windowize(QWEN_GRIDS[1])[1]]
     seg = torch.from_numpy(np.stack(rows).astype(np.int32)).to(dev)
+    (B, S), H, D = seg.shape, 16, 80
     q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
                for _ in range(3))
     kv0 = torch.zeros(B, dtype=torch.int32, device=dev)
     kw = dict(causal=False, sliding_window=None, scale=D ** -0.5, q_len=S)
     run = lambda: fa._flash_fwd_hm(q, k, v, kv0, seg, segments=True, **kw)  # noqa: E731
     out = run()
-    ref, ref2 = (fa.flash_fwd_hm_plain(q, k, v, kv0, key_mask=seg, segments=True,
-                                       **{**kw, "scale": kw["scale"] * f}) for f in (1, SCALE_STEP))
+    ref, *q32 = (fa.flash_fwd_hm_plain(*(t.to(dt) for t in (q, k, v)), kv0, key_mask=seg,
+                                       segments=True, **{**kw, "scale": kw["scale"] * f})
+                 for dt, f in ((q.dtype, 1), (torch.float32, 1), (torch.float32, SCALE_STEP)))
     torch.cuda.synchronize()
     valid = seg != 0  # a pad patch's query has no key; its row must be finite
     err, within = _attn_err(out.transpose(1, 2)[valid], ref.transpose(1, 2)[valid])
-    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, ref2))])
+    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, *q32))])
+    del q32
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(run)
     plain_ms = time_ms(lambda: fa.flash_fwd_hm_plain(q, k, v, kv0, key_mask=seg, segments=True,
@@ -666,11 +701,13 @@ def check_hm_segments(gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=D ** -0.5))
     b_ms, b_by = bound_ms(4 * D * H * _segment_pairs(seg), 2 * 4 * B * H * S * D + 4 * B * S)
-    return _report(f"B3 fa_hm segments qwen vision ({B},{H},{S},{D})", "fa_hm", err,
+    ids = sorted(set(seg[-1].unique().tolist()) - {0})
+    return _report(f"B3 fa_hm segments {what} ({B},{H},{S},{D})", "fa_hm", err,
                    ATTN_TOL_TEXT, within, finite, ms, plain_ms, lib_ms, b_ms, b_by,
-                   f"non-causal, segment ids, row {B - 1}: {int(valid[-1].sum())} valid of {S}; "
-                   f"pad rows finite {finite}; library: SDPA, boolean mask; "
-                   f"{_earlier(ms, B3_EARLIER_MS['segments'])}", r=r)
+                   f"non-causal, segment ids {ids}, row {B - 1}: {int(valid[-1].sum())} valid "
+                   f"of {S}; pad rows finite {finite}; library: SDPA, boolean mask; "
+                   f"{_earlier(ms, B3_EARLIER_MS['segments'] if what == 'qwen vision' else None)}",
+                   r=r)
 
 
 def check_hm_gqa(gen, qcfg):
@@ -686,12 +723,14 @@ def check_hm_gqa(gen, qcfg):
     kw = dict(causal=True, sliding_window=None, scale=D ** -0.5, q_len=S)
     run = lambda: fa._flash_fwd_hm(q, k, v, kv, None, **kw)  # noqa: E731
     out = run()
-    ref, ref2 = (fa.flash_fwd_hm_plain(q, k, v, kv, **{**kw, "scale": kw["scale"] * f})
-                 for f in (1, SCALE_STEP))
+    ref, *q32 = (fa.flash_fwd_hm_plain(*(t.to(dt) for t in (q, k, v)), kv,
+                                       **{**kw, "scale": kw["scale"] * f})
+                 for dt, f in ((q.dtype, 1), (torch.float32, 1), (torch.float32, SCALE_STEP)))
     torch.cuda.synchronize()
     valid = _leftpad_rows(kv_start, S, dev)
     err, within = _attn_err(out.transpose(1, 2)[valid], ref.transpose(1, 2)[valid])
-    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, ref2))])
+    r = _scale_bias([tuple(t.transpose(1, 2)[valid] for t in (out, ref, *q32))])
+    del q32
     finite = bool(torch.isfinite(out).all())
     ms = time_ms(run)
     plain_ms = time_ms(lambda: fa.flash_fwd_hm_plain(q, k, v, kv, **kw), iters=2, warmup=1)
@@ -714,14 +753,15 @@ def _attn_err(out, ref):
     return diff.max().item(), within
 
 
-def _scale_bias(triples):
-    """The scale-bias reading r over (kernel, p(s), p(SCALE_STEP s)) triples
-    already cut to their valid rows, accumulated in fp64."""
+def _scale_bias(items):
+    """The scale-bias reading r over (kernel, p(s), p(SCALE_STEP s)) triples,
+    or (kernel, p(s), q(s), q(SCALE_STEP s)) with d taken from q, already
+    cut to their valid rows, accumulated in fp64."""
     num = den = 0.0
-    for k, p, p2 in triples:
-        p = p.double()
-        d = p2.double() - p
-        num += float(((k.double() - p) * d).sum())
+    for k, p, *qs in items:
+        lo, hi = (p, qs[0]) if len(qs) == 1 else qs
+        d = hi.double() - lo.double()
+        num += float(((k.double() - p.double()) * d).sum())
         den += float((d * d).sum())
     return num / den
 
@@ -1104,7 +1144,79 @@ def phase_kernels(cfg, qcfg):
     # left out of the kernels line, whose rows keep the shapes of the runs
     # before LLaVA came, so that each kernel's series reads on
     check_llava_kernels(gen, LlavaNextConfig())
+    check_new_callers(gen, qcfg, LlavaNextConfig())
     return rows
+
+
+def check_new_callers(gen, qcfg, lcfg):
+    """The shapes at which this slice's paths call the kernels anew, held
+    like the rest of phase 3 and left out of the kernels line: B3's segment
+    mode over a video's four temporal slices ([video]: 2 x 5120 patch slots,
+    3536 valid a row); and, under autograd in the W8A8 LoRA steps, B6 and the
+    dynamic GEMM at the training rows (B=2: qwen 2 x 1792, LLaVA 2 x 2976) of
+    the q projection, with _Int8LinearCore's forward and backward there."""
+    from llava_reward_torch.preprocess.qwen_video import windowize_video
+
+    seg = windowize_video(VIDEO_GRID, qcfg.vision.window_size)[1]
+    check_hm_segments(gen, [seg, seg], "qwen video")
+    torch.cuda.empty_cache()
+    for name, dcfg, M in (("qwen", qcfg.text, 2 * QWEN_SEQ), ("LLaVA", lcfg.text, 2 * LLAVA_SEQ)):
+        H = dcfg.hidden_size
+        x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
+        _codes_report(f"B6 row_quant {name} training ({M},{H}) bf16", "row_quant",
+                      qe.row_quant(x), qe.row_quant_plain(x), time_ms(lambda: qe.row_quant(x)),
+                      time_ms(lambda: qe.row_quant_plain(x), iters=3, warmup=1),
+                      M * H * 2 + M * H + M * 4, 4 * M * H, f"zero rows every {M // 4}")
+        _check_gemm_shapes(gen, M, (H, dcfg.q_size), ())
+        _check_int8_core(gen, name, M, H, dcfg.q_size)
+        torch.cuda.empty_cache()
+
+
+def _check_int8_core(gen, name, M, K, N):
+    """_Int8LinearCore (utils/quantize.int8_linear) at a training shape: the
+    forward through B6 + the GEMM equal to the plain versions', and the
+    backward dx = (dy * scale) @ w^T, bf16 operands with an fp32 result on the
+    tensor cores, against the fp32 product of the same bf16 operands rounded
+    to bf16: each element within one bf16 ulp plus 2^-16 of the sum of its
+    terms' magnitudes (two fp32 summation orders differ by about
+    sqrt(K) 2^-24 of that sum; a split-K reduction through bf16 partial sums
+    would read some 2^-9 of it). Both timed."""
+    qd = quantize_array_w8a8(torch.randn(K, N, generator=gen, device="cuda") * 0.02)
+    x = torch.randn(M, K, generator=gen, device="cuda", dtype=torch.bfloat16)
+    dy = torch.randn(M, N, generator=gen, device="cuda", dtype=torch.bfloat16)
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    reset_counters()
+    yk, yp = int8_linear(xk, qd), int8_linear(xp, qd, plain=True)
+    ran = {k: v for k, v in launches().items() if v}
+    (dxk,) = torch.autograd.grad(yk, [xk], dy)
+    (dxp,) = torch.autograd.grad(yp, [xp], dy)
+    dys = (dy.float() * qd["scale"]).to(torch.bfloat16).float()
+    wf = qd[W8A8_KEY].float()
+    ref = (dys @ wf.t()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    diff = (dxk.float() - ref.float()).abs()
+    terms = dys.abs() @ wf.abs().t()
+    within = bool((diff <= ref.float().abs() * 2.0 ** -7 + terms * 2.0 ** -16).all())
+    share = (diff > 0).float().mean().item()
+    worst = (diff / terms.clamp_min(1e-30)).max().item()
+    ok = (torch.equal(yk, yp) and torch.equal(dxk, dxp) and within
+          and ran == {"row_quant": 1, "int8_matmul": 1})
+
+    def bwd():
+        return torch.autograd.grad(int8_linear(xk, qd), [xk], dy)
+
+    bwd_ms = time_ms(bwd, iters=5) - time_ms(lambda: int8_linear(x, qd), iters=5)
+    f32_ms = time_ms(lambda: dys @ wf.t(), iters=5)
+    say("kernel", f"_Int8LinearCore {name} training ({M},{K})x({K},{N}): forward through "
+        f"{ran} equal to the plain versions {torch.equal(yk, yp)}; backward bf16 x bf16 -> "
+        f"fp32 against the fp32 product rounded to bf16: max |diff| {diff.max().item():.3e}, "
+        f"{share:.2e} of elements differ, at most {worst:.2e} of the sum of their terms' "
+        f"magnitudes; each within one bf16 ulp + 2^-16 of that sum {within}; backward "
+        f"{bwd_ms:.4f} ms beside the fp32 product's {f32_ms:.4f} ms ("
+        f"{2 * M * K * N / max(bwd_ms, 1e-9) / 1e9:.1f} TFLOP/s; fp32 peak 67) -> "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"_Int8LinearCore {name}: forward or backward disagrees ({ran})")
 
 
 def check_llava_kernels(gen, lcfg):
@@ -1270,6 +1382,7 @@ def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps, model_
         f"same decision {bool(((p_x > 0.5) == (p_p > 0.5)).all())}")
     if gap > tol or not same:
         fail(f"{tag}: B=2 rewards through the kernels disagree with the plain versions")
+    _same_decisions(tag, {"kernels": r2, "plain": rp, "reference": rx}, 1, rcfg)
     return total, (r2, r8), timing
 
 
@@ -1287,6 +1400,8 @@ def phase_serve(cfg, rcfg, reps=3):
     seq = 2560
     req2 = make_request(cfg, gen, 1, seq, {1: 40})
     req8 = make_request(cfg, gen, 4, seq, {})
+    params["head"], spread = _principal_head(cfg, rcfg, params, [req2, req8])
+    _say_head("serve", "the B=2 and B=8 requests'", spread)
     n_clip = cfg.vision.num_active_layers
     n_dec = cfg.decoder.num_layers
     # per request: B1 in CLIP; B2 x3 + B3 (B=2) or B1 (B=8) in the decoder
@@ -1339,6 +1454,9 @@ def phase_serve(cfg, rcfg, reps=3):
             f"{rt.float().cpu().numpy().round(6).tolist()} beside decoder W8A8 "
             f"{rq.float().cpu().numpy().round(6).tolist()} (same weights; for information); "
             f"{tw_t[name]:.4f} s/request beside {w8_t[name]:.4f} and bf16 {bf16_t[name]:.4f}")
+    for i, (name, pairs) in enumerate((("B=2", 1), ("B=8", 4))):
+        _same_decisions("w8a8-tower", {"bf16": bf16_r[i], "decoder W8A8": w8_r[i],
+                                       "tower + decoder W8A8": tw_r[i]}, pairs, rcfg)
     _clip_tower_check(cfg, clip, qclip, req2, req8)
     del qparams, tparams, qclip
     torch.cuda.empty_cache()
@@ -1390,9 +1508,10 @@ PARITY_BAR = 2.03e-05  # PARITY.md: max reward gap of two f32 routes
 class SmokeTok:
     """A word tokenizer of the smoke's own: crc32 of each word into the
     vocabulary, ``<|image_pad|>`` (Qwen2.5-VL) and ``<image>`` (LLaVA-NeXT)
-    the image id, and chat templates of the lengths the dataset layer slices
-    (Phi-3's 22-character assistant cue; Qwen2.5-VL's 58-character system
-    preamble and 23-character cue)."""
+    the image id, ``<|video_pad|>`` Qwen2.5-VL's video id, and chat
+    templates of the lengths the dataset layer slices (Phi-3's 22-character
+    assistant cue; Qwen2.5-VL's 58-character system preamble and 23-character
+    cue)."""
 
     eos_token = "<|endoftext|>"
 
@@ -1401,6 +1520,7 @@ class SmokeTok:
 
     def __call__(self, text):
         return {"input_ids": [self.image_token_id if w in ("<|image_pad|>", "<image>") else
+                              Qwen25VLProcessor.VIDEO_TOKEN_ID if w == "<|video_pad|>" else
                               3 + zlib.crc32(w.encode()) % (self.vocab_size - 16)
                               for w in text.split()]}
 
@@ -1850,6 +1970,8 @@ def phase_serve_qwen(qcfg, reps=3):
     say("qwen", f"requests: seq {QWEN_SEQ}, u8 patches {tuple(req8.pixel_values.shape)}, "
         f"B=2 valid patches {req2.patch_valid.ne(0).sum(1).tolist()}, units "
         f"{req2.num_img_tokens.tolist()}, left pad {(1 - req2.attention_mask).sum(1).tolist()}")
+    params["head"], spread = _principal_head(qcfg, rcfg, params, [req2, req8])
+    _say_head("qwen", "the B=2 and B=8 requests'", spread)
     n_dec, n_full = tc.num_layers, len(vc.fullatt_block_indexes)
     # per request: B2 x3 + B3 in each decoder layer, B3 (segments) in each
     # full-attention vision block; the 64-patch windows stay on the reference
@@ -1886,8 +2008,93 @@ def phase_serve_qwen(qcfg, reps=3):
     for name in ("B=2", "B=8"):
         say("qwen-w8a8", f"{name}: W8A8 {w8_t[name]:.4f} s/request beside bf16 "
             f"{bf16_t[name]:.4f}")
+    for i, (name, pairs) in enumerate((("B=2", 1), ("B=8", 4))):
+        _same_decisions("qwen-w8a8", {"bf16": bf16_r[i], "W8A8": w8_r[i]}, pairs, rcfg)
     _qwen_part_checks(qcfg, params, qparams, req2)
     _qwen_time_split(qcfg, params, qparams, req8, bf16_t["B=8"], w8_t["B=8"])
+    video = phase_video(qcfg, rcfg, params, qparams, reps)
+    return {k: bf16_launches[k] + w8_launches[k] + video[k] for k in bf16_launches}
+
+
+VIDEO_SHAPE = (16, 360, 480)  # frames, height, width of each seeded u8 video
+VIDEO_FPS = 4.0
+VIDEO_GRID = (4, 26, 34)  # 8 frames sampled, resized to 364 x 476
+VIDEO_PATCHES, VIDEO_UNITS = 4 * 20 * 64, 4 * 13 * 17  # 20 windows a slice; 884 video tokens
+
+
+def _video_requests(qcfg):
+    """Four pairs of seeded u8 videos (16 frames of 360 x 480 at video_fps 4:
+    8 frames sampled, each resized to 364 x 476, grid (4, 26, 34), 884 video
+    tokens, 20 windows of 64 patch slots in each temporal slice, padded)
+    through Qwen25VLProcessor(videos=...) at seq 1792, the rejected rows
+    left-padded by 40. Returns the B=2 request (the first pair), the B=8 one
+    (c0..c3, r0..r3) and the host seconds a video took."""
+    tc, vc = qcfg.text, qcfg.vision
+    proc = Qwen25VLProcessor(SmokeTok(tc.vocab_size, tc.image_token_id),
+                             window_size=vc.window_size, image_token_id=tc.image_token_id)
+    rng = np.random.default_rng(7)
+    vids = [rng.integers(0, 256, (*VIDEO_SHAPE, 3), dtype=np.uint8) for _ in range(8)]
+    t0 = time.perf_counter()
+    samples = []
+    for j, v in enumerate(vids):
+        fill = QWEN_SEQ - (40 if j >= 4 else 0) - VIDEO_UNITS
+        text = " ".join(["<|video_pad|>"] + [f"w{i}" for i in range(fill)])
+        samples.append(proc(text, videos=[{"video": v, "video_fps": VIDEO_FPS}]))
+    host_s = (time.perf_counter() - t0) / len(vids)
+    for smp in samples:
+        ids = sorted(np.unique(smp.patch_valid).tolist())
+        if (smp.grid_thw != VIDEO_GRID or smp.num_img_tokens != VIDEO_UNITS
+                or smp.patches.shape[0] != VIDEO_PATCHES or ids != [0, 1, 2, 3, 4]):
+            fail(f"video: sample grid {smp.grid_thw}, {smp.num_img_tokens} tokens, "
+                 f"{smp.patches.shape[0]} patch slots, segment ids {ids}")
+    pad = tc.pad_token_id
+
+    def batch(rows):
+        return to_reward_batch(collate_qwen_samples(rows, QWEN_SEQ, pad, VIDEO_PATCHES,
+                                                    VIDEO_UNITS), device="cuda")
+
+    return batch([samples[0], samples[4]]), batch(samples), host_s
+
+
+def phase_video(qcfg, rcfg, params, qparams, reps=3):
+    """[video]: Qwen2.5-VL-7B scoring videos on phase 5q's trees (bf16, and
+    the decoder W8A8), B=2 and B=8 on the kernel route, the B=2 rewards
+    against the plain route and the reference attention; a value head on the
+    video rows' principal directions; every pair's decision the same across
+    the routes and the two trees. Per request: B2 x3 + B3 in each decoder
+    layer, B3 in segment mode (four nonzero ids, one a temporal slice) in
+    the four full-attention vision blocks; W8A8 adds B4 x2, B5, B6 and four
+    GEMMs a layer."""
+    t_phase = time.perf_counter()
+    tc, vc = qcfg.text, qcfg.vision
+    n_dec, n_full = tc.num_layers, len(vc.fullatt_block_indexes)
+    v2, v8, host_s = _video_requests(qcfg)
+    say("video", f"requests: 8 seeded u8 videos of {VIDEO_SHAPE[0]} frames {VIDEO_SHAPE[1]} x "
+        f"{VIDEO_SHAPE[2]} at video_fps {VIDEO_FPS:g} through Qwen25VLProcessor(videos=...): "
+        f"{host_s:.3f} s of host preparation a video (frame sampling, bicubic resize, patches, "
+        f"windows); grid {VIDEO_GRID}, {VIDEO_UNITS} video tokens, f32 patches "
+        f"{tuple(v8.pixel_values.shape)}, segment ids {sorted(v8.patch_valid.unique().tolist())}, "
+        f"{int(v2.patch_valid[0].ne(0).sum())} valid of {VIDEO_PATCHES} slots a row, left pad "
+        f"B=2 {(1 - v2.attention_mask).sum(1).tolist()}")
+    head, spread = _principal_head(qcfg, rcfg, params, [v2, v8])
+    _say_head("video", "the video rows'", spread)
+    vp, vq = {**params, "head": head}, {**qparams, "head": head}
+    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full}
+    w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
+          "int8_matmul": 4 * n_dec}
+    torch.cuda.reset_peak_memory_stats()
+    bf16_launches, bf16_r, bf16_t = serve_and_check(
+        "video", qcfg, rcfg, vp, v2, v8, attn, attn, reps, "qwen", QWEN_REWARD_TOL)
+    w8_launches, w8_r, w8_t = serve_and_check(
+        "video-w8a8", qcfg, rcfg, vq, v2, v8, {**attn, **w8}, {**attn, **w8}, reps, "qwen",
+        QWEN_W8A8_REWARD_TOL)
+    for i, (name, pairs) in enumerate((("B=2", 1), ("B=8", 4))):
+        _same_decisions("video-w8a8", {"bf16": bf16_r[i], "W8A8": w8_r[i]}, pairs, rcfg)
+        say("video", f"{name}: bf16 {bf16_t[name]:.4f} s/request ({pairs / bf16_t[name]:.3f} "
+            f"pairs/s), W8A8 {w8_t[name]:.4f} s/request; host preparation "
+            f"{2 * pairs * host_s:.3f} s for the request's videos")
+    say("video", f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (bf16 and W8A8 trees "
+        f"held); phase {time.perf_counter() - t_phase:.1f} s")
     return {k: bf16_launches[k] + w8_launches[k] for k in bf16_launches}
 
 
@@ -2096,17 +2303,22 @@ def _over(errs, floor, tol, factor):
     return {k: v for k, v in errs.items() if v > max(tol, factor * floor.get(k, 0.0))}
 
 
-def _loss_and_grads(loss_fn, trainable, frozen, chosen, rejected):
+def _loss_and_grads(loss_fn, trainable, frozen, chosen, rejected, probs=None):
+    """The loss and the gradients of every trainable leaf; the preference
+    probability is appended to ``probs`` where one is given."""
     leaves = [t.requires_grad_() for t in tree_leaves(trainable)]
-    loss, _ = loss_fn(trainable, frozen, chosen, rejected)
+    loss, m = loss_fn(trainable, frozen, chosen, rejected)
+    if probs is not None:
+        probs.append(m["prob"].detach().float().reshape(-1))
     return loss.detach().float(), torch.autograd.grad(loss, leaves)
 
 
-def _layer_parity(cfg, frozen, trainable, batch, gen):
+def _layer_parity(cfg, frozen, trainable, batch, gen, label="bf16"):
     """Decoder layer 0 at full width, B=2, seq 2560, one row left-padded:
     the gradients of its input and its LoRA leaves through the kernels and
     through the plain versions, from one input and one upstream gradient,
-    with the reference attention's distance from the plain versions beside."""
+    with the reference attention's distance from the plain versions beside
+    (``label``: the frozen weights' form, bf16 or a quantized one)."""
     dcfg = cfg.decoder
     mask = torch.ones(2, batch.input_ids.shape[1], dtype=torch.int32, device="cuda")
     mask[1, :40] = 0
@@ -2133,14 +2345,15 @@ def _layer_parity(cfg, frozen, trainable, batch, gen):
     floor = {n: _rel_err(a, b) for n, a, b in zip(names, grads["xla"], grads["plain"])}
     tensors = _tensor_leaves(rels)
     worst = max(tensors, key=tensors.get)
-    say("train", f"one decoder layer {tuple(h.shape)}, kernels vs plain versions: worst relative "
-        f"L2 gradient error {rels[worst]:.3e} at {worst} (tol {LAYER_GRAD_TOL:g}, tensor leaves; "
-        f"the scale leaves for information); kernels (reference attention): "
+    say("train", f"one decoder layer {label} {tuple(h.shape)}, kernels vs plain versions: "
+        f"worst relative L2 gradient error {rels[worst]:.3e} at {worst} (tol "
+        f"{LAYER_GRAD_TOL:g}, tensor leaves; the scale leaves for information); kernels "
+        f"(reference attention): "
         + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in rels.items()))
     values = dict(_named_leaves(lora))
     cond = [_scale_leaf_errors(names, grads[r], grads["plain"], values) for r in ("auto", "xla")]
-    say("train", "one decoder layer, the scale leaves' conditioned error (for information), "
-        "kernels (reference attention): "
+    say("train", f"one decoder layer {label}, the scale leaves' conditioned error (for "
+        "information), kernels (reference attention): "
         + ", ".join(f"{k} {v:.2e} ({cond[1][k]:.2e})" for k, v in cond[0].items()))
     _check_identity("train", names, {"kernels": grads["auto"], "plain": grads["plain"],
                                      "reference": grads["xla"]}, values)
@@ -2149,13 +2362,18 @@ def _layer_parity(cfg, frozen, trainable, batch, gen):
         fail("train: one layer's gradients through the kernels disagree with the plain versions")
 
 
-def _timed_steps(step, state, frozen, chosen, rejected, n):
+def _timed_steps(step, state, frozen, chosen, rejected, n, mallocs=None):
+    """``n`` steps: their losses, grad norms and seconds; with ``mallocs`` a
+    list, each step's cudaMalloc calls by the caching allocator are added."""
     losses, norms, times = [], [], []
     for _ in range(n):
+        before = torch.cuda.memory_stats().get("num_device_alloc", 0)
         t0 = time.perf_counter()
         state, m = step(state, frozen, chosen, rejected)
         loss, gn = m["preference_loss"].item(), m["grad_norm"].item()  # waits for the card
         times.append(time.perf_counter() - t0)
+        if mallocs is not None:
+            mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - before)
         losses.append(loss)
         norms.append(gn)
         if not (math.isfinite(loss) and math.isfinite(gn)):
@@ -2169,6 +2387,68 @@ def _expect(tag, got, want):
         fail(f"{tag}: launches {got} != {want}")
 
 
+QUANT_SCHEMES = {"W8A8": dict(scheme="w8a8"), "NF4": dict(bits=4, scheme="nf4")}
+
+
+def _quant_lora_steps(tag, scheme, frozen, dec, trainable, make_loss, chosen, rejected, per,
+                      n_proj, n_dec, layer_check, bf16, release=False):
+    """LoRA over the frozen decoder quantized ``scheme`` on the card, one
+    layer at a time (the train CLI's --load_in_8bit / --load_in_4bit): decoder
+    layer 0's gradients through the kernels against the plain versions
+    (``layer_check``, the bf16 one-layer bounds and the scale identity), the
+    loss of one pair through the kernels against the plain route, then two
+    make_train_step steps, counted: ``per`` attention launches a step, and
+    under W8A8 each of the ``n_proj`` projections of a layer through B6 + the
+    GEMM in the forward and again in the remat recompute. ``bf16``: the bf16
+    steps' loss, s/step and peak, printed beside. ``release``: the float
+    layers leave ``frozen`` once quantized (the caller needs them no more)."""
+    t0 = time.perf_counter()
+    bb = frozen["backbone"]
+    layers = quantize_stacked_layers(bb[dec]["layers"], **QUANT_SCHEMES[scheme])
+    qfrozen = {"backbone": {**bb, dec: {**bb[dec], "layers": layers}}}
+    if release:
+        bb[dec]["layers"] = layers
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(layers))
+    say(tag, f"{scheme}: decoder layers quantized on the card one layer at a time in {q_s:.1f} "
+        f"s, {nbytes / 1e9:.3f} GB of codes and scales; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    layer_check(qfrozen)
+    with torch.no_grad():
+        lk = make_loss("auto")(trainable, qfrozen, chosen, rejected)[0].float().item()
+        before = launches()
+        lp = make_loss("plain")(trainable, qfrozen, chosen, rejected)[0].float().item()
+        torch.cuda.synchronize()
+        if launches() != before:
+            fail(f"{tag} {scheme}: the plain route launched a kernel")
+    tx = make_optimizer(LR, TOTAL_STEPS)
+    step = make_train_step(make_loss("auto"), tx)
+    state = init_train_state(trainable, tx)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()  # the quantized training path's run starts here
+    state, losses, norms, times = _timed_steps(step, state, qfrozen, chosen, rejected, 2)
+    counts = launches()  # ... and ends here
+    want = {k: 2 * v for k, v in per.items()}
+    if scheme == "W8A8":
+        want.update(row_quant=2 * 2 * n_proj * n_dec, int8_matmul=2 * 2 * n_proj * n_dec)
+    _expect(f"{tag} 2 LoRA steps B=2 over the {scheme} decoder", counts, want)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(tag, f"{scheme} LoRA B=2: one pair's loss through the kernels {lk:.6f} vs the plain "
+        f"route {lp:.6f} (gap {abs(lk - lp):.3e}, tol {TRAIN_LOSS_TOL:g}); steps' loss "
+        f"{[round(x, 6) for x in losses]} grad_norm {[round(x, 4) for x in norms]} beside bf16 "
+        f"{[round(x, 6) for x in bf16['loss'][:2]]}; {times[1]:.4f} s/step (second step; first "
+        f"{times[0]:.4f}) beside bf16 {bf16['s']:.4f}; peak {peak:.2f} GiB beside bf16 "
+        f"{bf16['peak']:.2f}; launches B6 {counts['row_quant']}, B7 {counts['int8_matmul']}, "
+        f"B8 {counts['fa_bwd']}")
+    if abs(lk - lp) > TRAIN_LOSS_TOL or not math.isfinite(lk):
+        fail(f"{tag} {scheme}: the loss through the kernels disagrees with the plain route")
+    del state, step, qfrozen, layers
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_train(cfg, rcfg, steps=5):
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2178,7 +2458,14 @@ def phase_train(cfg, rcfg, steps=5):
     say("train", f"random bf16 backbone + fp32 head and LoRA r={LORA_R} ({n_lora / 1e6:.1f} M "
         f"LoRA params), {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     n_clip, n_dec = cfg.vision.num_active_layers, cfg.decoder.num_layers
-    chosen, rejected = _halves(make_request(cfg, gen, 1, 2560, {1: 40}), 1)
+    req2 = make_request(cfg, gen, 1, 2560, {1: 40})
+    req8 = make_request(cfg, gen, 4, 2944, {7: 40})
+    chosen, rejected = _halves(req2, 1)
+    c8, r8 = _halves(req8, 4)
+    params, lora, _ = assemble_params(frozen, trainable)
+    trainable["head"], spread = _principal_head(cfg, rcfg, params, [req2, req8], lora=lora)
+    _say_head("train", "the B=2 and B=8 steps'", spread, True)
+    del params, lora, req8
 
     # one step's loss and gradients through the kernels, through the plain
     # versions and through the reference attention, from the same state
@@ -2200,13 +2487,25 @@ def phase_train(cfg, rcfg, steps=5):
     per = {"fa_direct": n_clip, "prep": 3 * n_dec * 3, "fa_hm": 2 * n_dec, "fa_bwd": n_dec}
     _expect(f"{steps} steps B=2", counts, {k: steps * v for k, v in per.items()})
     med = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     say("train", f"B=2 seq 2560: loss per step {[round(x, 6) for x in losses]}, grad_norm "
         f"{[round(x, 4) for x in norms]}; {med:.4f} s/step (median after one warm step, "
-        f"{[round(t, 4) for t in times]}), {1 / med:.3f} pairs/s; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{[round(t, 4) for t in times]}), {1 / med:.3f} pairs/s; peak {peak:.2f} GiB")
+    # the same LoRA over the decoder in W8A8 and in NF4 (--load_in_8bit,
+    # --load_in_4bit): the four projections a layer
+    bf16 = {"loss": losses, "s": med, "peak": peak}
+    del state
+    for scheme in QUANT_SCHEMES:
+        got = _quant_lora_steps(
+            "train", scheme, frozen, "decoder", trainable,
+            lambda impl: make_pairwise_loss_fn(cfg, rcfg, attn_impl=impl, remat=True), chosen,
+            rejected, per, 4, n_dec,
+            lambda qf, scheme=scheme: _layer_parity(cfg, qf, trainable, chosen, gen, scheme),
+            bf16)
+        counts = {k: counts[k] + got[k] for k in counts}
+    state = init_train_state(trainable, tx)
 
     # the published micro-batch: 4 pairs (B=8) at seq 2944, B1 in the decoder
-    c8, r8 = _halves(make_request(cfg, gen, 4, 2944, {7: 40}), 4)
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     state, l8, n8, t8 = _timed_steps(step, state, frozen, c8, r8, 1)
@@ -2284,13 +2583,21 @@ def _route_parity(tag, make_loss, trainable, frozen, chosen, rejected, stacked, 
     leaf to leaf. The one-number LoRA scale leaves are held to their identity
     on every route (``_check_identity``); their errors against the plain
     route are printed."""
-    lk, gk = _loss_and_grads(make_loss("auto"), trainable, frozen, chosen, rejected)
+    probs = []
+    lk, gk = _loss_and_grads(make_loss("auto"), trainable, frozen, chosen, rejected, probs)
     before = launches()
-    lp, gp = _loss_and_grads(make_loss("plain"), trainable, frozen, chosen, rejected)
-    lx, gx = _loss_and_grads(make_loss("xla"), trainable, frozen, chosen, rejected)
+    lp, gp = _loss_and_grads(make_loss("plain"), trainable, frozen, chosen, rejected, probs)
+    lx, gx = _loss_and_grads(make_loss("xla"), trainable, frozen, chosen, rejected, probs)
     torch.cuda.synchronize()
     if launches() != before:
         fail(f"{tag}: the plain-route or reference step launched a kernel")
+    decided = [bool((p > 0.5).all()) for p in probs]
+    say(tag, f"preference probability per pair, kernels / plain / reference: "
+        f"{[p.cpu().numpy().round(6).tolist() for p in probs]}; every pair's decision the "
+        f"same on the three routes: {len(set(decided)) == 1}")
+    if any(not torch.equal(p > 0.5, probs[0] > 0.5) for p in probs):
+        fail(f"{tag}: a pair's decision differs between the kernels, the plain versions and "
+             "the reference attention")
     names = [n for n, _ in _named_leaves(trainable)]
     finite = all(bool(torch.isfinite(g).all()) for g in gk)
     (_, errs), (piece, slice_errs) = _grad_errors(names, gk, gp, stacked)
@@ -2326,7 +2633,7 @@ def _route_parity(tag, make_loss, trainable, frozen, chosen, rejected, stacked, 
     return slice_errs, floor_slices
 
 
-def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
+def _qwen_layer_parity(qcfg, frozen, trainable, req, gen, vision=True, label="bf16"):
     """At full width from one input and one upstream gradient, kernels
     against plain versions: decoder layer 0 on the separate layout with its
     LoRA slice (B3 / B8 in left-pad mode at GQA 28/4; the upstream gradient
@@ -2352,8 +2659,10 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
         if impl == "auto" and (fa.LAUNCHES["fa_hm"], fa.LAUNCHES["fa_bwd"]) != (1, 1):
             fail(f"train-qwen: decoder layer launches {fa.LAUNCHES}")
     names = ["h"] + [n for n, _ in _named_leaves(trainable["lora"])]
-    checks = [(f"decoder layer 0 {tuple(h.shape)}, LoRA on {len(trainable['lora'])} targets",
-               names, grads, dict(_named_leaves(lora)))]
+    checks = [(f"decoder layer 0 {label} {tuple(h.shape)}, LoRA on {len(trainable['lora'])} "
+               f"targets", names, grads, dict(_named_leaves(lora)))]
+    if not vision:
+        return _layer_checks(checks)
 
     i_full = vc.fullatt_block_indexes[0]
     vcos, vsin = qwen25_vl._vision_rope(req.rot_pos, vc.head_dim)
@@ -2374,6 +2683,12 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
     checks.append((f"full vision block {i_full} {tuple(hv.shape)}, segment ids, "
                    f"{int((req.patch_valid == 0).sum())} pad patches with a gradient",
                    ["h"] + [n for n, _ in _named_leaves(block)], grads, {}))
+    _layer_checks(checks)
+
+
+def _layer_checks(checks):
+    """Each (title, leaf names, (kernel grads, plain grads), scale values):
+    the worst tensor leaf within LAYER_GRAD_TOL, the scale identity held."""
     for title, names, (gk, gp), values in checks:
         rels = {n: _rel_err(a, b) for n, a, b in zip(names, gk, gp)}
         tensors = _tensor_leaves(rels)
@@ -2387,6 +2702,42 @@ def _qwen_layer_parity(qcfg, frozen, trainable, req, gen):
         if rels[worst] > LAYER_GRAD_TOL or not all(bool(torch.isfinite(g).all()) for g in gk):
             fail(f"train-qwen: the {title.split(',')[0]}'s gradients through the kernels "
                  "disagree with the plain versions")
+
+
+def _profile_steps(tag, step, state, frozen, chosen, rejected, n=4):
+    """Where a training step's time goes: ``n`` more steps with the memory
+    the caching allocator holds after each (a leak grows it step by step),
+    its cudaMalloc calls and the retries it made after freeing its cache
+    (each retry synchronises the card, a slow step's mark), then one step
+    under ``utils/profiling.trace``: the device's busy time against the
+    step's span, and the kernels by device time."""
+    from llava_reward_torch.utils.profiling import trace
+
+    rows = []
+    for _ in range(n):
+        before = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, chosen, rejected)
+        m["preference_loss"].item()
+        dt = time.perf_counter() - t0
+        after = torch.cuda.memory_stats()
+        rows.append((round(dt, 4), round(torch.cuda.memory_allocated() / 2**30, 3),
+                     after.get("num_device_alloc", 0) - before.get("num_device_alloc", 0),
+                     after["num_alloc_retries"] - before["num_alloc_retries"]))
+    say(tag, f"{n} more steps, each (s, GiB allocated after it, cudaMalloc calls, allocator "
+        f"retries): {rows}; reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp):
+            state, m = step(state, frozen, chosen, rejected)
+            m["preference_loss"].item()
+        dt = time.perf_counter() - t0
+        top, busy, span, n_ev = _device_top(os.path.join(tmp, "trace.json"), n=12)
+    say(tag, f"profile of one step (torch.profiler, CUDA activity; {dt:.4f} s with the "
+        f"profiler on): {n_ev} device events, device busy {busy:.2f} ms in a span of "
+        f"{span:.2f} ms (idle share {1 - busy / span:.3f}); the largest by device time: "
+        + "; ".join(f"{name[:70]} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in top))
+    return state
 
 
 def _qwen_trainable(qcfg, rcfg, gen, backbone):
@@ -2420,8 +2771,14 @@ def phase_train_qwen(qcfg, steps=5):
         f"successors (about 9 GB), remat inputs 26 MB per layer")
     rng = np.random.default_rng(0)
     req2 = qwen_request(qcfg, rng, QWEN_GRIDS, {1: 40})
+    req8 = qwen_request(qcfg, rng, [QWEN_GRIDS[0]] * 7 + [QWEN_GRIDS[1]], {7: 40})
     chosen, rejected = _halves(req2, 1)
+    c8, r8 = _halves(req8, 4)
     path = PROJECTOR_PATHS["qwen"]
+    params, lora, _ = assemble_params(frozen, trainable, path)
+    trainable["head"], spread = _principal_head(qcfg, rcfg, params, [req2, req8], lora=lora)
+    _say_head("train-qwen", "the B=2 and B=8 steps'", spread, True)
+    del params, lora
 
     def make_loss(impl):
         return make_pairwise_loss_fn(qcfg, rcfg, attn_impl=impl, remat=True,
@@ -2440,20 +2797,32 @@ def phase_train_qwen(qcfg, steps=5):
     step = make_train_step(kern_fn, tx)
     torch.cuda.reset_peak_memory_stats()
     reset_counters()  # the Qwen training path's run starts here
-    state, losses, norms, times = _timed_steps(step, state, frozen, chosen, rejected, steps)
+    mallocs = []
+    state, losses, norms, times = _timed_steps(step, state, frozen, chosen, rejected, steps,
+                                               mallocs)
     counts = launches()  # ... and ends here
     # the frozen tower is not recomputed; each decoder layer runs B3 forward
     # and again under remat, and B8 once; the separate layout ropes in torch
     per = {"fa_hm": n_full + 2 * n_dec, "fa_bwd": n_dec}
     _expect(f"{steps} qwen LoRA steps B=2", counts, {k: steps * v for k, v in per.items()})
     med = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     say("train-qwen", f"LoRA B=2 seq {QWEN_SEQ}: loss per step {[round(x, 6) for x in losses]}, "
         f"grad_norm {[round(x, 4) for x in norms]}; {med:.4f} s/step (median after one warm "
-        f"step, {[round(t, 4) for t in times]}), {1 / med:.3f} pairs/s; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"step, {[round(t, 4) for t in times]}; cudaMalloc calls a step {mallocs}), "
+        f"{1 / med:.3f} pairs/s; peak {peak:.2f} GiB")
+    state = _profile_steps("train-qwen", step, state, frozen, chosen, rejected)
+    # the same LoRA over the decoder in W8A8 (--load_in_8bit): q, k, v, o,
+    # gate, up and down a layer, each B6 + the GEMM
+    got = _quant_lora_steps(
+        "train-qwen", "W8A8", frozen, "text", trainable, make_loss, chosen, rejected, per, 7,
+        n_dec, lambda qf: _qwen_layer_parity(qcfg, qf, trainable, req2,
+                                             torch.Generator(device="cuda").manual_seed(1),
+                                             vision=False, label="W8A8"),
+        {"loss": losses, "s": med, "peak": peak})
+    counts = {k: counts[k] + got[k] for k in counts}
 
     # four pairs (B=8) at the same geometry, as phase 6 does for phi3v
-    c8, r8 = _halves(qwen_request(qcfg, rng, [QWEN_GRIDS[0]] * 7 + [QWEN_GRIDS[1]], {7: 40}), 4)
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     state, l8, n8, t8 = _timed_steps(step, state, frozen, c8, r8, 1)
@@ -2547,12 +2916,15 @@ def phase_train_qwen(qcfg, steps=5):
     torch.cuda.empty_cache()
     full = {"head": init_head_params(cfg4, rcfg4, gen, torch.float32, "cuda"),
             "backbone": backbone4}
+    full["head"], spread = _principal_head(cfg4, rcfg4, full, [req2, req8])
+    del req8
     n_full_params = sum(t.numel() for t in tree_leaves(backbone4))
     say("train-qwen", f"full fine-tuning: the whole backbone trainable in bf16, no LoRA; cut: "
         f"decoder {n_dec} -> {cut} layers (the 7.8 B model with AdamW's fp32 moments does not "
         f"fit one card), vision tower {vc.depth} blocks and every width kept: "
         f"{n_full_params / 1e9:.3f} B trainable params, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; value head on the cut model's "
+        f"principal directions (singular values {spread[:3]} ...)")
 
     def make_loss4(impl):
         return make_pairwise_loss_fn(cfg4, rcfg4, attn_impl=impl, remat=True,
@@ -2922,8 +3294,10 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
         + "; ".join(f"{name[:60]} {ms:.2f} ms ({ms / busy:.1%})" for name, ms in top))
 
     # the command lines, as subprocesses: bf16 and W8A8 evals over [load]'s
-    # checkpoint and the train CLI's smoke mode, started together
+    # checkpoint, the train CLI's smoke mode and the train CLI over [load]'s
+    # checkpoint with --load_in_8bit, started together
     base, pm_dir = phi3v_dirs
+    tok_base = _with_word_tokenizer(base, os.path.join(tmp, "phi3v_tok"))
     ev = ["--pretrain", base, "--pm_path", pm_dir, "--dataset", SAMPLE_PAIRS,
           "--micro_batch_size", "4", "--seq_len", str(DATA_SEQ), "--num_workers", "4",
           "--device", "cuda"]
@@ -2942,6 +3316,15 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
                           os.path.join(train_dir, "save"), "--ckpt_path",
                           os.path.join(train_dir, "ckpt"), "--num_workers", "2",
                           "--device", "cuda"),
+        "train-cli w8a8": _cli(tmp, "train-cli w8a8", "llava_reward_torch.train_llava_reward",
+                               "--pretrain", tok_base, "--load_in_8bit", "--bf16",
+                               "--gradient_checkpointing", "--dataset", SAMPLE_PAIRS,
+                               "--max_epochs", "1", "--micro_train_batch_size", "2",
+                               "--seq_len", str(DATA_SEQ), "--is_general_preference",
+                               "--value_head_dim", "2", "--lora_rank", "4", "--lora_alpha", "8",
+                               "--save_path", os.path.join(train_dir, "w8a8_save"),
+                               "--ckpt_path", os.path.join(train_dir, "w8a8_ckpt"),
+                               "--num_workers", "2", "--device", "cuda"),
     }
     # a base checkpoint of the smoke config for the train CLI's artifact
     tiny = phi3v_tiny_config(num_crops=4)
@@ -2977,9 +3360,18 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
     # (and B8 in training) zero-padded to 64
     w8 = {"rms_quant": 4, "silu_mul_quant": 2, "row_quant": 2, "int8_matmul": 8}
     tiny_hm = {"fa_hm": tiny.vision.num_active_layers + d.num_layers}
+    # the W8A8 train CLI: 3 sample pairs train, 1 evaluates (the smoke mode's
+    # split); one step of 2 pairs (B=4 rows: B1 in the 2 decoder layers, and
+    # again under remat; the backward's B2 x3 + B8), each of the 4 projections
+    # of a layer through B6 + the GEMM in the forward and the recompute; then
+    # the held-out pair scored a side at a time (B=1: B2 x3 + B3 a layer, B6 +
+    # GEMM a projection); B1 in CLIP for every forward
+    want_train8 = {"fa_direct": 3 * n_clip + 2 * 2, "prep": 3 * 2 + 2 * 3 * 2, "fa_hm": 2 * 2,
+                   "fa_bwd": 2, "row_quant": 2 * 4 * 2 + 2 * 4 * 2,
+                   "int8_matmul": 2 * 4 * 2 + 2 * 4 * 2}
     want = {"eval-cli bf16": {"fa_direct": n_clip + 2},
             "eval-cli w8a8": {"fa_direct": n_clip + 2, **w8},
-            "eval-cli on the train CLI's artifact": tiny_hm}
+            "eval-cli on the train CLI's artifact": tiny_hm, "train-cli w8a8": want_train8}
     cli_launches = {}
     for tag, (_, text, _) in res.items():
         found = re.findall(r"^kernel launches (\{.*\})$", text, re.M)
@@ -2998,15 +3390,53 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
     say("eval", "python -m llava_reward_torch.eval_batch_inference over [load]'s 2-layer "
         f"full-width checkpoint: bf16 {res['eval-cli bf16'][0]} in {res['eval-cli bf16'][2]:.1f} "
         f"s; --load_in_8bit {res['eval-cli w8a8'][0]} in {res['eval-cli w8a8'][2]:.1f} s "
-        f"(the three command lines started together); the hash-tokenizer fallback: {fallback}")
+        f"(four command lines started together); the hash-tokenizer fallback: {fallback}")
     on_artifact = res["eval-cli on the train CLI's artifact"][0]
     say("eval", f"the command lines' kernel launches: {cli_launches}")
     say("eval", f"python -m llava_reward_torch.train_llava_reward (smoke mode: tiny config, "
         f"--bf16, one epoch on the sample pairs, --device cuda): exit 0 in {res['train-cli'][2]:.1f} s, "
         f"artifact {files}; its last log lines {train_log}; the eval CLI on that artifact over "
         f"a tiny base checkpoint: {on_artifact}")
+    w8_dir = os.path.join(train_dir, "w8a8_save", "epoch_0")
+    w8_files = sorted(os.listdir(w8_dir)) if os.path.isdir(w8_dir) else []
+    w8_log = [ln for ln in res["train-cli w8a8"][1].splitlines()
+              if "step 1 " in ln or "eval step" in ln]
+    say("eval", f"python -m llava_reward_torch.train_llava_reward --pretrain [load]'s 2-layer "
+        f"full-width checkpoint (with a word tokenizer written beside it) --load_in_8bit --bf16 "
+        f"--gradient_checkpointing, LoRA r=4: exit 0 in {res['train-cli w8a8'][2]:.1f} s, "
+        f"artifact {w8_files}; log {w8_log}")
+    if "pytorch_model.bin" not in w8_files:
+        fail(f"eval: the W8A8 train CLI wrote {w8_files}")
     say("eval", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {k: got[k] + prof_counts[k] for k in got}
+
+
+def _with_word_tokenizer(base, out):
+    """``out``: the checkpoint directory ``base`` (its files linked) with a
+    word-level tokenizer beside it, which ``AutoTokenizer`` loads: the sample
+    prompts' words, the Phi-3 chat markers as special tokens, and Phi-3's
+    chat template (its 22-character assistant cue, which the dataset layer
+    slices off). A checkpoint made on the card has no tokenizer files, and
+    the train CLI, as the JAX one, reads the tokenizer from --pretrain."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    os.makedirs(out)
+    for name in os.listdir(base):
+        os.symlink(os.path.abspath(os.path.join(base, name)), os.path.join(out, name))
+    special = ["<unk>", "</s>", "<|user|>", "<|end|>", "<|assistant|>"]
+    words = sorted({w for r in _sample_rows() for k in ("prompt", "chosen", "rejected")
+                    for w in re.findall(r"\w+|[^\w\s]", str(r.get(k, "")))} - set(special))
+    tok = Tokenizer(models.WordLevel({w: i for i, w in enumerate(special + words)},
+                                     unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens(special)
+    tok.save(os.path.join(out, "tokenizer.json"))
+    template = ("{% for m in messages %}<|user|>\n{{ m['content'] }}<|end|>\n{% endfor %}"
+                "{% if add_generation_prompt %}<|assistant|>\n{% endif %}")
+    with open(os.path.join(out, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "</s>",
+                   "unk_token": "<unk>", "chat_template": template}, f)
+    return out
 
 
 # ------------------------------------------------------------------ [llava]
@@ -3057,26 +3487,65 @@ def _llava_requests(lcfg, tok, proc):
 def _skew(r, pairs):
     """The GPM decision's c0 r1 - c1 r0 of each pair of rewards ``r``."""
     c, q = r[:pairs].double(), r[pairs:].double()
-    return (c[:, 0] * q[:, 1] - c[:, 1] * q[:, 0]).cpu().numpy().round(6).tolist()
+    return [float(f"{v:.5g}") for v in (c[:, 0] * q[:, 1] - c[:, 1] * q[:, 0]).tolist()]
 
 
-@torch.inference_mode()
-def _principal_head(lcfg, rcfg, params, req):
-    """A value head that reads the two directions along which the request's
-    readout states (the final hidden state at each row's EOS, bf16, the
-    kernels' route) vary most: their top principal directions, as columns of
-    norm 1/sqrt(H). A random head (std 1/(H+1)) reads a random plane, where
-    the rows differ by about as much as two routes' drift through 40 layers
-    of random weights, so their decisions would be the drift's: with this
-    one the rewards are ~0.3 and each pair's c0 r1 - c1 r0 a large part of
-    |c| |r|. Returns the head and the states' singular values."""
-    out = reward_forward(params, lcfg, rcfg, req)
-    idx = heads.eos_index_from_mask(req.attention_mask)
-    x = out.last_hidden[torch.arange(idx.shape[0], device=idx.device), idx].float()
+def _principal_head(cfg, rcfg, params, reqs, lora=None, match_size=True):
+    """A value head that reads the two directions along which the readout
+    states of the requests ``reqs`` (what the value head reads, at each row's
+    EOS: the final hidden state, after SkipCA where the head has it; bf16,
+    the kernels' route; ``lora`` inline as training runs it) vary most: their
+    top principal directions, as columns of norm 1/sqrt(H), in the head's
+    dtype. A random head (std 1/(H+1)) reads a random plane, where the rows
+    differ by about as much as two routes' drift through tens of layers of
+    random weights, so their decisions would be the drift's: with this one
+    each pair's c0 r1 - c1 r0 is a large part of |c| |r|. With
+    ``match_size`` the columns are scaled so that the rows' rewards have the
+    RMS of the head in ``params`` on the same states: the reward bounds the
+    phases hold were set at that size, and no decision depends on the
+    scale. Returns the head and the states' singular values."""
+    seen = []
+    apply = heads.apply_value_head
+    heads.apply_value_head = lambda p, x: seen.append(x) or apply(p, x)
+    try:
+        with torch.inference_mode():
+            for req in reqs:
+                reward_forward(params, cfg, rcfg, req, lora=lora)
+    finally:
+        heads.apply_value_head = apply
+    rows = []
+    for x, req in zip(seen, reqs):
+        idx = heads.eos_index_from_mask(req.attention_mask)
+        rows.append(x[torch.arange(idx.shape[0], device=idx.device), idx].float())
+    del seen
+    x = torch.cat(rows)  # outside inference mode: the head may be a trainable leaf
     _, sv, vt = torch.linalg.svd(x - x.mean(0), full_matrices=False)
-    w = (vt[:2].T / x.shape[1] ** 0.5).to(params["head"]["value_head"]["kernel"].dtype)
+    w = vt[:2].T / x.shape[1] ** 0.5
+    if match_size:
+        old = params["head"]["value_head"]["kernel"].float()
+        w = w * ((x @ old).pow(2).mean() / (x @ w).pow(2).mean()).sqrt()
+    w = w.to(params["head"]["value_head"]["kernel"].dtype)
     return ({**params["head"], "value_head": {"kernel": w.contiguous()}},
             sv.cpu().numpy().round(3).tolist())
+
+
+def _say_head(tag, what, spread, trainable=False):
+    say(tag, f"value head{' (fp32, trainable)' if trainable else ''}: the two principal "
+        f"directions of {what} readout states (after SkipCA), scaled to the random head's "
+        f"reward RMS on the same states; their singular values about their mean {spread}")
+
+
+def _same_decisions(tag, routes, pairs, rcfg):
+    """Every pair's GPM decision the same on every route (name -> rewards of
+    ``pairs`` chosen rows then as many rejected); prints c0 r1 - c1 r0."""
+    decided = {n: (_prob(r, pairs, rcfg) > 0.5).cpu() for n, r in routes.items()}
+    first = next(iter(decided.values()))
+    same = all(bool(torch.equal(d, first)) for d in decided.values())
+    say(tag, f"c0 r1 - c1 r0 per pair: " + "; ".join(f"{n} {_skew(r.float(), pairs)}"
+                                                     for n, r in routes.items())
+        + f"; every decision the same across {list(routes)}: {same}")
+    if not same:
+        fail(f"{tag}: a pair's decision differs between {list(routes)}")
 
 
 def _llava_positions(mask):
@@ -3117,7 +3586,7 @@ def _llava_layer_checks(lcfg, params, qparams, req):
                  "versions")
 
 
-def _llava_layer_grads(lcfg, frozen, trainable, req, gen):
+def _llava_layer_grads(lcfg, frozen, trainable, req, gen, label="bf16"):
     """Decoder layer 0 on the separate layout with its LoRA slice (B3 forward,
     B8 backward, MHA 40 x 128 in left-pad mode), from one input and one
     upstream gradient (zero on left-pad rows, as on the path): the gradients
@@ -3146,9 +3615,10 @@ def _llava_layer_grads(lcfg, frozen, trainable, req, gen):
     floor = {n: _rel_err(a, b) for n, a, b in zip(names, grads["xla"], grads["plain"])}
     tensors = _tensor_leaves(rels)
     worst = max(tensors, key=tensors.get)
-    say("llava", f"decoder layer 0 {tuple(h.shape)}, LoRA on {len(trainable['lora'])} targets, "
-        f"kernels vs plain versions: worst relative L2 gradient error {rels[worst]:.3e} at "
-        f"{worst} (tol {LAYER_GRAD_TOL:g}, tensor leaves; the scale leaves for information); "
+    say("llava", f"decoder layer 0 {label} {tuple(h.shape)}, LoRA on "
+        f"{len(trainable['lora'])} targets, kernels vs plain versions: worst relative L2 "
+        f"gradient error {rels[worst]:.3e} at {worst} (tol {LAYER_GRAD_TOL:g}, tensor leaves; "
+        f"the scale leaves for information); "
         f"kernels (reference attention): "
         + ", ".join(f"{k} {v:.2e} ({floor[k]:.2e})" for k, v in rels.items()))
     _check_identity("llava", names, {"kernels": grads["auto"], "plain": grads["plain"],
@@ -3205,7 +3675,7 @@ def phase_llava(reps=3, steps=3):
         f"{(1 - req2.attention_mask).sum(1).tolist()}, B=8 "
         f"{(1 - req8.attention_mask).sum(1).tolist()}")
     params = {"backbone": merge_for_scoring(backbone, "llava"), "head": head}
-    params["head"], spread = _principal_head(lcfg, rcfg, params, req8)
+    params["head"], spread = _principal_head(lcfg, rcfg, params, [req8], match_size=False)
     say("llava", f"value head: the two principal directions of the B=8 request's readout "
         f"states (bf16, the kernels' route), columns of norm 1/sqrt({tc.hidden_size}); the "
         f"states' singular values about their mean {spread}")
@@ -3276,15 +3746,28 @@ def phase_llava(reps=3, steps=3):
     _expect(f"llava {steps} LoRA steps B=2", counts,
             {"fa_direct": steps * n_clip, "fa_hm": steps * 2 * n_dec, "fa_bwd": steps * n_dec})
     med = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
     say("llava", f"LoRA r={LORA_R} alpha {LORA_ALPHA} on {list(QWEN_TARGETS)} ({n_lora / 1e6:.1f} "
         f"M params, fp32, fp32 heads), remat, B=2 seq {LLAVA_SEQ}: loss per step "
         f"{[round(x, 6) for x in losses]}, grad_norm {[round(x, 4) for x in norms]}; "
         f"{med:.4f} s/step (median after one warm step, {[round(t, 4) for t in times]}), "
-        f"{1 / med:.3f} pairs/s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{1 / med:.3f} pairs/s; peak {peak:.2f} GiB; "
         f"launches {counts}: fa_hm and fa_bwd at (2, {tc.num_heads}, {LLAVA_SEQ}, "
         f"{tc.head_dim}), fa_direct at CLIP's ({chosen.pixel_values.shape[1] * 2}, "
         f"{vc.num_heads}, 640, {vc.head_dim})")
-    del state, frozen, trainable, backbone
+    # the same LoRA over the decoder in W8A8 (--load_in_8bit): the bf16
+    # layers leave the card once quantized
+    del state
+    torch.cuda.empty_cache()
+    got = _quant_lora_steps(
+        "llava", "W8A8", frozen, "text", trainable,
+        lambda impl: make_pairwise_loss_fn(lcfg, rcfg, attn_impl=impl, remat=True,
+                                           projector_path=PROJECTOR_PATHS["llava"]),
+        chosen, rejected, {"fa_direct": n_clip, "fa_hm": 2 * n_dec, "fa_bwd": n_dec}, 7, n_dec,
+        lambda qf: _llava_layer_grads(lcfg, qf, trainable, req2, gen, "W8A8"),
+        {"loss": losses, "s": med, "peak": peak}, release=True)
+    counts = {k: counts[k] + got[k] for k in counts}
+    del frozen, trainable, backbone
     torch.cuda.empty_cache()
     say("llava", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {k: bf16_launches[k] + w8_launches[k] + counts[k] for k in counts}

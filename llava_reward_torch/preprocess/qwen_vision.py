@@ -18,7 +18,8 @@ takes. ``Qwen25VLProcessor`` makes one from a prompt and PIL images
 (``fetch_image``: smart_resize and a bicubic resize; ``image_to_patches``:
 HF's flatten order, f32 normalised or raw uint8 with ``device_preproc``);
 ``sample_from_patches`` makes one from a token stream and one image's
-patches. Video comes with ROADMAP A5 and raises.
+patches. A video (``videos=[...]``: frames or a path,
+``preprocess/qwen_video.py``) goes through ``_call_video``.
 """
 
 from __future__ import annotations
@@ -320,7 +321,7 @@ class Qwen25VLProcessor:
     ) -> QwenProcessedSample:
         ids = np.asarray(self._tokenize(text), dtype=np.int32)
         if videos:
-            raise NotImplementedError("Qwen video comes with its slice (ROADMAP A5)")
+            return self._call_video(ids, videos)
         if not images:
             p = np.arange(len(ids), dtype=np.int32)
             return QwenProcessedSample(
@@ -394,6 +395,66 @@ class Qwen25VLProcessor:
             unit_gather=np.concatenate(gathers),
             grid_thw=per_grids[0] if len(per_grids) == 1 else tuple(per_grids),
             num_img_tokens=unit_base,
+        )
+
+    # ------------------------------------------------------------- video
+    VIDEO_TOKEN_ID = 151656  # <|video_pad|>
+
+    def _call_video(self, ids: np.ndarray, videos: Sequence) -> QwenProcessedSample:
+        """One video a sample: the <|video_pad|> token expands to
+        grid_t * lh * lw merged units, with temporal M-RoPE and windows per
+        temporal slice (``qwen_video.py``; vision_process.py:143-331). The
+        patches stay f32 whatever ``device_preproc`` says: the frames are
+        resampled floats."""
+        from .qwen_video import (
+            fetch_video,
+            frames_to_patches,
+            mrope_position_ids_video,
+            windowize_video,
+        )
+
+        if len(videos) != 1:
+            raise NotImplementedError("one video per sample (v1)")
+        ele = videos[0] if isinstance(videos[0], dict) else {"video": videos[0]}
+        frames, sample_fps = fetch_video(ele)
+        patches, grid = frames_to_patches(
+            frames, self.patch_size, self.temporal_patch_size, self.merge_size
+        )
+        m = self.merge_size
+        gt, gh, gw = grid
+        n_merged = gt * (gh // m) * (gw // m)
+
+        pad_positions = np.nonzero(ids == self.VIDEO_TOKEN_ID)[0]
+        if len(pad_positions) != 1:
+            raise ValueError(f"prompt has {len(pad_positions)} <|video_pad|>, not one")
+        p = int(pad_positions[0])
+        ids = np.concatenate(
+            [ids[:p], np.full(n_merged, self.VIDEO_TOKEN_ID, np.int32), ids[p + 1 :]]
+        )
+        splice = np.full(len(ids), -1, np.int32)
+        splice[p : p + n_merged] = np.arange(n_merged)
+
+        patch_src, patch_seg, unit_gather, _ = windowize_video(
+            grid, self.window_size, self.patch_size, self.merge_size
+        )
+        patch_ok = patch_seg > 0
+        rot = np.tile(_merged_block_pos(gh, gw, m), (gt, 1))  # spatial rotary, per slice
+        pos = mrope_position_ids_video(
+            ids, self.VIDEO_TOKEN_ID, grid, m,
+            second_per_grid_t=self.temporal_patch_size / max(sample_fps, 1e-6),
+            tokens_per_second=4.0,  # Qwen2_5_VLVisionConfig.tokens_per_second
+        )
+        return QwenProcessedSample(
+            input_ids=ids,
+            attention_mask=np.ones_like(ids),
+            position_ids=pos,
+            splice_idx=splice,
+            patches=patches[patch_src] * patch_ok[:, None],
+            patch_valid=patch_seg,  # segment ids: t+1 per slice, 0 = pad
+            rot_pos=rot[patch_src] * patch_ok[:, None].astype(np.int32),
+            unit_gather=unit_gather,
+            grid_thw=grid,
+            num_img_tokens=n_merged,
         )
 
 

@@ -17,9 +17,14 @@ datasets -> ``GroupSampler`` + ``PrefetchLoader`` -> AdamW ->
 classification objective. Ends with a ``kernel launches`` line (each
 hand-written kernel's launches in the run).
 
-Not here yet, each refused with the ROADMAP item that brings it:
-``--load_in_8bit`` / ``--load_in_4bit`` (training over a quantized frozen
-decoder, A6); the mesh flags and more than one process (A7).
+``--load_in_8bit`` (W8A8: the codes stay int8 in the matmul) and
+``--load_in_4bit`` (``--quant_scheme`` nf4 or absmax) train LoRA over a
+quantized frozen decoder (train_llava_reward.py:131-153): the decoder's
+stacked layers are quantized one layer at a time on their way to the
+device. Both need LoRA and exclude each other.
+
+Not here yet, refused with the ROADMAP item that brings it: the mesh flags
+and more than one process (A7).
 """
 
 from __future__ import annotations
@@ -60,11 +65,11 @@ def smoke_tokenizer(dec):
     return _Tok()
 
 
-def _refuse_unported(args) -> None:
-    if args.load_in_4bit or args.load_in_8bit:
-        raise NotImplementedError(
-            "--load_in_8bit / --load_in_4bit: training over a quantized frozen decoder is "
-            "ROADMAP A6 (score a quantized decoder with the eval CLI's --load_in_8bit)")
+def _refuse(args) -> None:
+    if args.lora_rank == 0 and (args.load_in_4bit or args.load_in_8bit):
+        raise ValueError("--load_in_4bit/--load_in_8bit require LoRA (frozen backbone)")
+    if args.load_in_4bit and args.load_in_8bit:
+        raise ValueError("--load_in_4bit and --load_in_8bit are exclusive")
     mesh = {"--mesh_dp": args.mesh_dp, "--mesh_fsdp": args.mesh_fsdp, "--mesh_tp": args.mesh_tp}
     wide = {k: v for k, v in mesh.items() if v > 1}  # --mesh_fsdp -1: every card, here one
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -90,9 +95,10 @@ def train(args):
     from .train.optim import make_optimizer, tree_map
     from .train.train_step import make_cls_loss_fn, make_pairwise_loss_fn
     from .train.trainer import RewardTrainer
+    from .utils.quantize import quantize_stacked_layers
 
     logger = init_logger(__name__)
-    _refuse_unported(args)
+    _refuse(args)
     dev = resolve_device(args.device)
     family = get_family(args.model_type)
 
@@ -111,12 +117,32 @@ def train(args):
 
     # ---- model
     param_dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # QLoRA-style training over a quantized frozen decoder
+    # (rw_model_general_preference.py:166-175): W8A8 keeps the codes int8 in
+    # the matmul (B6 + the int8 GEMM forward, a bf16 tensor-core product
+    # backward); nf4 / absmax int4 are dequantized a layer at a time
+    scheme = ("w8a8" if args.load_in_8bit else args.quant_scheme) if (
+        args.load_in_8bit or args.load_in_4bit) else None
+
+    def quantized(backbone, device=None, dtype=None):
+        """The decoder's stacked layers quantized a layer at a time on their
+        way to ``device`` (the float decoder never sits there beside its
+        codes), the rest moved whole."""
+        dec = "decoder" if "decoder" in backbone else "text"
+        rest = {k: v for k, v in backbone[dec].items() if k != "layers"}
+        out = tree_map(lambda t: t.to(device=device, dtype=dtype), {**backbone, dec: rest})
+        out[dec]["layers"] = quantize_stacked_layers(backbone[dec]["layers"], bits=4,
+                                                     scheme=scheme, device=device, dtype=dtype)
+        logger.info("frozen decoder weights quantized (%s)", scheme)
+        return out
+
     if args.pretrain and os.path.isdir(args.pretrain):
         cfg = family.config_from_pretrain(args.pretrain)
         sd = load_torch_state_dict(args.pretrain)
         backbone = family.params_from_sd(sd, cfg, dtype=torch.float32)
         del sd
-        backbone = tree_map(lambda t: t.to(device=dev, dtype=param_dtype), backbone)
+        backbone = (quantized(backbone, dev, param_dtype) if scheme else
+                    tree_map(lambda t: t.to(device=dev, dtype=param_dtype), backbone))
         from transformers import AutoTokenizer
 
         tokenizer = AutoTokenizer.from_pretrained(
@@ -128,6 +154,8 @@ def train(args):
         cfg = family.tiny_config()
         rcfg.layer_id = num_layers_of(cfg)
         backbone = family.init_params(cfg, generator(args.seed), param_dtype, dev)
+        if scheme:
+            backbone = quantized(backbone)
         tokenizer = smoke_tokenizer(family.decoder_cfg(cfg))
 
     processor = family.make_processor(tokenizer, cfg)

@@ -36,6 +36,7 @@ from ..ops.int8_matmul import (
     w8a8_matmul,
     w8a8_matmul_plain,
 )
+from ..ops.linear import mm
 from ..ops.quant_epilogue import ieee_div
 
 _Q8 = "qvalues_i8"
@@ -198,11 +199,18 @@ class _Int8LinearCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        # dx = (dy * scale) @ w^T with bf16 operands and an fp32 result; the
-        # bf16 values are exact in fp32, so an fp32 product gives it
+        # dx = (dy * scale) @ w^T (``quantize.py:196-213``): bf16 operands (the
+        # int8 codes are exact in bf16) and an fp32 result, rounded once to
+        # dy's dtype. On the card one tensor-core GEMM with fp32 output; the
+        # CPU has no bf16 -> fp32 mm, and the fp32 product of the same bf16
+        # values is that result
         w, scale = ctx.saved_tensors
-        dys = (dy.float() * scale.reshape(1, -1)).to(torch.bfloat16).float()
-        dx = torch.matmul(dys, w.float().t())
+        dys = (dy.float() * scale.reshape(1, -1)).to(torch.bfloat16)
+        wt = w.t().to(torch.bfloat16)
+        if dys.is_cuda:
+            dx = torch.mm(dys, wt, out_dtype=torch.float32)
+        else:
+            dx = torch.mm(dys.float(), wt.float())
         return dx.to(dy.dtype), None, None, None
 
 
@@ -232,7 +240,7 @@ def qmatmul(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
     schemes were already dequantized by ``dequant_layer``)."""
     if is_w8a8(w):
         return int8_linear(x, w, plain)
-    return x @ w
+    return mm(x, w)
 
 
 def _per_layer(fn: Callable[[torch.Tensor], QDict], w: torch.Tensor) -> QDict:
@@ -256,7 +264,7 @@ def _per_layer(fn: Callable[[torch.Tensor], QDict], w: torch.Tensor) -> QDict:
 
 def quantize_stacked_layers(
     layers: dict, bits: int = 8, min_size: int = 1 << 20, scheme: str = "absmax",
-    only: Optional[Sequence[str]] = None,
+    only: Optional[Sequence[str]] = None, device=None, dtype: Optional[torch.dtype] = None,
 ) -> dict:
     """Quantize every large float leaf of a stacked-layer tree (stacked
     (L, in, out) matrices of at least ``min_size`` elements), leaving norms,
@@ -264,7 +272,13 @@ def quantize_stacked_layers(
 
     ``scheme``: 'absmax' (int8 / int4 by ``bits``), 'nf4' or 'w8a8'.
     ``only``: quantize just the leaves whose 'a/b/c' path contains one of
-    these substrings."""
+    these substrings. ``device`` / ``dtype``: where and in what dtype the
+    leaves go, a quantized leaf one layer's slice at a time before it is
+    quantized (a host tree onto the card: the whole float stack never sits
+    there beside its codes)."""
+
+    def move(t):
+        return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
     def q(leaf):
         if (
@@ -273,18 +287,16 @@ def quantize_stacked_layers(
             and leaf.dim() >= 3
             and leaf.numel() >= min_size
         ):
-            if scheme == "nf4":
-                return _per_layer(quantize_array_nf4, leaf)
-            if scheme == "w8a8":
-                return _per_layer(quantize_array_w8a8, leaf)
-            return _per_layer(lambda w: quantize_array(w, bits), leaf)
-        return leaf
+            fn = {"nf4": quantize_array_nf4, "w8a8": quantize_array_w8a8}.get(
+                scheme, lambda w: quantize_array(w, bits))
+            return _per_layer(lambda w: fn(move(w)), leaf)
+        return move(leaf) if isinstance(leaf, torch.Tensor) else leaf
 
     def walk(v, path):
         if isinstance(v, dict):
             return {k: walk(x, f"{path}/{k}") for k, x in v.items()}
         if only is not None and not any(s in path for s in only):
-            return v
+            return move(v) if isinstance(v, torch.Tensor) else v
         return q(v)
 
     return {name: walk(v, name) for name, v in layers.items()}

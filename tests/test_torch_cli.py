@@ -8,12 +8,16 @@
   way. phi3v (LoRA on DEFAULT_TARGETS, projector) and llava (LoRA on
   QWEN_TARGETS, ``multi_modal_projector``);
 - ``python -m llava_reward_torch.eval_batch_inference`` on that artifact over a
-  base checkpoint without tokenizer files (the hash-tokenizer fallback; its
-  ids differ between processes, so both CLIs run in this one): the four
+  base checkpoint without tokenizer files (the hash-tokenizer fallback, its
+  word hash pinned to crc32 in both CLIs so that the ids do not change with
+  the process's hash seed; both CLIs run in this one process): the four
   sample pairs' rewards row by row within eight bf16 steps of the largest
   (both score in bf16), the same decisions beyond that gap, the mean
   probability within one step;
 - the pointwise objective on ``data/Unsafebench`` rows (sniffed from the rows);
+- ``--load_in_8bit`` and ``--load_in_4bit`` (nf4, absmax) train LoRA over
+  a quantized frozen decoder and refuse full fine-tuning and each other, as
+  the JAX CLI does;
 - the unported options refuse with the ROADMAP item that brings them, and
   ``--device`` defaults to cuda, which raises on a machine without one.
 
@@ -24,6 +28,7 @@ tests/test_llava_adaptor.py and tests/test_artifact_io.py (artifacts).
 import json
 import os
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -43,6 +48,7 @@ from llava_reward_tpu.models import phi3v as jphi3v
 from llava_reward_torch import eval_batch_inference as t_eval_cli
 from llava_reward_torch import train_llava_reward as t_train_cli
 from llava_reward_torch.evalx import adaptor as tad
+from llava_reward_torch.utils import quantize as tquant
 from test_llava_adaptor import _llava_hf_sd
 from test_torch_llava import _config_json as _llava_config_json
 from test_torch_llava import _pair_fields, _stacked
@@ -57,8 +63,7 @@ UNSAFE = os.path.join(ROOT, "data/Unsafebench/Unsafebench_train.json")
 PARITY_BAR = 2.03e-05
 # both eval CLIs score in bf16 (their compute dtype): probabilities near 0.5
 # agree to one bf16 step, 2**-8; rewards to eight such steps of the largest
-# (the two round their bf16 activations at different points; the ids of the
-# hash tokenizer, and so the gap, change with each process's hash seed)
+# (the two round their bf16 activations at different points)
 BF16_STEP = 2.0 ** -8
 BF16_REWARD_TOL = 8 * BF16_STEP
 SMOKE = ["--dataset", PAIRS, "--max_epochs", "1", "--micro_train_batch_size", "2",
@@ -177,6 +182,11 @@ def test_eval_cli_matches_the_jax_cli(bases, phi3v_artifact, monkeypatch, capsys
 
         monkeypatch.setattr(cls, "make_score_fn", make_score_fn)
 
+    # both smoke tokenizers look `hash` up in their module: a stable word hash
+    # (the train CLIs' crc32) keeps the ids, and so the rewards, the same
+    # under every PYTHONHASHSEED
+    for mod in (j_eval_cli, t_eval_cli):
+        monkeypatch.setattr(mod, "hash", lambda t: zlib.crc32(t.encode()), raising=False)
     recording(jad.RewardAdaptor, "jax", lambda r: np.asarray(r, np.float32))
     recording(tad.RewardAdaptor, "torch", lambda r: r.float().numpy())
     argv = ["--pretrain", bases["phi3v"], "--pm_path", phi3v_artifact, "--dataset", PAIRS,
@@ -216,10 +226,41 @@ def test_pointwise_rows_train_the_cls_objective(tmp_path):
         assert "is_general_preference" in f.read()
 
 
-@pytest.mark.parametrize("flags, item", [(["--load_in_8bit"], "A6"), (["--load_in_4bit"], "A6"),
-                                         (["--mesh_dp", "2"], "A7"), (["--mesh_tp", "2"], "A7")])
+@pytest.mark.parametrize("flags, item", [(["--mesh_dp", "2"], "A7"), (["--mesh_tp", "2"], "A7")])
 def test_unported_train_options_name_their_roadmap_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
+        _port_train(tmp_path, "phi3v", flags)
+
+
+@pytest.mark.parametrize("flags, key", [
+    (["--load_in_8bit"], "qvalues_w8a8"), (["--load_in_4bit"], "qvalues_nf4"),
+    (["--load_in_4bit", "--quant_scheme", "absmax"], "qvalues_i4")],
+    ids=["8bit", "4bit_nf4", "4bit_absmax"])
+def test_quantized_decoder_flags_train(flags, key, tmp_path, monkeypatch):
+    """LoRA over a quantized frozen decoder: the smoke mode takes its step and
+    writes an artifact of LoRA, heads and projector only. The CLI quantizes
+    leaves of at least 1 M elements, as the JAX one does, which no leaf of
+    the tiny config reaches: ``min_size`` 0 here, so that every projection is
+    quantized."""
+    q = tquant.quantize_stacked_layers
+    monkeypatch.setattr(tquant, "quantize_stacked_layers",
+                        lambda *a, **kw: q(*a, **{**kw, "min_size": 0}))
+    trainer = t_train_cli.main(["--model_type", "phi3v", *SMOKE, "--seq_len", SEQ["phi3v"],
+                                "--save_path", str(tmp_path / "save"),
+                                "--ckpt_path", str(tmp_path / "ckpt"), "--device", "cpu", *flags])
+    layers = trainer.frozen["backbone"]["decoder"]["layers"]
+    for name in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"):
+        assert key in layers[name], name
+    assert trainer.state.step >= 1
+    sd = torch.load(tmp_path / "save" / "epoch_0" / "pytorch_model.bin")
+    assert sd and not any("qvalues" in k for k in sd)
+
+
+@pytest.mark.parametrize("flags, match", [
+    (["--lora_rank", "0", "--load_in_8bit"], "require LoRA"),
+    (["--load_in_4bit", "--load_in_8bit"], "exclusive")], ids=["full_finetune", "both"])
+def test_quantized_decoder_flags_refuse_as_the_jax_cli(flags, match, tmp_path):
+    with pytest.raises(ValueError, match=match):
         _port_train(tmp_path, "phi3v", flags)
 
 

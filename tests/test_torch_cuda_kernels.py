@@ -31,7 +31,9 @@ widths it refuses (136, 5376) raising ValueError before any launch,
 B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
 ragged M, at M < 16, at K and N that the 128 x 256 tiles and 128-deep K
 steps do not divide (K = 208 and 8192 + 16, N = 48) and with f32 output,
-and packed int4 run as W8A8 through it; the weight quantizers on the card
+and packed int4 run as W8A8 through it; ``_Int8LinearCore`` at LLaVA-NeXT's
+projections (forward through B6 + the GEMM, the bf16 tensor-core backward
+within one bf16 rounding of the fp32 product); the weight quantizers on the card
 against the CPU's. And the wrappers' refusals (an N-major weight among
 them). B3 also on q and k/v as strided views of one fused projection, and
 twice on the same inputs: it uses no atomics, so the two agree exactly. Inputs come from a seeded CUDA
@@ -753,6 +755,38 @@ def test_quantizers_on_the_card_match_the_cpu(gen, scheme):
     assert on_card.keys() == on_cpu.keys()
     for k in on_cpu:
         assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+
+
+@pytest.mark.parametrize("K,N", [(5120, 5120), (13824, 5120)], ids=["q_proj", "down_proj"])
+def test_int8_linear_core_forward_and_backward_on_the_card(gen, K, N):
+    """``_Int8LinearCore`` (the W8A8 projection under LoRA) at LLaVA-NeXT-13B
+    projections' shapes and a B=2 training batch's rows: the forward through
+    B6 + the GEMM bit-equal to the plain versions', and the backward (bf16
+    operands, an fp32 result on the tensor cores, rounded once to bf16)
+    within one bf16 ulp of the fp32 product of the same operands, plus the
+    two fp32 summation orders' difference."""
+    from llava_reward_torch.utils.quantize import W8A8_KEY, int8_linear, quantize_array_w8a8
+
+    M = 2 * 2976
+    qd = quantize_array_w8a8(torch.randn(K, N, generator=gen, device="cuda") * 0.02)
+    x = _randn(gen, M, K)
+    dy = _randn(gen, M, N)
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    qe.reset_counters()
+    im.reset_counters()
+    yk, yp = int8_linear(xk, qd), int8_linear(xp, qd, plain=True)
+    assert qe.LAUNCHES["row_quant"] == 1 and im.LAUNCHES["int8_matmul"] == 1
+    (dxk,) = torch.autograd.grad(yk, [xk], dy)
+    (dxp,) = torch.autograd.grad(yp, [xp], dy)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yp) and torch.equal(dxk, dxp) and dxk.dtype == torch.bfloat16
+    dys = (dy.float() * qd["scale"]).to(torch.bfloat16).float()
+    wf = qd[W8A8_KEY].float()
+    ref = (dys @ wf.t()).to(torch.bfloat16).float()
+    # one bf16 ulp, plus fp32 summation-order noise: 2^-16 of the sum of the
+    # terms' magnitudes (bf16 partial sums would read ~2^-9 of it)
+    bound = ref.abs() * 2.0 ** -7 + (dys.abs() @ wf.abs().t()) * 2.0 ** -16
+    assert bool(((dxk.float() - ref).abs() <= bound).all())
 
 
 def test_w8a8_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -233,3 +233,28 @@ def test_scale_bias_reads_a_softmax_scale_fault(e):
     assert abs(r - e / (cs.SCALE_STEP - 1)) < 0.02 + 0.05 * abs(e) / 0.01
     if e == 0.0:
         assert abs(r) < cs.SCALE_BIAS_TOL / 3
+
+
+def test_scale_bias_direction_from_unrounded_outputs():
+    """A sound kernel and a plain version that both round their output to
+    bf16: with d from the plain version's own bf16 outputs, the plain
+    version's rounding sits in both kernel - p and d and reads as a positive
+    bias; with d from the unrounded (fp32) outputs it reads near 0, while a
+    x1.003 scale still reads about 0.3."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 4, 256, 32, generator=gen) for _ in range(3))
+    s = 32 ** -0.5
+
+    def attn(scale):
+        return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+
+    def rounded(t, noise=0.0):  # a bf16 output, from a value off by fp32 noise
+        return (t * (1 + noise * torch.randn(t.shape, generator=gen))).bfloat16().float()
+
+    q1, q2 = attn(s), attn(s * cs.SCALE_STEP)
+    p = rounded(q1)
+    sound = rounded(q1, 1e-3)  # the kernel's own roundings (p in bf16, another order)
+    biased = cs._scale_bias([(sound, p, rounded(q2))])
+    clean = cs._scale_bias([(sound, p, q1, q2)])
+    assert biased > 5 * abs(clean) and abs(clean) < 0.02
+    assert abs(cs._scale_bias([(rounded(attn(s * 1.003), 1e-3), p, q1, q2)]) - 0.3) < 0.05

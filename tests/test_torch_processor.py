@@ -217,5 +217,7 @@ def test_qwen_helpers_and_errors():
         j(_pad_prompt(1), [img, img])
     with pytest.raises(ValueError, match="image_pad"):
         t(_pad_prompt(1), [img, img])
-    with pytest.raises(NotImplementedError, match="A5"):
-        t(_pad_prompt(0), videos=[np.zeros((2, 28, 28, 3), np.uint8)])
+    # a video: the prompt's one pad token (here id 7) as <|video_pad|>
+    j.VIDEO_TOKEN_ID = t.VIDEO_TOKEN_ID = 7
+    video = [np.zeros((2, 28, 28, 3), np.uint8)]
+    _assert_samples_equal(t(_pad_prompt(1), videos=video), j(_pad_prompt(1), videos=video))

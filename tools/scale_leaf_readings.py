@@ -7,7 +7,7 @@ can be taken of another commit unpacked beside it (``git archive <commit> |
 tar -x -C scratch/other``, a directory that .gitignore lists):
 
     python tools/scale_leaf_readings.py [--root DIR] [--label NAME] [--controls]
-                                        [--swap-b3]
+                                        [--swap-b3] [--fp64]
 
 Each reading is one ``READING {json}`` line:
 
@@ -15,6 +15,13 @@ Each reading is one ``READING {json}`` line:
   version's, at the Qwen2.5-VL decoder's GQA shape and Phi-3.5-V's decoder
   shape (relative L2 error; ``shrink``, the error's projection on the exact
   output, a scale bias; the mean error).
+- ``fp64-bias`` (alone with ``--fp64``): at each of phase 3's B1 and B3
+  shapes and inputs' distributions, the kernel and the plain version each
+  against an fp64 softmax on valid rows: the scale-bias reading r of each
+  against the exact output (``r_kernel``, ``r_plain``: the projection of its
+  error on d = exact(SCALE_STEP s) - exact(s), over <d, d>), beside phase 3's
+  r of the kernel against the plain version, and each side's relative L2
+  error. The side whose r is nonzero carries the bias.
 - ``bias``: phase 3's attention checks (B1 at CLIP's and the decoder's
   shapes, B3 at its three, B8 at its five) at seeds 0-3: the scale-bias
   reading ``r`` of each, and which bound fails it (``tensor``: the kernel
@@ -54,6 +61,7 @@ ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(_
 ap.add_argument("--label", default="tree")
 ap.add_argument("--controls", action="store_true")
 ap.add_argument("--swap-b3", action="store_true")
+ap.add_argument("--fp64", action="store_true", help="only the fp64-bias readings")
 args = ap.parse_args()
 ROOT = os.path.abspath(args.root)
 sys.path.insert(0, ROOT)
@@ -194,6 +202,122 @@ def fwd_accuracy():
                  **{key: {"rel_l2_vs_fp64": (a / den) ** 0.5, "shrink_vs_fp64": p / den,
                           "mean_err": m / n} for key, (a, p, m) in sums.items()})
             del q, k, v, outs
+            torch.cuda.empty_cache()
+
+
+def _exact(q, k, v, allowed, scale):
+    """softmax(q k^T scale) v in fp64 over ``allowed`` (S, S) keys, q / k / v
+    (H, S, D) (GQA: k / v repeated); rows with no key come out zero."""
+    q, k, v = (t.double() for t in (q, k, v))
+    k, v = (t.repeat_interleave(q.shape[0] // t.shape[0], 0) for t in (k, v))
+    out = torch.zeros_like(q)
+    for h in range(0, q.shape[0], 4):
+        sc = (q[h:h + 4] @ k[h:h + 4].transpose(-1, -2) * scale).masked_fill(~allowed,
+                                                                             float("-inf"))
+        p = torch.softmax(sc, -1).nan_to_num(0.0)
+        out[h:h + 4] = p @ v[h:h + 4]
+    return out
+
+
+def _rope64(x, cos, sin):
+    """rotate_half RoPE in fp64 on (S, H, D) with (S, D) tables."""
+    x = x.double()
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], -1)
+    return x * cos.double()[:, None] + rot * sin.double()[:, None]
+
+
+def fp64_bias(seeds):
+    """B1 and B3 at phase 3's shapes: kernel and plain version against fp64."""
+    cfg, qcfg = cs.phi35_vision_config(), cs.qwen25_vl_7b_config()
+    tc = qcfg.text
+    step = cs.SCALE_STEP
+
+    def direct(gen, B, S, H, D, causal, rope, kv_start, q_len):
+        qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda", dtype=torch.bfloat16)
+        cos = sin = None
+        if rope:
+            cos, sin = cs._cos_sin(cfg, kv_start, S, "cuda")
+        kv = torch.tensor(kv_start, dtype=torch.int32, device="cuda")
+        kw = dict(n_heads=H, head_dim=D, causal=causal, sliding_window=None, scale=D ** -0.5,
+                  valid_len=q_len if q_len != S else None)
+        outs = {"kernel": fa._fused_qkv_attention_direct(qkv, cos, sin, kv, **kw),
+                "plain": fa.fa_direct_plain(qkv, cos, sin, kv, **kw),
+                "plain2": fa.fa_direct_plain(qkv, cos, sin, kv,
+                                             **{**kw, "scale": kw["scale"] * step})}
+        pos = torch.arange(S, device="cuda")
+        for b in range(B):
+            x = qkv[b].reshape(S, 3, H, D)
+            q, k, v = x[:, 0], x[:, 1], x[:, 2]
+            if rope:
+                q, k = _rope64(q, cos[b], sin[b]), _rope64(k, cos[b], sin[b])
+            allowed = (pos[None, :] >= kv_start[b]) & (pos[None, :] < q_len)
+            if causal:
+                allowed = allowed & (pos[None, :] <= pos[:, None])
+            rows = (pos >= kv_start[b]) & (pos < q_len)
+            ex = [_exact(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), allowed,
+                         D ** -0.5 * f).transpose(0, 1)[rows] for f in (1, step)]
+            yield {n: o[b][rows].reshape(int(rows.sum()), H, D) for n, o in outs.items()}, ex
+
+    def head_major(gen, B, H, Hk, S, D, causal, kv_start, seg=None):
+        q = torch.randn(B, H, S, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+        k, v = (torch.randn(B, Hk, S, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        kv = torch.tensor(kv_start, dtype=torch.int32, device="cuda")
+        kw = dict(causal=causal, sliding_window=None, scale=D ** -0.5, q_len=S)
+        seg_kw = dict(key_mask=seg, segments=True) if seg is not None else {}
+        outs = {"kernel": fa._flash_fwd_hm(q, k, v, kv, seg, segments=seg is not None, **kw),
+                "plain": fa.flash_fwd_hm_plain(q, k, v, kv, **kw, **seg_kw),
+                "plain2": fa.flash_fwd_hm_plain(q, k, v, kv, **seg_kw,
+                                                **{**kw, "scale": kw["scale"] * step})}
+        pos = torch.arange(S, device="cuda")
+        for b in range(B):
+            if seg is not None:
+                allowed = (seg[b][None, :] != 0) & (seg[b][None, :] == seg[b][:, None])
+                rows = seg[b] != 0
+            else:
+                allowed = (pos[None, :] >= kv_start[b]) & (pos[None, :] <= pos[:, None])
+                rows = pos >= kv_start[b]
+            ex = [_exact(q[b], k[b], v[b], allowed, D ** -0.5 * f)[:, rows] for f in (1, step)]
+            yield {n: o[b][:, rows] for n, o in outs.items()}, ex
+
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        seg = torch.from_numpy(np.stack([cs.windowize(g)[1] for g in cs.QWEN_GRIDS] * 4)
+                               .astype(np.int32)).cuda()
+        cases = [
+            ("B1 CLIP (136,640,16,64)", lambda: direct(gen, 136, 640, 16, 64, False, False,
+                                                       [0] * 136, 577)),
+            ("B1 decoder (8,2560,32,96) rope", lambda: direct(
+                gen, 8, 2560, 32, 96, True, True, [0, 300, 0, 1000, 0, 7, 0, 64], 2560)),
+            ("B3 phi3v (2,32,2560,96)", lambda: head_major(gen, 2, 32, 32, 2560, 96, True,
+                                                           [0, 300])),
+            ("B3 qwen GQA (8,28/4,1792,128)", lambda: head_major(
+                gen, 8, tc.num_heads, tc.num_kv_heads, cs.QWEN_SEQ, tc.head_dim, True,
+                [0, 40, 0, 0, 0, 0, 0, 0])),
+            ("B3 segments (8,16,1280,80)", lambda: head_major(
+                gen, 8, 16, 16, cs.QWEN_PATCHES, 80, False, [0] * 8, seg)),
+        ]
+        for name, run in cases:
+            acc = {k: [0.0, 0.0] for k in ("kernel", "plain", "kernel_vs_plain")}
+            dd = pp = ref2 = 0.0
+            for outs, (e1, e2) in run():
+                d = e2 - e1
+                dd += float((d * d).sum())
+                ref2 += float((e1 * e1).sum())
+                for side in ("kernel", "plain"):
+                    err = outs[side].double() - e1
+                    acc[side][0] += float((err * d).sum())
+                    acc[side][1] += float((err * err).sum())
+                dp = outs["plain2"].double() - outs["plain"].double()
+                kp = outs["kernel"].double() - outs["plain"].double()
+                acc["kernel_vs_plain"][0] += float((kp * dp).sum())
+                pp += float((dp * dp).sum())
+            emit("fp64-bias", seed=seed, shape=name,
+                 r_kernel=acc["kernel"][0] / dd, r_plain=acc["plain"][0] / dd,
+                 r_kernel_vs_plain=acc["kernel_vs_plain"][0] / pp,
+                 rel_l2_kernel=(acc["kernel"][1] / ref2) ** 0.5,
+                 rel_l2_plain=(acc["plain"][1] / ref2) ** 0.5)
             torch.cuda.empty_cache()
 
 
@@ -417,9 +541,12 @@ def route(kind, setup, seeds):
 
 cs.phase_device()
 cs.phase_build()
-fwd_accuracy()
-bias_checks([0, 1, 2, 3])
-phi_layer([0, 1, 2, 3])
-route("phi3v-route", _phi3v_setup, [0, 1, 2, 3])
-route("qwen-route", _qwen_setup, [0, 1, 2, 3])
+if args.fp64:
+    fp64_bias([0, 1])
+else:
+    fwd_accuracy()
+    bias_checks([0, 1, 2, 3])
+    phi_layer([0, 1, 2, 3])
+    route("phi3v-route", _phi3v_setup, [0, 1, 2, 3])
+    route("qwen-route", _qwen_setup, [0, 1, 2, 3])
 emit("done")

@@ -88,6 +88,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      wrote, and the train CLI over [load]'s checkpoint (a word tokenizer
      written beside it) with --load_in_8bit --bf16 --gradient_checkpointing;
      each command line's own kernel launches, as it prints them;
+  [dist] the train CLI on more than one process, as subprocesses over
+     [load]'s checkpoint (bf16 LoRA, SkipCA, the projector, remat; eight
+     sample pairs in two steps of four, two held out): (a) one rank over
+     NCCL, micro batch 4; (b) two ranks sharing this card over gloo
+     (--mesh_fsdp 2, card tensors staged through host memory), micro batch
+     2 each; (a') the CLI with no distributed environment. (a')'s first loss
+     equals (a)'s bit for bit (the control); (b)'s ranks agree exactly, their
+     rows partition the train rows, each step's loss and grad_norm are
+     (a)'s within one bf16 step, each rank holds half of the decoder's
+     sharded layer bytes, rank 0 alone writes the artifact, whose heads and
+     LoRA are (a)'s within two AdamW steps' reach; each process's own
+     launches of B1, B2, B3 and B8 checked exactly; backends, s/step and
+     peak memory beside the card's name and power limit;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -3181,13 +3194,14 @@ def _device_top(trace_path, n=8):
     return sorted(by.items(), key=lambda kv: -kv[1])[:n], busy, span, len(dev)
 
 
-def _cli(logdir, tag, module, *args):
+def _cli(logdir, tag, module, *args, env=None):
     """``python -m module args`` from the checkout's root, started in the
-    background, its output to files under ``logdir``."""
-    path = os.path.join(logdir, tag.replace(" ", "_").replace("'", "") + ".out")
+    background (with ``env`` in place of this process's environment when
+    given), its output to files under ``logdir``."""
+    path = os.path.join(logdir, re.sub(r"[ '()]", "_", tag) + ".out")
     out = open(path, "w")
     proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=out,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True, env=env)
     return proc, out, path, time.perf_counter()
 
 
@@ -3437,6 +3451,169 @@ def _with_word_tokenizer(base, out):
         json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "</s>",
                    "unk_token": "<unk>", "chat_template": template}, f)
     return out
+
+
+# ------------------------------------------------------------------ [dist]
+
+TRAIN_CLI = "llava_reward_torch.train_llava_reward"
+# (b) against (a), relative, on each step's loss: one bf16 step (2^-8); on
+# grad_norm: four (2^-6). The control, (a') against (a), is one layout run
+# twice: the same first loss bit for bit, grad_norm apart by B8's fp32
+# atomics only (0 when first read, H100 80GB HBM3 at 700 W). Between (a) and
+# (b) the rows of a step and every kernel route are the same (B1 at B=8 and
+# at B=4 rows), but each half's backward runs at other GEMM row counts and
+# its weight gradients, sums over 10-20 k rows with cancellation, are
+# rounded to bf16 apart before the two are summed: the first reading on that
+# card was 1.6e-05 on the loss and 6.9e-04 / 3.87e-03 on grad_norm (against
+# 2^-8 then). A fault of the data-parallel path moves
+# grad_norm by far more: a gradient not averaged over the two ranks doubles
+# it, one rank's half lost or a shard's reduce-scatter skipped changes it by
+# tens of percent.
+DIST_TOL = 2.0 ** -8
+DIST_NORM_TOL = 2.0 ** -6
+
+
+def _dist_env(world, rank, port):
+    """torchrun's environment for rank ``rank`` of ``world`` on this host."""
+    return dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _summary(tag, text):
+    found = re.findall(r"^train summary (\{.*\})$", text, re.M)
+    cl = re.findall(r"^kernel launches (\{.*\})$", text, re.M)
+    if len(found) != 1 or len(cl) != 1:
+        fail(f"dist: {tag} printed {len(found)} summary and {len(cl)} launches lines")
+    return {**json.loads(found[0]), "launches": json.loads(cl[0])}
+
+
+def _artifact(save):
+    d = os.path.join(save, "epoch_0")
+    return {**torch.load(os.path.join(d, "pytorch_model.bin"), weights_only=True),
+            **torch.load(os.path.join(d, "lora", "adapter_model.bin"), weights_only=True)}
+
+
+def phase_dist(cfg, tmp):
+    """The train CLI on more than one process, over [load]'s 2-layer
+    full-width phi3v checkpoint (the word tokenizer [eval] wrote beside it),
+    bf16 LoRA with SkipCA and the projector, remat, ten sample pairs (eight
+    train, two held out), two steps of four pairs: (a) one rank over NCCL
+    (torchrun's environment, WORLD_SIZE=1, --zero_stage 2: fsdp 1), micro
+    batch 4; then together (b) two ranks on this one card over gloo
+    (--mesh_fsdp 2, collectives staged through host memory), micro batch 2
+    each, and (a') the CLI with no distributed environment, micro batch 4.
+    (b)'s time is two processes sharing one card (and (a')'s run): no
+    multi-card scaling figure. Returns the launches of the four processes."""
+    t_phase = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    rows = _sample_rows()
+    data = os.path.join(tmp, "dist_rows.json")
+    with open(data, "w") as f:
+        json.dump(rows * 2 + rows[:2], f)
+    common = ["--pretrain", os.path.join(tmp, "phi3v_tok"), "--bf16",
+              "--gradient_checkpointing", "--dataset", data, "--train_split_ratio", "0.8",
+              "--max_epochs", "1", "--seq_len", str(DATA_SEQ), "--is_general_preference",
+              "--value_head_dim", "2", "--add_cross_attention", "--lora_rank", "4",
+              "--lora_alpha", "8", "--ft_projector", "--logging_steps", "1", "--num_workers",
+              "2", "--device", "cuda"]
+
+    def run(tag, micro, *extra):
+        return ["--micro_train_batch_size", str(micro), *extra,
+                "--save_path", os.path.join(tmp, "dist", tag, "save"),
+                "--ckpt_path", os.path.join(tmp, "dist", tag, "ckpt")]
+
+    torch.cuda.empty_cache()
+    res = _cli_results({"(a)": _cli(tmp, "dist (a)", TRAIN_CLI, *common,
+                                    *run("a", 4, "--zero_stage", "2"),
+                                    env=_dist_env(1, 0, _free_port()))})
+    port = _free_port()
+    started = {f"(b) rank {r}": _cli(tmp, f"dist (b) rank {r}", TRAIN_CLI, *common,
+                                     *run("b", 2, "--mesh_fsdp", "2"),
+                                     env=_dist_env(2, r, port)) for r in range(2)}
+    started["(a')"] = _cli(tmp, "dist (a')", TRAIN_CLI, *common, *run("a0", 4))
+    res.update(_cli_results(started))
+    s = {tag: _summary(tag, text) for tag, (_, text, _) in res.items()}
+    a, a0, b0, b1 = s["(a)"], s["(a')"], s["(b) rank 0"], s["(b) rank 1"]
+
+    # launches, each process's own: two steps of B1 in the CLIP tower and in
+    # the 2 decoder layers forward and under remat (B=8 and B=4 rows both
+    # take B1), B2 x3 + B8 a layer backward; then the held-out pairs a side
+    # at a time (B=2 / B=1 rows: B2 x3 + B3 a layer), B1 in CLIP
+    n_clip = cfg.vision.num_active_layers
+    want = {"fa_direct": 4 * n_clip + 2 * 4, "prep": 2 * 6 + 2 * 6, "fa_hm": 2 * 2,
+            "fa_bwd": 2 * 2}
+    for tag, x in s.items():
+        if x["launches"] != {k: want.get(k, 0) for k in x["launches"]}:
+            fail(f"dist: {tag} launched {x['launches']}, expected {want}")
+    backends = {tag: x["backend"] for tag, x in s.items()}
+    if backends != {"(a)": "nccl", "(a')": None, "(b) rank 0": "gloo", "(b) rank 1": "gloo"}:
+        fail(f"dist: backends {backends}")
+    if any(x["steps"] != 2 for x in s.values()):
+        fail(f"dist: steps {[x['steps'] for x in s.values()]}")
+    # the control: one layout twice
+    if a["losses"][0] != a0["losses"][0]:
+        fail(f"dist: the first loss over NCCL {a['losses'][0]!r} != without it "
+             f"{a0['losses'][0]!r}")
+    control = abs(a["grad_norms"][0] - a0["grad_norms"][0]) / a["grad_norms"][0]
+    # (b): the ranks agree exactly; their rows partition the train rows; each
+    # step's loss and grad_norm as (a)'s within DIST_TOL
+    if (b0["losses"], b0["grad_norms"]) != (b1["losses"], b1["grad_norms"]):
+        fail(f"dist: the ranks disagree: {b0['losses']} {b0['grad_norms']} / "
+             f"{b1['losses']} {b1['grad_norms']}")
+    if set(b0["rows"]) & set(b1["rows"]) or sorted(b0["rows"] + b1["rows"]) != list(range(8)) \
+            or sorted(a["rows"]) != list(range(8)):
+        fail(f"dist: rows (a) {a['rows']}, (b) {b0['rows']} / {b1['rows']}")
+    rel = [max(abs(x - y) / abs(y) for x, y in zip(b0[k], a[k])) for k in ("losses",
+                                                                          "grad_norms")]
+    if rel[0] > DIST_TOL or max(rel[1], control) > DIST_NORM_TOL:
+        fail(f"dist: (b) against (a) {rel}, the control {control:.3e} (tol {DIST_TOL:g} "
+             f"loss, {DIST_NORM_TOL:g} grad_norm)")
+    # each rank holds half of every sharded leaf of the stacked decoder layers;
+    # the two RMSNorm weights (L, H) a layer stay whole
+    mc = _manifest_config("phi35_vision_instruct", 2)
+    norms = 2 * mc["num_hidden_layers"] * mc["hidden_size"] * 2
+    if not b0["layer_bytes"] == b1["layer_bytes"] == (a["layer_bytes"] - norms) // 2 + norms:
+        fail(f"dist: decoder layer bytes (a) {a['layer_bytes']}, (b) {b0['layer_bytes']} / "
+             f"{b1['layer_bytes']}")
+    # one artifact, rank 0's; heads and LoRA as (a)'s within what two AdamW
+    # steps at lr 2e-4 can move an element (a sign of a near-zero gradient
+    # flipped) plus DIST_TOL of the leaf
+    writes = [len(re.findall(r"saved reward artifact", res[t][1])) for t in
+              ("(b) rank 0", "(b) rank 1")]
+    art_a, art_b = _artifact(os.path.join(tmp, "dist", "a", "save")), _artifact(
+        os.path.join(tmp, "dist", "b", "save"))
+    if writes != [1, 0] or art_a.keys() != art_b.keys():
+        fail(f"dist: artifact writes per rank {writes}, keys equal {art_a.keys() == art_b.keys()}")
+    worst = max(((art_b[k].float() - art_a[k].float()).abs().max().item()
+                 / (4 * 2e-4 * 2 + DIST_TOL * art_a[k].float().abs().max().item()), k)
+                for k in art_a)
+    if worst[0] > 1:
+        fail(f"dist: artifact leaf {worst[1]} apart from (a)'s by {worst[0]:.3f} of its bound")
+    for tag in ("(a)", "(a')", "(b) rank 0", "(b) rank 1"):
+        x = s[tag]
+        say("dist", f"{tag}: backend {x['backend']}, mesh {x['mesh']}, rows {x['rows']}, losses "
+            f"{x['losses']}, grad_norms {x['grad_norms']}, s/step {x['step_times_s']} (the "
+            f"second is steady), peak {x['peak_gib']:.2f} GiB, decoder layer bytes "
+            f"{x['layer_bytes']}, exit 0 in {res[tag][2]:.1f} s; launches {x['launches']}")
+    say("dist", f"{card}: (b) against (a), the largest relative gap of the losses "
+        f"{rel[0]:.3e} (tol {DIST_TOL:g}) and of grad_norm {rel[1]:.3e} (tol "
+        f"{DIST_NORM_TOL:g}); the control (a') against (a): first loss bit-equal, grad_norm "
+        f"{control:.3e}; the artifact written "
+        f"once (rank 0), its worst leaf {worst[1]} at {worst[0]:.3f} of its bound; (b) shares "
+        f"one card between two ranks and (a')'s run, so its time is no scaling figure")
+    say("dist", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(x["launches"][k] for x in s.values()) for k in a["launches"]}
 
 
 # ------------------------------------------------------------------ [llava]
@@ -3790,7 +3967,8 @@ def main() -> int:
     # fallback; the HTTP server's requests; the loaded checkpoints, bf16 and
     # W8A8, and qwen's; batch evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16
     # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
-    # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps)
+    # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps; the
+    # [dist] train CLI processes' own, as each prints them)
     served, params = phase_serve(cfg, rcfg)
     data, data_batch, data_rewards = phase_data(cfg, rcfg, params)
     http = phase_http(cfg, rcfg, params)
@@ -3798,10 +3976,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_load_", dir="build") as tmp:
         loaded, phi3v_dirs = phase_load(cfg, rcfg, params, qcfg, data_batch, tmp)
         evaled = phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp)
+        dist = phase_dist(cfg, tmp)
     del params, data_batch
     torch.cuda.empty_cache()
-    runs = [served, data, http, loaded, evaled, phase_serve_qwen(qcfg), phase_train(cfg, rcfg),
-            phase_train_qwen(qcfg)]
+    runs = [served, data, http, loaded, evaled, dist, phase_serve_qwen(qcfg),
+            phase_train(cfg, rcfg), phase_train_qwen(qcfg)]
     runs.append(phase_llava())
     counts = {k: sum(r[k] for r in runs) for k in runs[0]}
 

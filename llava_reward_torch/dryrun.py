@@ -1,0 +1,274 @@
+"""Multi-process dry runs (the port's twin of
+``__graft_entry__.py:dryrun_multichip``), run as one process per rank:
+
+  python -m llava_reward_torch.dryrun multichip N [--device cpu]
+  python -m llava_reward_torch.dryrun step SPEC OUT [--device cpu]
+
+Each process is launched by itself with ``LRT_COORDINATOR`` /
+``LRT_NUM_PROCESSES`` / ``LRT_PROCESS_ID`` (or torchrun's ``MASTER_ADDR`` /
+``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``), or through
+``python -m torch.distributed.run --nproc_per_node N``; ``core/mesh.py``
+picks NCCL or gloo.
+
+``multichip N`` takes one FSDP LoRA step for each backbone family on tiny
+configs, at the JAX dry run's shapes (a global batch of N rows, each rank
+scoring its own): phi3v on a dp x fsdp mesh (dp 2 when N is even and above
+2), phi3v on the zpg hybrid mesh when N >= 4, Qwen2.5-VL and LLaVA-NeXT.
+Each prints ``dryrun[<name>]: ok, loss=...``. On the card the trees are
+bf16 and the attention runs the kernels.
+
+``step SPEC OUT`` takes the training steps that SPEC (a ``torch.save``d
+dict: family, tiny-config and reward-config arguments, frozen and trainable
+trees, chosen / rejected global batches, mesh, optimizer and loss options)
+describes under this process group, and writes this rank's metrics, its
+local shard shapes and the gathered trainable tree to ``OUT.<rank>``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from .core import config as C
+from .core.device import resolve_device
+from .core.mesh import mesh_from_args, setup_distributed, world_size
+from .lora.lora import QWEN_TARGETS, init_lora
+from .models import llava_next, phi3v, qwen25_vl
+from .parallel.sharding import (Sharded, create_hybrid_mesh, create_mesh, gather_tree,
+                                shard_batch, shard_params)
+from .preprocess.collate import collate_qwen_samples, collate_samples, to_reward_batch
+from .preprocess.phi3v_processor import build_img_gather_idx
+from .reward.model import init_head_params
+from .train.optim import make_optimizer, tree_map
+from .train.train_step import (PROJECTOR_PATHS, init_train_state, make_pairwise_loss_fn,
+                               make_train_step)
+
+FAMILIES = {
+    "phi3v": (C.phi3v_tiny_config, phi3v.init_params),
+    "qwen": (C.qwen_tiny_config, qwen25_vl.init_params),
+    "llava": (C.llava_tiny_config, llava_next.init_params),
+}
+
+
+class _WordTok:
+    """crc32 word ids (the same in every process), ``image_tag`` to the
+    image token."""
+
+    def __init__(self, image_tag: str, image_token_id: int):
+        self.image_tag, self.image_token_id = image_tag, image_token_id
+
+    def __call__(self, text):
+        return {"input_ids": [self.image_token_id if t == self.image_tag
+                              else zlib.crc32(t.encode()) % 400 + 3 for t in text.split()]}
+
+
+def tiny_image_batch(cfg, rng, batch: int, seq_len: int, img_budget: int = 512) -> dict:
+    """phi3v rows with one 1x1-crop image each (``__graft_entry__.py:31-55``)."""
+    nc, crop = cfg.num_crops, cfg.vision.image_size
+    n_img = 2 * 144 + 1 + 2 * 12
+    splice = np.full((batch, seq_len), -1, np.int32)
+    splice[:, 1:1 + n_img] = np.arange(n_img)
+    gidx = build_img_gather_idx(1, 1, nc, img_budget)
+    return {
+        "input_ids": rng.integers(2, cfg.decoder.vocab_size - 2, (batch, seq_len)).astype(
+            np.int32),
+        "attention_mask": np.ones((batch, seq_len), np.int32),
+        "pixel_values": rng.standard_normal((batch, nc + 1, crop, crop, 3)).astype(np.float32),
+        "img_gather_idx": np.tile(gidx[None], (batch, 1)).astype(np.int32),
+        "splice_idx": splice,
+        "num_img_tokens": np.full((batch,), n_img, np.int32),
+    }
+
+
+def tiny_qwen_batch(cfg, batch: int, seq_len: int = 80, seed: int = 0):
+    """Qwen rows through the processor and collator (``__graft_entry__.py:83-116``)."""
+    from PIL import Image
+
+    from .preprocess.qwen_vision import Qwen25VLProcessor
+
+    proc = Qwen25VLProcessor(_WordTok("<img>", cfg.text.image_token_id),
+                             min_pixels=cfg.min_pixels, max_pixels=cfg.max_pixels,
+                             image_token_id=cfg.text.image_token_id)
+    rng = np.random.default_rng(seed)
+    samples = [proc(f"<img> sample number {seed}-{i}",
+                    [Image.fromarray((rng.random((90, 120, 3)) * 255).astype(np.uint8))])
+               for i in range(batch)]
+    return collate_qwen_samples(samples, seq_len, cfg.text.pad_token_id, patch_budget=512,
+                                unit_budget=128)
+
+
+def tiny_llava_batch(cfg, batch: int, seq_len: int = 64, seed: int = 1):
+    """LLaVA rows through the anyres processor (``__graft_entry__.py:119-145``)."""
+    from PIL import Image
+
+    from .preprocess.llava_processor import LlavaNextProcessor
+
+    proc = LlavaNextProcessor(_WordTok("<image>", cfg.text.image_token_id),
+                              image_token_id=cfg.text.image_token_id,
+                              grid_pinpoints=cfg.grid_pinpoints)
+    rng = np.random.default_rng(seed)
+    samples = [proc(f"<image> describe scene {seed}-{i}",
+                    [Image.fromarray((rng.random((300, 400, 3)) * 255).astype(np.uint8))])
+               for i in range(batch)]
+    seq_len = max(seq_len, max(len(s.input_ids) for s in samples) + 2)
+    return collate_samples(samples, seq_len, cfg.text.pad_token_id)
+
+
+def _one_step(mesh, cfg, rcfg, frozen, trainable, chosen, rejected, *, projector_path,
+              tx, loss_kw, steps=1, margin=None):
+    """Shard both trees and the batches onto ``mesh``; ``steps`` train steps.
+    -> (state, first step's metrics, wall seconds of each step)."""
+    loss_fn = make_pairwise_loss_fn(cfg, rcfg, projector_path=projector_path, mesh=mesh,
+                                    **loss_kw)
+    train_step = make_train_step(loss_fn, tx, mesh)
+    frozen, trainable = shard_params(frozen, mesh), shard_params(trainable, mesh)
+    state = init_train_state(trainable, tx)
+    chosen, rejected = shard_batch(chosen, mesh), shard_batch(rejected, mesh)
+    margin = shard_batch(margin, mesh)
+    first, times = None, []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, frozen, chosen, rejected, margin)
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
+        times.append(time.perf_counter() - t0)
+        first = first or metrics
+    return state, first, times
+
+
+def _family_trees(family: str, cfg, rcfg, dev, dtype, seeds):
+    """Frozen backbone, head + LoRA trainable tree (the JAX dry run's)."""
+    g = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    frozen = {"backbone": FAMILIES[family][1](cfg, g[0], dtype, dev)}
+    dec = cfg.decoder if family == "phi3v" else cfg.text
+    trainable = {
+        "head": init_head_params(cfg, rcfg, g[1], torch.float32, dev),
+        "lora": init_lora(dec, 4, 8, g[2], device=dev,
+                          **({} if family == "phi3v" else {"targets": QWEN_TARGETS})),
+        "projector": None,
+    }
+    return frozen, trainable
+
+
+def multichip(n: int, device: str = "cuda") -> float:
+    """One FSDP LoRA step a family on ``n`` processes (``__graft_entry__.py:
+    210-306``); returns phi3v's loss."""
+    dev = resolve_device(device)
+    setup_distributed(device=dev.type)
+    if world_size() != n:
+        raise RuntimeError(f"multichip {n} needs {n} processes, this group has {world_size()}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    dp = 2 if n % 2 == 0 and n > 2 else 1
+    mesh = create_mesh(dp=dp, fsdp=-1, tp=1)
+    B = n
+    rng = np.random.default_rng(0)
+    tx = make_optimizer(2e-4, 10, max_norm=1.0)
+    loss_kw = {"remat": True}
+
+    def run(name, mesh, cfg, rcfg, trees, chosen, rejected, family, timed=False):
+        c, r = to_reward_batch(chosen, dev), to_reward_batch(rejected, dev)
+        _, m, times = _one_step(mesh, cfg, rcfg, *trees, c, r, tx=tx, loss_kw=loss_kw,
+                                projector_path=PROJECTOR_PATHS[family],
+                                steps=2 if timed else 1)
+        if not np.isfinite(m["preference_loss"]):
+            raise RuntimeError(f"dryrun[{name}]: loss {m['preference_loss']}")
+        extra = f", warm_step={times[-1]:.3f}s" if timed else ""
+        print(f"dryrun[{name}]: ok, loss={m['preference_loss']:.4f}{extra}", flush=True)
+        return m["preference_loss"]
+
+    # phi3v: dp x fsdp, LoRA + head + projector (SkipCA on)
+    cfg = C.phi3v_tiny_config(num_crops=4, hidden_size=64, num_layers=2, vision_layers=2)
+    rcfg = C.RewardConfig(is_general_preference=True, value_head_dim=2,
+                          add_cross_attention=True, layer_id=cfg.decoder.num_layers)
+    frozen, trainable = _family_trees("phi3v", cfg, rcfg, dev, dtype, (0, 1, 2))
+    trainable["projector"] = tree_map(lambda t: t.float().clone(),
+                                      frozen["backbone"]["vision"]["img_projection"])
+    loss = run(f"phi3v dp{dp}xfsdp{n // dp}", mesh, cfg, rcfg, (frozen, trainable),
+               tiny_image_batch(cfg, rng, B, 384), tiny_image_batch(cfg, rng, B, 384),
+               "phi3v", timed=True)
+    if n >= 4:  # the zpg hybrid mesh (ZeRO++ hpZ)
+        run(f"phi3v zpg hybrid dp2xfsdp{n // 2}", create_hybrid_mesh(2, n // 2), cfg, rcfg,
+            (frozen, trainable), tiny_image_batch(cfg, rng, B, 384),
+            tiny_image_batch(cfg, rng, B, 384), "phi3v")
+
+    qcfg = C.qwen_tiny_config(num_layers=2, vision_depth=2)
+    qrcfg = C.RewardConfig(is_general_preference=True, value_head_dim=2,
+                           layer_id=qcfg.text.num_layers)
+    run("qwen", mesh, qcfg, qrcfg, _family_trees("qwen", qcfg, qrcfg, dev, dtype, (3, 4, 5)),
+        tiny_qwen_batch(qcfg, B, seed=10), tiny_qwen_batch(qcfg, B, seed=20), "qwen")
+
+    lcfg = C.llava_tiny_config(num_layers=2, vision_layers=2)
+    lrcfg = C.RewardConfig(is_general_preference=True, value_head_dim=2,
+                           layer_id=lcfg.text.num_layers)
+    run("llava", mesh, lcfg, lrcfg, _family_trees("llava", lcfg, lrcfg, dev, dtype, (6, 7, 8)),
+        tiny_llava_batch(lcfg, B, seed=11), tiny_llava_batch(lcfg, B, seed=21), "llava")
+    print(f"dryrun_multichip({n}): ok, loss={loss:.4f}", flush=True)
+    return loss
+
+
+def _local_shapes(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_local_shapes(v, f"{path}/{k}" if path else k))
+        return out
+    if isinstance(tree, Sharded):
+        return {path: tuple(tree.local.shape)}
+    return {path: tuple(tree.shape)} if isinstance(tree, torch.Tensor) else {}
+
+
+def step(spec_path: str, out_path: str, device: str = "cuda") -> dict:
+    """The steps ``spec_path`` describes, on this process group; writes
+    ``out_path.<rank>``."""
+    dev = resolve_device(device)
+    setup_distributed(device=dev.type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    spec = torch.load(spec_path, map_location=dev, weights_only=True)
+    family = spec["family"]
+    cfg = FAMILIES[family][0](**spec["cfg"])
+    rcfg = C.RewardConfig(**spec["rcfg"])
+    mesh = mesh_from_args(argparse.Namespace(**spec["mesh"]))
+    tx = make_optimizer(**spec["optim"])
+    state, metrics, times = _one_step(
+        mesh, cfg, rcfg, spec["frozen"], spec["trainable"], to_reward_batch(spec["chosen"], dev),
+        to_reward_batch(spec["rejected"], dev), margin=spec.get("margin"), tx=tx,
+        loss_kw=spec.get("loss", {}), projector_path=PROJECTOR_PATHS[family],
+        steps=spec.get("steps", 1))
+    out = {"rank": mesh.rank, "mesh": mesh.shape, "metrics": metrics, "step_s": times,
+           "local_shapes": _local_shapes(state.trainable),
+           "trainable": tree_map(lambda t: t.detach().cpu(), gather_tree(state.trainable))}
+    torch.save(out, f"{out_path}.{mesh.rank}")
+    return out
+
+
+def main(argv=None) -> None:
+    import torch.distributed as dist
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = p.add_subparsers(dest="cmd", required=True)
+    m = sub.add_parser("multichip")
+    m.add_argument("n", type=int)
+    s = sub.add_parser("step")
+    s.add_argument("spec")
+    s.add_argument("out")
+    for q in (m, s):
+        q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    try:
+        if args.cmd == "multichip":
+            multichip(args.n, args.device)
+        else:
+            step(args.spec, args.out, args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -34,7 +34,9 @@ from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
 from ..ops import quant_epilogue as qe
 from ..ops.activations import ACT2FN
 from ..ops.attention import mha
+from ..ops.linear import mm
 from ..ops.norms import layer_norm
+from ..parallel.sharding import Sharded
 from ..utils.quantize import cat_out, int8_linear_pre, is_w8a8, qmatmul
 
 
@@ -84,7 +86,7 @@ def embed_patches(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor) -
     gh, gw = Himg // P, Wimg // P
     x = pixel_values.reshape(N, gh, P, gw, P, C)
     x = x.permute(0, 1, 3, 2, 4, 5).reshape(N, gh * gw, P * P * C)
-    patches = x @ params["patch_proj"]
+    patches = mm(x, params["patch_proj"])
     cls = params["class_embedding"].to(patches.dtype).expand(N, 1, cfg.hidden_size)
     emb = torch.cat([cls, patches], dim=1)
     return emb + params["position_embedding"][None].to(patches.dtype)
@@ -177,10 +179,31 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
 
 def layer_slice(tree, i):
     """Layer ``i`` of a stacked tree: every leaf, also inside nested dicts
-    (quantized leaves, LoRA factors), indexed on its leading axis."""
+    (quantized leaves, LoRA factors), indexed on its leading axis. A leaf
+    sharded over the mesh's fsdp axis (``parallel/sharding.Sharded``) is
+    all-gathered here, layer ``i`` alone, under autograd."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.layer(i)
     return tree[i]
+
+
+def _sliced(fn, i, h, layers, lora, *rest, **kw):
+    if lora is not None:
+        kw["lora_layer"] = layer_slice(lora, i)
+    return fn(h, layer_slice(layers, i), *rest, **kw)
+
+
+def stacked_layer(fn, i, h, layers, *rest, lora=None, remat=False, **kw):
+    """``fn(h, layer i of layers, *rest, lora_layer=layer i of lora, **kw)``.
+    The slice, and so a sharded layer's gather, happens inside the
+    checkpointed region under ``remat``: the gathered weights are dropped
+    after the forward and gathered again for the backward's recompute,
+    instead of being kept as checkpoint inputs."""
+    if remat:
+        return checkpoint(_sliced, fn, i, h, layers, lora, *rest, use_reentrant=False, **kw)
+    return _sliced(fn, i, h, layers, lora, *rest, **kw)
 
 
 def extract_patch_features(
@@ -226,11 +249,6 @@ def extract_patch_features(
             attn_impl = "fused_plain" if attn_impl == "plain" else "fused"
 
     for i in range(n_active):
-        lora_layer = layer_slice(lora, i) if lora is not None else None
-        args = (h, layer_slice(params["layers"], i), cfg, attn_impl, lora_layer, valid_len,
-                quant_route)
-        if remat:
-            h = checkpoint(_encoder_layer, *args, use_reentrant=False)
-        else:
-            h = _encoder_layer(*args)
+        h = stacked_layer(_encoder_layer, i, h, params["layers"], cfg, attn_impl, lora=lora,
+                          remat=remat, valid_len=valid_len, quant_route=quant_route)
     return h[:, 1:S, :]  # drop CLS (and the pad tail)

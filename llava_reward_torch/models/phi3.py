@@ -29,7 +29,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..core.config import DecoderConfig
 from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
@@ -40,7 +39,7 @@ from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_cos_sin_for_config
 from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8, qmatmul
-from .clip_vit import layer_slice
+from .clip_vit import stacked_layer
 
 
 def init_params(
@@ -166,9 +165,8 @@ def forward(
     h = inputs_embeds
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        lora_layer = layer_slice(lora, i) if lora is not None else None
-        args = (h, layer_slice(layers, i), cfg, cos, sin, attention_mask, attn_impl, lora_layer)
-        h = checkpoint(decoder_layer, *args, use_reentrant=False) if remat else decoder_layer(*args)
+        h = stacked_layer(decoder_layer, i, h, layers, cfg, cos, sin, attention_mask, attn_impl,
+                          lora=lora, remat=remat)
         if collect and i + 1 == collect_layer_id:
             collected = h
 

@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Qwen25VLConfig, QwenTextConfig, QwenVisionConfig
 from ..core.device import DEFAULT_DEVICE, on_card, resolve_device
@@ -50,7 +49,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary
 from ..preprocess.qwen_vision import patch_norm_vectors
 from ..utils.quantize import cat_out, dequant_layer, int8_linear_pre, is_w8a8, qmatmul
-from .clip_vit import layer_slice
+from .clip_vit import stacked_layer
 from .phi3 import _maybe_lora
 from .phi3v import _take_rows
 
@@ -230,10 +229,8 @@ def vision_forward(
 
     full = set(vc.fullatt_block_indexes)
     for i in range(vc.depth):
-        args = (h, layer_slice(params["blocks"], i), vc, cos, sin, patch_valid, i in full,
-                attn_impl)
-        h = checkpoint(_vision_block, *args, use_reentrant=False) if remat else _vision_block(
-            *args)
+        h = stacked_layer(_vision_block, i, h, params["blocks"], vc, cos, sin, patch_valid,
+                          i in full, attn_impl, remat=remat)
 
     # merger in window order (Qwen2_5_VLPatchMerger)
     m = params["merger"]
@@ -384,11 +381,8 @@ def text_forward(
 
     h = inputs_embeds
     for i in range(tc.num_layers):
-        lora_layer = layer_slice(lora, i) if lora is not None else None
-        args = (h, layer_slice(params["layers"], i), tc, cos, sin, attention_mask, attn_impl,
-                lora_layer)
-        h = checkpoint(_decoder_layer, *args, use_reentrant=False) if remat else _decoder_layer(
-            *args)
+        h = stacked_layer(_decoder_layer, i, h, params["layers"], tc, cos, sin, attention_mask,
+                          attn_impl, lora=lora, remat=remat)
         if collect and i + 1 == collect_layer_id:
             collected = h
     return rms_norm(h, params["final_layernorm"], tc.rms_norm_eps), collected

@@ -13,11 +13,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import LlavaNextConfig, Phi3VConfig, Qwen25VLConfig, RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..models import llava_next, phi3v, qwen25_vl
 from ..ops.pixels import hd_resize_u8_bank, prepare_pixel_bank
+from ..parallel.collectives import all_reduce
 from . import heads, skipca
 
 
@@ -88,6 +90,10 @@ def init_head_params(
     return p
 
 
+def _global_max(t: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce(t, group, op=dist.ReduceOp.MAX)
+
+
 def _check_family(cfg) -> None:
     if not isinstance(cfg, (Phi3VConfig, Qwen25VLConfig, LlavaNextConfig)):
         raise NotImplementedError(
@@ -109,7 +115,12 @@ def reward_forward(
     vision_lora: Optional[dict] = None,
     prompt_end_index: Optional[torch.Tensor] = None,
     skipca_batch_max: Optional[torch.Tensor] = None,
+    data_group=None,
 ) -> RewardOutput:
+    """``data_group``: the process group of the data ranks when this batch
+    is one rank's share of a global batch. phi3v's SkipCA then zero-pads to
+    the global batch's largest image-token count, as the JAX package's
+    forward over the whole batch does."""
     _check_family(cfg)
     attention_mask = batch.attention_mask
     collect = None if rcfg.layer_id >= num_layers_of(cfg) else rcfg.layer_id
@@ -164,8 +175,14 @@ def reward_forward(
 
     hidden = out.last_hidden_state if collect is None else out.collected_hidden_state
     if rcfg.add_cross_attention and skipca_mode and out.vision_embedding is not None:
+        vision = out.vision_embedding
+        if skipca_mode == "phi3v" and data_group is not None:
+            if skipca_batch_max is None:
+                skipca_batch_max = _global_max(batch.num_img_tokens.max()[None], data_group)[0]
+            width = int(torch.max(skipca_batch_max))  # this rank's batch may hold fewer slots
+            vision = torch.nn.functional.pad(vision, (0, 0, 0, max(width - vision.shape[1], 0)))
         hidden = skipca.apply(
-            params["head"]["skipca"], hidden, out.vision_embedding, batch.num_img_tokens,
+            params["head"]["skipca"], hidden, vision, batch.num_img_tokens,
             rms_eps=rms_eps_of(cfg), mode=skipca_mode, batch_max=skipca_batch_max,
         )
 
@@ -197,11 +214,13 @@ def paired_forward(
     lora: Optional[dict] = None,
     vision_lora: Optional[dict] = None,
     prompt_end_index: Optional[torch.Tensor] = None,
+    data_group=None,
 ):
     """Score (chosen, rejected) in one stacked forward (``model.py:235-303``).
     Qwen's M-RoPE ``position_ids`` (3, B, S) stack on axis 1. phi3v: each
     half's SkipCA zero-pad width is that half's own max image-token count,
-    as in the reference's two separate forwards (qwen masks per sample)."""
+    as in the reference's two separate forwards (qwen masks per sample);
+    over all data ranks under ``data_group`` (``reward_forward``)."""
     _check_family(cfg)
 
     def cat(name, a, b):
@@ -217,15 +236,15 @@ def paired_forward(
     if (rcfg.add_cross_attention and not _is_qwen(cfg)
             and chosen.num_img_tokens is not None):
         Bc = chosen.input_ids.shape[0]
-        skipca_bm = torch.cat([
-            torch.max(chosen.num_img_tokens).expand(Bc),
-            torch.max(rejected.num_img_tokens).expand(Bc),
-        ])
+        m = torch.stack([torch.max(chosen.num_img_tokens), torch.max(rejected.num_img_tokens)])
+        if data_group is not None:
+            m = _global_max(m, data_group)
+        skipca_bm = torch.cat([m[0].expand(Bc), m[1].expand(Bc)])
     out = reward_forward(
         params, cfg, rcfg, stacked, training=training, attn_impl=attn_impl, remat=remat,
         lora=lora, vision_lora=vision_lora, prompt_end_index=cat(
             "prompt_end_index", prompt_end_index, prompt_end_index),
-        skipca_batch_max=skipca_bm,
+        skipca_batch_max=skipca_bm, data_group=data_group,
     )
     B = chosen.input_ids.shape[0]
     prompt_hidden = out.prompt_hidden[:B] if out.prompt_hidden is not None else None

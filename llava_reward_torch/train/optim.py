@@ -15,6 +15,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..parallel.collectives import all_reduce
+from ..parallel.sharding import Sharded
+
 Schedule = Callable[[int], float]
 
 
@@ -23,25 +26,48 @@ Schedule = Callable[[int], float]
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest``; ``None`` subtrees stay ``None``."""
+    ``rest``; ``None`` subtrees stay ``None``. A ``Sharded`` leaf maps over
+    its local block and stays ``Sharded``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.with_local(fn(tree.local, *(
+            r.local if isinstance(r, Sharded) else r for r in rest)))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
+    """The leaves in order, a ``Sharded`` leaf as its local block."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
+    return [tree.local if isinstance(tree, Sharded) else tree]
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in fp32 (``optax.global_norm``).
+    A ``Sharded`` leaf's squares are summed over its fsdp group, so every
+    rank gets the norm of the whole tree, each replicated leaf counted once."""
+    sq, part, group = 0.0, 0.0, None
+
+    def walk(t):
+        nonlocal sq, part, group
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, Sharded):
+            part = part + torch.sum(t.local.float() ** 2)
+            group = t.mesh.group(("fsdp",))
+        elif t is not None:
+            sq = sq + torch.sum(t.float() ** 2)
+
+    walk(tree)
+    if group is not None:
+        sq = sq + all_reduce(part, group)
+    return torch.sqrt(torch.as_tensor(sq))
 
 
 def apply_updates(params, updates):

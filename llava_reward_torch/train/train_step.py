@@ -17,6 +17,8 @@ import torch
 
 from ..core.config import RewardConfig
 from ..models.phi3 import logits as lm_logits
+from ..parallel.collectives import all_reduce
+from ..parallel.sharding import DATA, Sharded, gather_unstacked
 from ..reward import losses
 from ..reward.heads import eos_index_from_mask, prompt_skew_block_matrices
 from ..reward.model import RewardBatch, paired_forward, reward_forward
@@ -62,7 +64,10 @@ def assemble_params(frozen: dict, trainable: dict,
                     projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"]):
     """Merge the trainable leaves back into a full forward tree
     (``train_step.py:69-94``). Returns (params, lora, vision_lora). Full
-    fine-tuning keeps the whole backbone under ``trainable['backbone']``."""
+    fine-tuning keeps the whole backbone under ``trainable['backbone']``.
+    Sharded leaves outside the stacked layers are gathered here, under
+    autograd, once a forward; the models gather stacked ones a layer at a
+    time."""
     backbone = trainable.get("backbone") or frozen["backbone"]
     if trainable.get("projector") is not None:
         backbone = dict(backbone)
@@ -71,7 +76,7 @@ def assemble_params(frozen: dict, trainable: dict,
             node[key] = dict(node[key])
             node = node[key]
         node[projector_path[-1]] = trainable["projector"]
-    params = {"backbone": backbone, "head": trainable["head"]}
+    params = gather_unstacked({"backbone": backbone, "head": trainable["head"]})
     return params, trainable.get("lora"), trainable.get("vision_lora")
 
 
@@ -88,14 +93,20 @@ def make_pairwise_loss_fn(
     reward_scaler_beta: float = 2.0,
     add_img_eos: bool = False,
     projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"],
+    mesh=None,
 ) -> Callable:
     """``train_step.py:97-188``. For Qwen2.5-VL pass
     ``projector_path=PROJECTOR_PATHS["qwen"]`` (the merger is the trainable
     projector) and qwen ``RewardBatch``es. ``add_pretrain_loss`` mixes the SFTSum ptx
     regulariser over the chosen sequence's LM logits: loss = (1 - coef) *
-    preference + coef * ptx; the frozen backbone tree must hold 'lm_head'."""
+    preference + coef * ptx; the frozen backbone tree must hold 'lm_head'.
+    Under a ``mesh`` the batches are this rank's rows and the loss is their
+    mean, as every loss here (the ptx term too: a mean over rows of each
+    row's token sum) is a mean over rows; ``make_train_step`` averages it
+    over the data ranks."""
     loss_name = select_loss_name(rcfg, cls_based, add_img_eos)
     tau = rcfg.general_preference_tau
+    data_group = _data_group(mesh)
 
     def loss_fn(trainable: dict, frozen: dict, chosen: RewardBatch, rejected: RewardBatch,
                 margin: Optional[torch.Tensor] = None):
@@ -108,6 +119,7 @@ def make_pairwise_loss_fn(
         c_r, r_r, prompt_hidden, chosen_last_hidden = paired_forward(
             params, cfg, rcfg, chosen, rejected, training=True, attn_impl=attn_impl,
             remat=remat, lora=lora, vision_lora=vision_lora, prompt_end_index=prompt_end,
+            data_group=data_group,
         )
         if compute_fp32_loss:
             c_r, r_r = c_r.float(), r_r.float()
@@ -129,7 +141,7 @@ def make_pairwise_loss_fn(
 
         metrics = {"preference_loss": loss, "prob": prob}
         if add_pretrain_loss:
-            lm_head = (trainable.get("backbone") or frozen["backbone"]).get("lm_head")
+            lm_head = params["backbone"].get("lm_head")
             if lm_head is None:
                 raise ValueError("--add_pretrain_loss needs lm_head weights")
             logits = lm_logits(params["backbone"], lm_head, chosen_last_hidden)
@@ -149,13 +161,16 @@ def make_pairwise_loss_fn(
 
 def make_cls_loss_fn(cfg, rcfg: RewardConfig, *, compute_fp32_loss: bool = False,
                      attn_impl: str = "auto", remat: bool = True,
-                     projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"]) -> Callable:
+                     projector_path: Tuple[str, ...] = PROJECTOR_PATHS["phi3v"],
+                     mesh=None) -> Callable:
     """Pointwise classification objective (``train_step.py:191-215``)."""
+    data_group = _data_group(mesh)
 
     def loss_fn(trainable, frozen, batch: RewardBatch, labels: torch.Tensor):
         params, lora, vision_lora = assemble_params(frozen, trainable, projector_path)
         out = reward_forward(params, cfg, rcfg, batch, training=True, attn_impl=attn_impl,
-                             remat=remat, lora=lora, vision_lora=vision_lora)
+                             remat=remat, lora=lora, vision_lora=vision_lora,
+                             data_group=data_group)
         r = out.reward[..., 0]
         if compute_fp32_loss:
             r = r.float()
@@ -171,11 +186,52 @@ def _trainable_leaves(tree) -> None:
             leaf.requires_grad_(True)
 
 
-def make_train_step(loss_fn: Callable, tx) -> Callable:
+def _data_group(mesh):
+    """The data ranks' process group, None for one data rank."""
+    return mesh.group(DATA) if mesh is not None and mesh.ways(DATA) > 1 else None
+
+
+def _mean_over_data(grads, metrics: dict, mesh):
+    """Each rank's gradients and metrics averaged over the data ranks: a
+    replicated leaf's gradient summed over ("dp", "fsdp"), a ``Sharded``
+    leaf's block (which the gather's backward already summed over fsdp) over
+    dp, both divided by the data ways; one bucket per set of axes."""
+    n = mesh.ways(DATA)
+    plain, sharded = [], []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, Sharded):
+            sharded.append(t.local)
+        elif t is not None:
+            plain.append(t)
+
+    walk(grads)
+    reduced = {}
+    for leaves, axes in ((plain, DATA), (sharded, ("dp",))):
+        if not leaves:
+            continue
+        flat = torch.cat([g.reshape(-1).float() for g in leaves])
+        if mesh.ways(axes) > 1:
+            flat = all_reduce(flat, mesh.group(axes))
+        for g, piece in zip(leaves, (flat / n).split([g.numel() for g in leaves])):
+            reduced[id(g)] = piece.view_as(g).to(g.dtype)
+    keys = sorted(metrics)
+    means = all_reduce(torch.stack([metrics[k].float() for k in keys]), mesh.group(DATA)) / n
+    return tree_map(lambda g: reduced[id(g)], grads), dict(zip(keys, means.unbind()))
+
+
+def make_train_step(loss_fn: Callable, tx, mesh=None) -> Callable:
     """``train_step(state, frozen, *loss_args) -> (state, metrics)``
     (``train_step.py:218-238``): loss and grads of the trainable tree, the
     optimizer's update, and ``grad_norm`` = global norm of the raw grads.
-    Metrics come back as detached tensors (reading them waits for the card)."""
+    Metrics come back as detached tensors (reading them waits for the card).
+    Under a ``mesh`` with more than one data rank, each rank's loss is over
+    its own rows; gradients and metrics are their mean over the data ranks,
+    the global batch's, and equal on every rank."""
+    data_ranks = _data_group(mesh) is not None
 
     def train_step(state: TrainState, frozen: dict, *loss_args):
         trainable = state.trainable
@@ -187,10 +243,12 @@ def make_train_step(loss_fn: Callable, tx) -> Callable:
                   for g, p in zip(grads_flat, leaves))
         grads = tree_map(lambda _: next(it), trainable)
         with torch.no_grad():
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if data_ranks:
+                grads, metrics = _mean_over_data(grads, metrics, mesh)
             updates, opt_state = tx.update(grads, state.opt_state, trainable)
             new_trainable = tree_map(lambda p, u: (p + u.to(p.dtype)).requires_grad_(),
                                      trainable, updates)
-            metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["grad_norm"] = global_norm(grads)
         return TrainState(state.step + 1, new_trainable, opt_state), metrics
 

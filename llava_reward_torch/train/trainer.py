@@ -9,7 +9,14 @@ the margin is ``c_rate - r_rate`` under ``margin_loss``. The train-state
 checkpoint is ``torch.save`` of ``{step, trainable, opt_state}`` (the JAX
 package's orbax layout is its own, not the contract). ``wandb_logger``, when
 given, receives the train and eval logs (``trainer.py:190-210,299-303``).
-Not here: the mesh / sharded-batch arguments (multi-card runs).
+
+Under a ``mesh`` (``parallel/sharding.py``) every rank steps on its own
+rows; evaluation all-gathers the probabilities (or rewards and labels)
+before the metrics, the samplers' padding duplicates included, as in the
+JAX package; saving gathers the sharded leaves on every rank and rank 0
+alone writes, then all ranks meet at a barrier. The train-state checkpoint
+is the gathered whole state, so it resumes under any mesh, one process
+included. Logs and wandb are rank 0's.
 """
 
 from __future__ import annotations
@@ -18,19 +25,22 @@ import json
 import os
 import shutil
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..core.config import RewardConfig
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.logging import init_logger
+from ..core.mesh import is_rank_0
 from ..evalx.metrics import pairwise_metrics, pointwise_metrics
 from ..io.artifact import save_reward_artifact
 from ..io.hf_phi3v import hf_state_dict_from_params
 from ..io.torch_io import save_torch_state_dict
 from ..lora.lora import (DEFAULT_TARGETS, QWEN_TARGETS, peft_adapter_config,
                          stacked_to_peft_state, vision_stacked_to_peft_state)
+from ..parallel.collectives import all_gather_list, barrier
+from ..parallel.sharding import DATA, gather_tree, reshard_like
 from ..preprocess.collate import to_reward_batch
 from ..reward.model import reward_forward
 from ..reward.preference import preference_prob
@@ -71,13 +81,19 @@ class RewardTrainer:
         ckpt_steps: int = -1,
         wandb_logger=None,
         device=DEFAULT_DEVICE,
+        mesh=None,
     ):
         self.cfg, self.rcfg = cfg, rcfg
         self.device = resolve_device(device)
         self.frozen = frozen
         self.tx = tx
         self.state = init_train_state(trainable, tx)
-        self.train_step = make_train_step(loss_fn, tx)
+        self.train_step = make_train_step(loss_fn, tx, mesh)
+        # mesh: the trees are sharded over it and each rank's batches are its
+        # own rows (no global batch to cut, unlike the JAX trainer's
+        # shard_batch_fn)
+        self.data_group = (mesh.group(DATA) if mesh is not None and mesh.ways(DATA) > 1
+                           else None)
         self.train_loader, self.eval_loader = train_loader, eval_loader
         self.cls_based, self.margin_loss = cls_based, margin_loss
         self.max_epochs = max_epochs
@@ -99,6 +115,7 @@ class RewardTrainer:
         self.wandb = wandb_logger
         self.ckpt_path, self.ckpt_steps = ckpt_path, ckpt_steps
         self.last_train_logs: Dict[str, float] = {}
+        self.train_logs: List[Dict[str, float]] = []  # every logged step's
         if save_best_model and eval_loader is None and eval_steps == -1:
             logger.warning("--save_best_model is inert: no eval loader and eval_steps=-1 "
                            "means evaluate() never runs, so <save_path>/best never fires")
@@ -153,8 +170,10 @@ class RewardTrainer:
                         "step_time_s": dt / self.logging_steps,
                     }
                     self.last_train_logs = dict(logs, global_step=global_step)
-                    logger.info("epoch %d step %d %s", epoch, global_step,
-                                " ".join(f"{k}={v:.4f}" for k, v in logs.items()))
+                    self.train_logs.append(self.last_train_logs)
+                    if is_rank_0():
+                        logger.info("epoch %d step %d %s", epoch, global_step,
+                                    " ".join(f"{k}={v:.4f}" for k, v in logs.items()))
                     if self.wandb is not None:
                         self.wandb.log({f"train/{k}": v for k, v in logs.items()}
                                        | {"train/global_step": global_step})
@@ -176,7 +195,8 @@ class RewardTrainer:
 
     def _score(self, params, lora, vision_lora, batch) -> torch.Tensor:
         return reward_forward(params, self.cfg, self.rcfg, to_reward_batch(batch, self.device),
-                              training=False, lora=lora, vision_lora=vision_lora).reward
+                              training=False, lora=lora, vision_lora=vision_lora,
+                              data_group=self.data_group).reward
 
     @torch.no_grad()
     def evaluate(self, global_step: int = 0) -> Dict[str, float]:
@@ -194,6 +214,9 @@ class RewardTrainer:
                 r = self._score(params, lora, vision_lora, b)[..., 0]
                 rewards.extend(r.float().cpu().tolist())
                 labels.extend(torch.as_tensor(y).reshape(-1).tolist())
+            if self.data_group is not None:
+                rewards = all_gather_list(rewards, self.data_group)
+                labels = all_gather_list(labels, self.data_group)
             pm = pointwise_metrics(rewards, labels)
             metrics = {"eval_acc": pm["accuracy"], "eval_f1": pm["f1"],
                        "eval_recall": pm["recall"], "eval_num_samples": pm["num_samples"]}
@@ -206,13 +229,16 @@ class RewardTrainer:
                                 value_head_dim=rcfg.value_head_dim,
                                 tau=rcfg.general_preference_tau)
             probs.extend(p.float().cpu().tolist())
+        if self.data_group is not None:
+            probs = all_gather_list(probs, self.data_group)
         pm = pairwise_metrics(probs)
         metrics = {"eval_acc": pm["accuracy"], "eval_acc_wo_tie": pm["accuracy_wo_tie"],
                    "eval_mean_prob": pm["mean_prob"], "eval_num_pairs": pm["num_pairs"]}
         return self._finish_eval(global_step, metrics, pm["accuracy"])
 
     def _finish_eval(self, global_step, metrics, acc):
-        logger.info("eval step %d %s", global_step, metrics)
+        if is_rank_0():
+            logger.info("eval step %d %s", global_step, metrics)
         if self.save_best_model and acc > self.best_eval_acc:
             self.best_eval_acc = acc
             self.save_artifact(os.path.join(self.save_path, "best"))
@@ -228,8 +254,15 @@ class RewardTrainer:
         """pytorch_model.bin (heads + projector) + lora/ + reward_config.yaml
         (``trainer.py:331-451``); under full fine-tuning also the whole
         phi3v backbone as an HF-layout checkpoint in ``full_model/`` (a qwen or
-        llava backbone is not exported, as in the JAX package)."""
-        trainable = self.state.trainable
+        llava backbone is not exported, as in the JAX package). Every rank
+        gathers the sharded leaves; rank 0 writes; all meet at a barrier."""
+        trainable = gather_tree(self.state.trainable)
+        lm_head = None
+        if trainable.get("backbone") is not None:
+            lm_head = gather_tree(self.frozen.get("backbone", {}).get("lm_head"))
+        if not is_rank_0():
+            barrier()
+            return
         lora_state = lora_config = None
         if trainable.get("lora") is not None and self.lora_rank > 0:
             dec_cfg = self.cfg.decoder if self.model_type == "phi3v" else self.cfg.text
@@ -252,17 +285,18 @@ class RewardTrainer:
                              model_type=self.model_type)
         if trainable.get("backbone") is not None:
             if self.model_type == "phi3v":
-                self._save_full_model(os.path.join(path, "full_model"), trainable["backbone"])
+                self._save_full_model(os.path.join(path, "full_model"), trainable["backbone"],
+                                      lm_head)
             else:
                 logger.warning("full-FT export only implemented for phi3v; backbone not saved")
         logger.info("saved reward artifact to %s", path)
+        barrier()
 
-    def _save_full_model(self, path: str, backbone: dict) -> None:
+    def _save_full_model(self, path: str, backbone: dict, lm_head) -> None:
         """The fine-tuned backbone (and the frozen lm_head, if any) as an
         HF-layout bf16 ``pytorch_model.bin`` with its ``config.json``, so the
         full-checkpoint loaders read it (save_model, deepspeed.py:277-332)."""
         sd = hf_state_dict_from_params(backbone, self.cfg)
-        lm_head = self.frozen.get("backbone", {}).get("lm_head")
         if lm_head is not None:
             sd["lm_head.weight"] = lm_head.detach().cpu().T.contiguous()
         save_torch_state_dict(sd, os.path.join(path, "pytorch_model.bin"), torch.bfloat16)
@@ -295,8 +329,9 @@ class RewardTrainer:
 
     def clean_old_checkpoints(self) -> None:
         """Keep the newest ``max_ckpt_num`` global_step dirs
-        (``trainer.py:453-475``; the size budget no caller sets is left out)."""
-        if not os.path.isdir(self.save_path):
+        (``trainer.py:453-475``; the size budget no caller sets is left out),
+        on rank 0."""
+        if not is_rank_0() or not os.path.isdir(self.save_path):
             return
         dirs = [d for d in os.listdir(self.save_path) if d.startswith("global_step")]
         dirs.sort(key=lambda d: os.path.getmtime(os.path.join(self.save_path, d)))
@@ -307,17 +342,27 @@ class RewardTrainer:
     # ------------------------------------------------------------ resume
 
     def save_train_ckpt(self, path: str) -> None:
-        """The train state, ``torch.save`` of {step, trainable, opt_state}."""
-        os.makedirs(path, exist_ok=True)
-        state = {"step": self.state.step,
-                 "trainable": tree_map(lambda t: t.detach(), self.state.trainable),
-                 "opt_state": self.state.opt_state}
-        tmp = os.path.join(path, "train_state.pt.tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, os.path.join(path, "train_state.pt"))
+        """The train state, ``torch.save`` of {step, trainable, opt_state},
+        whole: every rank gathers its sharded leaves, rank 0 writes."""
+        state = gather_tree({"step": self.state.step,
+                             "trainable": tree_map(lambda t: t.detach(), self.state.trainable),
+                             "opt_state": self.state.opt_state})
+        if is_rank_0():
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, "train_state.pt.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, os.path.join(path, "train_state.pt"))
+        barrier()
 
     def load_train_ckpt(self, path: str) -> None:
-        state = torch.load(os.path.join(path, "train_state.pt"), map_location=self.device,
-                           weights_only=True)
+        """Read the whole state and shard it as this trainer's state is
+        sharded (orbax's restore onto the target's sharding, ``trainer.py:
+        505-528``): a checkpoint from any mesh resumes under any other."""
+        state = reshard_like(
+            torch.load(os.path.join(path, "train_state.pt"), map_location=self.device,
+                       weights_only=True),
+            {"step": self.state.step, "trainable": self.state.trainable,
+             "opt_state": self.state.opt_state})
         self.state = TrainState(state["step"], state["trainable"], state["opt_state"])
-        logger.info("resumed train state from %s (step %s)", path, state["step"])
+        if is_rank_0():
+            logger.info("resumed train state from %s (step %s)", path, state["step"])

@@ -1,11 +1,22 @@
 """Train command line (the port's twin of the top-level
 ``train_llava_reward.py``), flag-compatible with the reference CLI
-(train_llava_reward.py:12-227), on one process and one card:
+(train_llava_reward.py:12-227), on one process or on N, one card each:
 
   python -m llava_reward_torch.train_llava_reward --pretrain <hf_dir> \\
       --dataset <json> --is_general_preference --value_head_dim 2 \\
       --add_cross_attention --lora_rank 128 --lora_alpha 256 --bf16 \\
       --gradient_checkpointing [--device cuda|cpu] ...
+
+  torchrun --nproc_per_node N -m llava_reward_torch.train_llava_reward ...
+
+More than one process (torchrun's ``MASTER_ADDR`` / ``MASTER_PORT`` /
+``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``, or the JAX package's
+``LRT_COORDINATOR`` / ``LRT_NUM_PROCESSES`` / ``LRT_PROCESS_ID``): the
+mesh comes from ``--zero_stage`` / ``--zpg`` / ``--mesh_dp`` /
+``--mesh_fsdp`` (``core/mesh.py``), both trees are sharded by the JAX
+rules, and each rank reads its own rows (``GroupSampler(num_replicas=world,
+rank=rank)``) in batches of ``--micro_train_batch_size``: one device a
+process, so the global batch is world x micro.
 
 Orchestration (the reference's train(): model -> tokenizer -> optimizer ->
 data -> scheduler -> trainer.fit): load the backbone (or, without
@@ -15,7 +26,9 @@ when ``--lora_rank 0``, the projector under ``--ft_projector``) -> blended
 datasets -> ``GroupSampler`` + ``PrefetchLoader`` -> AdamW ->
 ``RewardTrainer.fit``. Pointwise rows (or ``--cls_based``) train the
 classification objective. Ends with a ``kernel launches`` line (each
-hand-written kernel's launches in the run).
+hand-written kernel's launches in the run) and a ``train summary`` line
+(this rank's mesh, backend, rows, each logged step's loss, grad_norm and
+seconds, bytes of the decoder's stacked layers it holds, peak card memory).
 
 ``--load_in_8bit`` (W8A8: the codes stay int8 in the matmul) and
 ``--load_in_4bit`` (``--quant_scheme`` nf4 or absmax) train LoRA over a
@@ -23,8 +36,8 @@ quantized frozen decoder (train_llava_reward.py:131-153): the decoder's
 stacked layers are quantized one layer at a time on their way to the
 device. Both need LoRA and exclude each other.
 
-Not here yet, refused with the ROADMAP item that brings it: the mesh flags
-and more than one process (A7).
+Not here yet, refused with the ROADMAP item that brings it: ``--mesh_tp``
+above 1, tensor parallelism (A8).
 """
 
 from __future__ import annotations
@@ -70,13 +83,10 @@ def _refuse(args) -> None:
         raise ValueError("--load_in_4bit/--load_in_8bit require LoRA (frozen backbone)")
     if args.load_in_4bit and args.load_in_8bit:
         raise ValueError("--load_in_4bit and --load_in_8bit are exclusive")
-    mesh = {"--mesh_dp": args.mesh_dp, "--mesh_fsdp": args.mesh_fsdp, "--mesh_tp": args.mesh_tp}
-    wide = {k: v for k, v in mesh.items() if v > 1}  # --mesh_fsdp -1: every card, here one
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if wide or world > 1:
+    if args.mesh_tp > 1:
         raise NotImplementedError(
-            f"more than one card ({wide or f'WORLD_SIZE={world}'}) is ROADMAP A7; this CLI "
-            "trains on one process and one card")
+            f"--mesh_tp {args.mesh_tp}: tensor parallelism is ROADMAP A8; the mesh's tp "
+            "axis is 1 here")
 
 
 def train(args):
@@ -85,14 +95,16 @@ def train(args):
     from .core.config import RewardConfig
     from .core.device import resolve_device
     from .core.logging import init_logger
+    from .core.mesh import backend, is_rank_0, mesh_from_args, setup_distributed
     from .core.registry import get_family
     from .data.datasets import blending_datasets, is_pairwise
     from .data.loader import PrefetchLoader
     from .data.sampler import GroupSampler
     from .io.torch_io import load_torch_state_dict
     from .lora.lora import init_lora, init_vision_lora
+    from .parallel.sharding import shard_params
     from .reward.model import init_head_params, num_layers_of
-    from .train.optim import make_optimizer, tree_map
+    from .train.optim import make_optimizer, tree_leaves, tree_map
     from .train.train_step import make_cls_loss_fn, make_pairwise_loss_fn
     from .train.trainer import RewardTrainer
     from .utils.quantize import quantize_stacked_layers
@@ -100,6 +112,12 @@ def train(args):
     logger = init_logger(__name__)
     _refuse(args)
     dev = resolve_device(args.device)
+    setup_distributed(device=dev.type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_from_args(args)
+    logger.info("mesh %s, rank %d, backend %s", mesh.shape, mesh.rank, backend())
+    world, rank = mesh.size, mesh.rank
     family = get_family(args.model_type)
 
     def generator(seed):
@@ -184,6 +202,10 @@ def train(args):
                         and args.model_type == "phi3v" else None),
     }
 
+    # ---- shard over the mesh (each leaf whole where fsdp is 1)
+    frozen, trainable = shard_params(frozen, mesh), shard_params(trainable, mesh)
+    del backbone, train_backbone
+
     # ---- data
     train_rows, eval_rows = blending_datasets(
         args.dataset, args.dataset_probs, seed=args.seed, max_count=args.max_samples,
@@ -193,8 +215,10 @@ def train(args):
     train_ds = ds_cls(train_rows, processor, tokenizer, args.image_root)
     eval_ds = ds_cls(eval_rows, processor, tokenizer, args.image_root) if eval_rows else None
     pad_id = family.decoder_cfg(cfg).pad_token_id
-    sampler = GroupSampler(len(train_ds), shuffle=True, seed=args.seed,
-                           group_size=args.group_size)
+    # every rank reads its own rows (the reference's per-rank sampler); one
+    # device a process, so the local batch is the micro batch
+    sampler = GroupSampler(len(train_ds), num_replicas=world, rank=rank, shuffle=True,
+                           seed=args.seed, group_size=args.group_size)
     train_loader = PrefetchLoader(
         train_ds, sampler, args.micro_train_batch_size,
         collate_fn=lambda items: train_ds.collate(items, args.seq_len, pad_id),
@@ -203,7 +227,8 @@ def train(args):
     eval_loader = None
     if eval_ds is not None:
         eval_loader = PrefetchLoader(
-            eval_ds, GroupSampler(len(eval_ds), shuffle=False), args.micro_train_batch_size,
+            eval_ds, GroupSampler(len(eval_ds), num_replicas=world, rank=rank, shuffle=False),
+            args.micro_train_batch_size,
             collate_fn=lambda items: eval_ds.collate(items, args.seq_len, pad_id),
             num_workers=args.num_workers, drop_last=False)
 
@@ -213,7 +238,8 @@ def train(args):
     tx = make_optimizer(args.learning_rate, total_steps, weight_decay=args.l2,
                         max_norm=args.max_norm, accumulation_steps=args.accumulated_gradient)
     common = dict(compute_fp32_loss=args.compute_fp32_loss, attn_impl=args.attn_impl,
-                  remat=args.gradient_checkpointing, projector_path=family.projector_path)
+                  remat=args.gradient_checkpointing, projector_path=family.projector_path,
+                  mesh=mesh)
     if cls_based:
         loss_fn = make_cls_loss_fn(cfg, rcfg, **common)
     else:
@@ -223,7 +249,7 @@ def train(args):
             add_img_eos=args.add_img_eos, **common)
 
     wandb_logger = None
-    if args.use_wandb:
+    if args.use_wandb and is_rank_0():
         try:
             import wandb
 
@@ -242,7 +268,7 @@ def train(args):
         lora_rank=args.lora_rank, lora_alpha=args.lora_alpha, lora_dropout=args.lora_dropout,
         save_best_model=bool(args.save_best_model), model_type=args.model_type,
         lora_targets=targets, ckpt_path=args.ckpt_path, ckpt_steps=args.ckpt_steps,
-        wandb_logger=wandb_logger, device=dev,
+        wandb_logger=wandb_logger, device=dev, mesh=mesh,
     )
     if args.load_checkpoint and os.path.exists(os.path.join(args.ckpt_path, "train_state.pt")):
         trainer.load_train_ckpt(args.ckpt_path)
@@ -251,6 +277,20 @@ def train(args):
     from .utils.profiling import kernel_launches
 
     print("kernel launches " + json.dumps(kernel_launches()))
+    sampler.set_epoch(0)
+    bb = trainer.state.trainable.get("backbone") or trainer.frozen["backbone"]
+    dec = bb.get("decoder") or bb.get("text") or {}
+    print("train summary " + json.dumps({
+        "rank": rank, "world": world, "backend": backend(), "mesh": mesh.shape,
+        "steps": int(trainer.state.step),
+        "losses": [x["preference_loss"] for x in trainer.train_logs],
+        "grad_norms": [x["grad_norm"] for x in trainer.train_logs],
+        "step_times_s": [x["step_time_s"] for x in trainer.train_logs],
+        "rows": [int(i) for i in sampler],
+        "layer_bytes": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(dec.get("layers"))),
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                     if dev.type == "cuda" else None)}), flush=True)
     return trainer
 
 
@@ -263,7 +303,13 @@ def build_parser():
 
 
 def main(argv=None):
-    return train(build_parser().parse_args(argv))
+    import torch.distributed as dist
+
+    try:
+        return train(build_parser().parse_args(argv))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,9 @@
 - ``--load_in_8bit`` and ``--load_in_4bit`` (nf4, absmax) train LoRA over
   a quantized frozen decoder and refuse full fine-tuning and each other, as
   the JAX CLI does;
-- the unported options refuse with the ROADMAP item that brings them, and
+- ``--mesh_tp`` above 1 refuses with ROADMAP A8, a mesh that does not match
+  the world refuses as the JAX CLI's does, two ranks launched with
+  torchrun's environment each train on their own rows over fsdp 2, and
   ``--device`` defaults to cuda, which raises on a machine without one.
 
 JAX twins: tests/test_safety_pointwise_data.py (the pointwise train CLI),
@@ -47,6 +49,7 @@ from llava_reward_tpu.models import llava_next as jllava
 from llava_reward_tpu.models import phi3v as jphi3v
 from llava_reward_torch import eval_batch_inference as t_eval_cli
 from llava_reward_torch import train_llava_reward as t_train_cli
+from llava_reward_torch.data.sampler import GroupSampler
 from llava_reward_torch.evalx import adaptor as tad
 from llava_reward_torch.utils import quantize as tquant
 from test_llava_adaptor import _llava_hf_sd
@@ -55,6 +58,7 @@ from test_torch_llava import _pair_fields, _stacked
 from test_torch_llava import _jb as _llava_jb
 from test_torch_llava import _tb as _llava_tb
 from test_torch_loading import _phi3v_config_json
+from test_torch_multiprocess import _launch
 from test_torch_reward import N_IMG, _batch, _jb, _tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -226,9 +230,14 @@ def test_pointwise_rows_train_the_cls_objective(tmp_path):
         assert "is_general_preference" in f.read()
 
 
-@pytest.mark.parametrize("flags, item", [(["--mesh_dp", "2"], "A7"), (["--mesh_tp", "2"], "A7")])
-def test_unported_train_options_name_their_roadmap_item(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags, exc, match", [
+    (["--mesh_dp", "2"], ValueError, "mesh 2x-1x1: 1 devices"),
+    (["--mesh_tp", "2"], NotImplementedError, "A8")], ids=["mesh_dp_one_process", "mesh_tp"])
+def test_unported_train_options_name_their_roadmap_item(flags, exc, match, tmp_path):
+    """``--mesh_tp`` above 1 (tensor parallelism) is ROADMAP A8. ``--mesh_dp
+    2`` in one process asks for a mesh that does not match the world, which
+    ``create_mesh`` refuses, as the JAX one does."""
+    with pytest.raises(exc, match=match):
         _port_train(tmp_path, "phi3v", flags)
 
 
@@ -264,10 +273,23 @@ def test_quantized_decoder_flags_refuse_as_the_jax_cli(flags, match, tmp_path):
         _port_train(tmp_path, "phi3v", flags)
 
 
-def test_more_than_one_process_names_a7(tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A7"):
-        _port_train(tmp_path, "phi3v")
+def test_more_than_one_process_names_a7(tmp_path):
+    """WORLD_SIZE=2 (torchrun's environment, ROADMAP A7): each rank of the
+    train CLI joins the group, reads its own rows through its sampler and
+    trains on the mesh the flags give, here fsdp 2 (``--zero_stage 3``)."""
+    outs = _launch(2, ["-m", "llava_reward_torch.train_llava_reward", *SMOKE,
+                       "--model_type", "llava", "--seq_len", SEQ["llava"], "--zero_stage", "3",
+                       "--micro_train_batch_size", "1", "--save_path", str(tmp_path / "save"),
+                       "--ckpt_path", str(tmp_path / "ckpt"), "--device", "cpu"],
+                   torchrun_env=True)
+    s = [json.loads(out.split("train summary ")[1].splitlines()[0]) for out in outs]
+    assert [x["rank"] for x in s] == [0, 1] and all(x["world"] == 2 for x in s)
+    assert all(x["mesh"] == {"dp": 1, "fsdp": 2, "tp": 1} for x in s)
+    n_train = len(set(s[0]["rows"] + s[1]["rows"]))
+    for x in s:  # rank r's rows are GroupSampler(num_replicas=2, rank=r)'s
+        assert x["rows"] == list(GroupSampler(n_train, num_replicas=2, rank=x["rank"],
+                                              shuffle=True, seed=42))
+    assert s[0]["losses"] == s[1]["losses"] and s[0]["steps"] == s[1]["steps"] >= 1
 
 
 def test_device_defaults_to_cuda(bases, phi3v_artifact, tmp_path):

@@ -145,7 +145,8 @@ def test_serving_and_llava_entry_points_raise_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["llava_reward_torch.train_llava_reward",
-                                    "llava_reward_torch.eval_batch_inference"])
+                                    "llava_reward_torch.eval_batch_inference",
+                                    "llava_reward_torch.dryrun"])
 def test_python_m_entry_points_refuse_the_cpu_default_without_jax(module, tmp_path):
     """``python -m`` of each command line, with ``jax`` and the JAX package
     made unimportable: it gets as far as the device rule and stops there."""
@@ -157,6 +158,8 @@ def test_python_m_entry_points_refuse_the_cpu_default_without_jax(module, tmp_pa
         f"sys.argv = [{module!r}, '--pm_path', {str(tmp_path)!r}, '--dataset', 'rows.json']\n"
         f"if {module!r}.endswith('train_llava_reward'):\n"
         f"    sys.argv = [{module!r}, '--dataset', 'rows.json', '--save_path', {str(tmp_path)!r}]\n"
+        f"if {module!r}.endswith('dryrun'):\n"
+        f"    sys.argv = [{module!r}, 'multichip', '1']\n"
         f"runpy.run_module({module!r}, run_name='__main__')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -101,6 +101,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      LoRA are (a)'s within two AdamW steps' reach; each process's own
      launches of B1, B2, B3 and B8 checked exactly; backends, s/step and
      peak memory beside the card's name and power limit;
+  [tp] tensor parallelism over the mesh's tp axis on two ranks sharing this
+     card over gloo (a correctness check: every tp all-reduce is staged
+     through host memory, so the times are no scaling figure): (i) the train
+     CLI with --mesh_tp 2 on [dist] (a)'s rows and micro batch, the ranks
+     agreeing exactly, each step's loss and grad_norm against (a)'s under
+     [dist]'s bounds, each rank reading every row and holding half of the
+     decoder's split layer bytes, its launches of B1, B2, B3 and B8 checked
+     exactly against the head-group rule on its local heads; (ii) python -m
+     llava_reward_torch.dryrun score of [load]'s tree (the LoRA merged, a
+     principal-direction head) on two tp ranks at B=2 and B=8, rewards
+     against one rank's under phase 4's bound with every decision the same;
+     (iii) python -m llava_reward_torch.dryrun step of a Qwen2.5-VL-7B and a
+     LLaVA-NeXT-13B LoRA step at full width (2 decoder layers, 2 vision
+     blocks) on two tp ranks: the loss against one rank's, grad_norm
+     against the same step in fp32, launches by the local-head rule;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -210,6 +225,7 @@ from llava_reward_torch.core.config import (LlavaNextConfig, RewardConfig, phi35
                                             phi3v_tiny_config, qwen25_vl_7b_config)
 from llava_reward_torch.evalx import batch_inference
 from llava_reward_torch.evalx.adaptor import (RewardAdaptor, cast_params, llava_config_from_pretrain,
+                                              qwen_config_from_pretrain,
                                               load_reward_adaptor, merge_for_scoring)
 from llava_reward_torch.evalx.server import RewardService, _load_image, make_handler
 from llava_reward_torch.io import artifact, hf_phi3v, hf_qwen
@@ -225,6 +241,7 @@ from llava_reward_torch.ops import int8_matmul as im
 from llava_reward_torch.ops import quant_epilogue as qe
 from llava_reward_torch.ops.pixels import hd_resize_u8_bank, prepare_pixel_bank
 from llava_reward_torch.ops.rope import rope_cos_sin_for_config
+from llava_reward_torch.parallel.sharding import create_mesh
 from llava_reward_torch.preprocess import native
 from llava_reward_torch.preprocess.collate import (collate_qwen_samples, collate_samples,
                                                    to_reward_batch)
@@ -1176,10 +1193,18 @@ def check_new_callers(gen, qcfg, lcfg):
     for name, dcfg, M in (("qwen", qcfg.text, 2 * QWEN_SEQ), ("LLaVA", lcfg.text, 2 * LLAVA_SEQ)):
         H = dcfg.hidden_size
         x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
+        # beside the CUDA events over back-to-back launches, the profiler's
+        # device time a launch: below ~0.04 ms the wrapper may set the pace
+        nbytes, nops = M * H * 2 + M * H + M * 4, 4 * M * H
+        ev_ms = time_ms(lambda: qe.row_quant(x), iters=100)
+        dev_ms = _device_split(lambda: qe.row_quant(x), ["row_quant"], reps=20)["row_quant"]
+        b_ms = bound_ms(nops, nbytes, PEAK_FP32_FLOPS)[0]
         _codes_report(f"B6 row_quant {name} training ({M},{H}) bf16", "row_quant",
-                      qe.row_quant(x), qe.row_quant_plain(x), time_ms(lambda: qe.row_quant(x)),
-                      time_ms(lambda: qe.row_quant_plain(x), iters=3, warmup=1),
-                      M * H * 2 + M * H + M * 4, 4 * M * H, f"zero rows every {M // 4}")
+                      qe.row_quant(x), qe.row_quant_plain(x), ev_ms,
+                      time_ms(lambda: qe.row_quant_plain(x), iters=3, warmup=1), nbytes, nops,
+                      f"zero rows every {M // 4}; events {ev_ms:.4f} ms over 100 launches "
+                      f"({b_ms / ev_ms:.0%} of the bound), profiler {dev_ms:.4f} ms device "
+                      f"time a launch ({b_ms / dev_ms:.0%} of the bound)")
         _check_gemm_shapes(gen, M, (H, dcfg.q_size), ())
         _check_int8_core(gen, name, M, H, dcfg.q_size)
         torch.cuda.empty_cache()
@@ -3502,6 +3527,28 @@ def _artifact(save):
             **torch.load(os.path.join(d, "lora", "adapter_model.bin"), weights_only=True)}
 
 
+def _dist_args(tmp):
+    """The train CLI's flags of [dist] and [tp]: [load]'s checkpoint with its
+    word tokenizer, ten sample pairs (eight train, two held out)."""
+    data = os.path.join(tmp, "dist_rows.json")
+    if not os.path.exists(data):
+        rows = _sample_rows()
+        with open(data, "w") as f:
+            json.dump(rows * 2 + rows[:2], f)
+    return ["--pretrain", os.path.join(tmp, "phi3v_tok"), "--bf16",
+            "--gradient_checkpointing", "--dataset", data, "--train_split_ratio", "0.8",
+            "--max_epochs", "1", "--seq_len", str(DATA_SEQ), "--is_general_preference",
+            "--value_head_dim", "2", "--add_cross_attention", "--lora_rank", "4",
+            "--lora_alpha", "8", "--ft_projector", "--logging_steps", "1", "--num_workers",
+            "2", "--device", "cuda"]
+
+
+def _dist_run(tmp, tag, micro, *extra):
+    return ["--micro_train_batch_size", str(micro), *extra,
+            "--save_path", os.path.join(tmp, "dist", tag, "save"),
+            "--ckpt_path", os.path.join(tmp, "dist", tag, "ckpt")]
+
+
 def phase_dist(cfg, tmp):
     """The train CLI on more than one process, over [load]'s 2-layer
     full-width phi3v checkpoint (the word tokenizer [eval] wrote beside it),
@@ -3512,26 +3559,16 @@ def phase_dist(cfg, tmp):
     (--mesh_fsdp 2, collectives staged through host memory), micro batch 2
     each, and (a') the CLI with no distributed environment, micro batch 4.
     (b)'s time is two processes sharing one card (and (a')'s run): no
-    multi-card scaling figure. Returns the launches of the four processes."""
+    multi-card scaling figure. Returns the launches of the four processes and
+    (a)'s summary."""
     t_phase = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    rows = _sample_rows()
-    data = os.path.join(tmp, "dist_rows.json")
-    with open(data, "w") as f:
-        json.dump(rows * 2 + rows[:2], f)
-    common = ["--pretrain", os.path.join(tmp, "phi3v_tok"), "--bf16",
-              "--gradient_checkpointing", "--dataset", data, "--train_split_ratio", "0.8",
-              "--max_epochs", "1", "--seq_len", str(DATA_SEQ), "--is_general_preference",
-              "--value_head_dim", "2", "--add_cross_attention", "--lora_rank", "4",
-              "--lora_alpha", "8", "--ft_projector", "--logging_steps", "1", "--num_workers",
-              "2", "--device", "cuda"]
+    common = _dist_args(tmp)
 
     def run(tag, micro, *extra):
-        return ["--micro_train_batch_size", str(micro), *extra,
-                "--save_path", os.path.join(tmp, "dist", tag, "save"),
-                "--ckpt_path", os.path.join(tmp, "dist", tag, "ckpt")]
+        return _dist_run(tmp, tag, micro, *extra)
 
     torch.cuda.empty_cache()
     res = _cli_results({"(a)": _cli(tmp, "dist (a)", TRAIN_CLI, *common,
@@ -3613,7 +3650,259 @@ def phase_dist(cfg, tmp):
         f"once (rank 0), its worst leaf {worst[1]} at {worst[0]:.3f} of its bound; (b) shares "
         f"one card between two ranks and (a')'s run, so its time is no scaling figure")
     say("dist", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {k: sum(x["launches"][k] for x in s.values()) for k in a["launches"]}
+    return {k: sum(x["launches"][k] for x in s.values()) for k in a["launches"]}, a
+
+
+# ------------------------------------------------------------------ [tp]
+
+
+def _attention_launches(cfg, tp, rows, clip=True):
+    """B1 / B2 / B3 launches of one phi3v forward at ``rows`` rows on a rank
+    holding 1 / ``tp`` of the heads: B1 in every CLIP layer (its head groups
+    on the local heads; ``clip``), and per decoder layer B1 when rows x
+    (local heads / head group) >= 32
+    (``ops/flash_attention._fused_qkv_attention_fwd_impl``), else B2 x3 + B3."""
+    dec = cfg.decoder
+    out = dict.fromkeys(("fa_direct", "prep", "fa_hm", "fa_bwd"), 0)
+    if clip and fa._direct_group(cfg.vision.num_heads // tp, cfg.vision.head_dim) is not None:
+        out["fa_direct"] += cfg.vision.num_active_layers
+    nh = dec.num_heads // tp
+    g = fa._direct_group(nh, dec.head_dim)
+    if g is not None and rows * (nh // g) >= 32:
+        out["fa_direct"] += dec.num_layers
+    else:
+        out["prep"] += 3 * dec.num_layers
+        out["fa_hm"] += dec.num_layers
+    return out
+
+
+def _cli_launches(cfg, tp, step_rows, steps, eval_rows):
+    """One train CLI process's launches: per step the forward, the decoder's
+    again under remat (the CLIP tower holds nothing trainable: once), the
+    backward's B2 x3 (the fused core's recompute) and B8 a decoder layer;
+    then each held-out side's forward."""
+    fwd = _attention_launches(cfg, tp, step_rows)
+    remat = _attention_launches(cfg, tp, step_rows, clip=False)
+    side = _attention_launches(cfg, tp, eval_rows)
+    L = cfg.decoder.num_layers
+    bwd = {"prep": 3 * L, "fa_bwd": L}
+    return {k: steps * (fwd[k] + remat[k] + bwd.get(k, 0)) + 2 * side[k] for k in fwd}
+
+
+def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
+    """Tensor parallelism over tp on two ranks sharing this card over gloo:
+    (i) the train CLI with --mesh_tp 2 against [dist] (a), (ii) scoring
+    [load]'s tree on two tp ranks against one rank, (iii) qwen and LLaVA
+    LoRA steps at full width (``_tp_steps``). Returns the launches of the
+    eight processes."""
+    t_phase = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    # --- (ii)'s inputs first (the one-rank rewards in this process), so that
+    # the four processes then run together
+    base, pm = phi3v_dirs
+    adaptor = load_reward_adaptor(base, pm, model_type="phi3v", compute_dtype=torch.bfloat16,
+                                  device="cuda")
+    params, cfg2 = adaptor.params, adaptor.cfg
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    reqs = [make_request(cfg2, gen, 1, DATA_SEQ, {1: 40}), make_request(cfg2, gen, 4, DATA_SEQ, {})]
+    params["head"], spread = _principal_head(cfg2, rcfg, params, reqs)
+    _say_head("tp", "the B=2 and B=8 requests'", spread)
+    with torch.inference_mode():
+        one = [reward_forward(params, cfg2, rcfg, r).reward.float().cpu() for r in reqs]
+    spec = os.path.join(tmp, "tp_score.pt")
+    torch.save({"family": "phi3v", "pretrain": base, "rcfg": dataclasses.asdict(rcfg),
+                "mesh": {"mesh_tp": 2}, "params": tree_map(lambda t: t.cpu(), params),
+                "batches": [{k: v.cpu() for k, v in r._asdict().items() if v is not None}
+                            for r in reqs]}, spec)
+    del adaptor, params
+    torch.cuda.empty_cache()
+
+    port = [_free_port() for _ in range(2)]
+    started = {f"(i) rank {r}": _cli(tmp, f"tp (i) rank {r}", TRAIN_CLI, *_dist_args(tmp),
+                                     *_dist_run(tmp, "tp", 4, "--mesh_tp", "2"),
+                                     env=_dist_env(2, r, port[0])) for r in range(2)}
+    started.update({f"(ii) rank {r}": _cli(tmp, f"tp (ii) rank {r}", "llava_reward_torch.dryrun",
+                                           "score", spec, os.path.join(tmp, "tp_score.out"),
+                                           env=_dist_env(2, r, port[1])) for r in range(2)})
+    res = _cli_results(started)
+    s = {tag: _summary(tag, res[tag][1]) for tag in ("(i) rank 0", "(i) rank 1")}
+    t0, t1 = s["(i) rank 0"], s["(i) rank 1"]
+    counts = {k: t0["launches"][k] + t1["launches"][k] for k in t0["launches"]}
+
+    # (i): the ranks agree exactly; each reads every train row, as (a) does;
+    # each step's loss and grad_norm as (a)'s within [dist]'s bounds
+    want = _cli_launches(cfg2, 2, step_rows=8, steps=2, eval_rows=2)
+    for tag, x in s.items():
+        if x["launches"] != {k: want.get(k, 0) for k in x["launches"]}:
+            fail(f"tp: {tag} launched {x['launches']}, expected {want} (local heads)")
+        if x["mesh"] != {"dp": 1, "fsdp": 1, "tp": 2} or x["backend"] != "gloo":
+            fail(f"tp: {tag} mesh {x['mesh']}, backend {x['backend']}")
+    if (t0["losses"], t0["grad_norms"]) != (t1["losses"], t1["grad_norms"]) or t0["steps"] != 2:
+        fail(f"tp: the ranks disagree: {t0['losses']} {t0['grad_norms']} / "
+             f"{t1['losses']} {t1['grad_norms']}")
+    if not t0["rows"] == t1["rows"] == a["rows"]:
+        fail(f"tp: rows {t0['rows']} / {t1['rows']}, (a) {a['rows']}")
+    rel = [max(abs(x - y) / abs(y) for x, y in zip(t0[k], a[k])) for k in ("losses",
+                                                                          "grad_norms")]
+    if rel[0] > DIST_TOL or rel[1] > DIST_NORM_TOL:
+        fail(f"tp: against (a) {rel} (tol {DIST_TOL:g} loss, {DIST_NORM_TOL:g} grad_norm)")
+    mc = _manifest_config("phi35_vision_instruct", 2)
+    norms = 2 * mc["num_hidden_layers"] * mc["hidden_size"] * 2
+    if not t0["layer_bytes"] == t1["layer_bytes"] == (a["layer_bytes"] - norms) // 2 + norms:
+        fail(f"tp: decoder layer bytes (a) {a['layer_bytes']}, tp {t0['layer_bytes']} / "
+             f"{t1['layer_bytes']}")
+    writes = [len(re.findall(r"saved reward artifact", res[t][1])) for t in
+              ("(i) rank 0", "(i) rank 1")]
+    if writes != [1, 0]:
+        fail(f"tp: artifact writes per rank {writes}")
+    for tag, x in s.items():
+        say("tp", f"(i) {tag[4:]}: backend {x['backend']}, mesh {x['mesh']}, rows {x['rows']}, "
+            f"losses {x['losses']}, grad_norms {x['grad_norms']}, s/step {x['step_times_s']} "
+            f"(the second is steady), peak {x['peak_gib']:.2f} GiB, decoder layer bytes "
+            f"{x['layer_bytes']} (one rank: {a['layer_bytes']}), exit 0 in "
+            f"{res[tag][2]:.1f} s; launches {x['launches']} (the local-head rule: {want})")
+    say("tp", f"{card}: (i) against [dist] (a), the largest relative gap of the losses "
+        f"{rel[0]:.3e} (tol {DIST_TOL:g}) and of grad_norm {rel[1]:.3e} (tol "
+        f"{DIST_NORM_TOL:g}); the artifact written once (rank 0); two ranks share one card "
+        f"and stage every tp all-reduce through host memory beside (ii)'s two: no scaling "
+        f"figure")
+
+    # (ii): each tp rank's rewards against one rank's, every decision the same
+    outs = [torch.load(os.path.join(tmp, f"tp_score.out.{r}"), weights_only=True)
+            for r in range(2)]
+    per = [_attention_launches(cfg2, 2, 2), _attention_launches(cfg2, 2, 8)]
+    want = {k: per[0][k] + per[1][k] for k in per[0]}
+    for r, o in enumerate(outs):
+        got = {k: v for k, v in o["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"tp: (ii) rank {r} launched {o['launches']}, expected {want} (local heads)")
+        counts = {k: counts[k] + o["launches"].get(k, 0) for k in counts}
+    for i, (name, pairs) in enumerate((("B=2", 1), ("B=8", 4))):
+        rt = [o["rewards"]["auto"][i] for o in outs]
+        if not torch.equal(rt[0], rt[1]):
+            fail(f"tp: (ii) {name} the tp ranks' rewards differ: {rt}")
+        gap = (rt[0] - one[i]).abs().max().item()
+        say("tp", f"(ii) {name}: rewards on two tp ranks {rt[0].numpy().round(6).tolist()}, "
+            f"one rank {one[i].numpy().round(6).tolist()}; max gap {gap:.3e} (tol "
+            f"{REWARD_TOL:g})")
+        if not bool(torch.isfinite(rt[0]).all()) or gap > REWARD_TOL:
+            fail(f"tp: (ii) {name} rewards on tp 2 against one rank: gap {gap:.3e}")
+        _same_decisions("tp", {"one rank": one[i], "tp 2": rt[0]}, pairs, rcfg)
+    say("tp", f"(ii) each rank's launches over both requests {outs[0]['launches']} (the "
+        f"local-head rule: {want}); exit 0 in {res['(ii) rank 0'][2]:.1f} s")
+    counts = _tp_steps(tmp, counts)
+    say("tp", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _cut_config(tmp, family):
+    """A config.json directory of the published ``family`` cut to 2 decoder
+    layers and 2 vision blocks (qwen: block 1 a full-attention block), every
+    width kept. Returns (directory, the parsed config)."""
+    d = os.path.join(tmp, f"tp_{family}_cfg")
+    os.makedirs(d, exist_ok=True)
+    if family == "qwen":
+        cj = _manifest_config("qwen25_vl_7b_instruct", 2)
+        cj["vision_config"].update(depth=2, fullatt_block_indexes=[1])
+        parse = qwen_config_from_pretrain
+    else:
+        with open(os.path.join(LLAVA_MANIFEST, "config.json")) as f:
+            cj = json.load(f)
+        cj["text_config"]["num_hidden_layers"] = cj["vision_config"]["num_hidden_layers"] = 2
+        parse = llava_config_from_pretrain
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cj, f)
+    return d, parse(d)
+
+
+def _tp_steps(tmp, counts):
+    """(iii): Qwen2.5-VL-7B and LLaVA-NeXT-13B at full width, 2 decoder layers
+    and 2 vision blocks, random bf16 weights: one bf16 LoRA step (heads and
+    LoRA r=4 on QWEN_TARGETS, remat; one left-padded pair) in this process,
+    and the same step by ``python -m llava_reward_torch.dryrun step`` on two
+    tp ranks sharing the card over gloo. The loss against the one rank's
+    under [dist]'s bound. grad_norm, of both bf16 runs, against the same
+    step in fp32 through the reference attention (one rank) under [dist]'s
+    bound: the two bf16 runs round apart by more than one another's reach
+    (LLaVA on an H100 80GB HBM3 at 700 W: one rank 0.78 % under the fp32
+    step, two tp ranks 1.36 % over it, 2.2e-02 apart), while a gradient not
+    summed over tp moves grad_norm by tens of percent. The ranks exactly
+    equal, each rank's launches by the local-head rule (qwen GQA 14/2 a
+    rank, n_rep 7; LLaVA 20 of 40 heads, CLIP 8 of 16). Returns ``counts``
+    with the four processes' launches added."""
+    from llava_reward_torch import dryrun
+
+    dev = torch.device("cuda")
+    optim = dict(lr=2e-4, total_steps=10, max_norm=1.0)
+    started, checks = {}, {}
+    for family, seeds in (("qwen", (21, 22, 23)), ("llava", (24, 25, 26))):
+        pretrain, cfg = _cut_config(tmp, family)
+        rcfg = RewardConfig(is_general_preference=True, value_head_dim=2,
+                            layer_id=cfg.text.num_layers)
+        if family == "qwen":
+            req = qwen_request(cfg, np.random.default_rng(seeds[0]), QWEN_GRIDS, {1: 40})
+        else:
+            tok = SmokeTok(cfg.text.vocab_size, cfg.text.image_token_id)
+            req = _llava_requests(cfg, tok, LlavaNextProcessor(
+                tok, image_token_id=cfg.text.image_token_id,
+                grid_pinpoints=cfg.grid_pinpoints))[0]
+        chosen, rejected = _halves(req, 1)
+        frozen, trainable = dryrun._family_trees(family, cfg, rcfg, dev, torch.bfloat16, seeds)
+        spec = os.path.join(tmp, f"tp_{family}_step.pt")
+        torch.save({"family": family, "pretrain": pretrain, "rcfg": dataclasses.asdict(rcfg),
+                    "mesh": {"mesh_tp": 2}, "optim": optim, "loss": {"remat": True},
+                    "frozen": tree_map(lambda t: t.cpu(), frozen),
+                    "trainable": tree_map(lambda t: t.cpu(), trainable),
+                    **{k: {n: v.cpu() for n, v in b._asdict().items() if v is not None}
+                       for k, b in (("chosen", chosen), ("rejected", rejected))}}, spec)
+        one, f32 = (dryrun._one_step(
+            create_mesh(1, 1, 1, world_size=1, rank=0), cfg, rcfg, tree, trainable, chosen,
+            rejected, projector_path=PROJECTOR_PATHS[family], tx=make_optimizer(**optim),
+            loss_kw={"remat": True, "attn_impl": impl})[1]
+            for tree, impl in ((frozen, "auto"), (tree_map(lambda t: t.float(), frozen), "xla")))
+        L = cfg.text.num_layers
+        want = {"fa_hm": 2 * L, "fa_bwd": L}  # the decoder's forward, remat, backward
+        if family == "qwen":  # B3's segment mode in each full vision block
+            want["fa_hm"] += len(cfg.vision.fullatt_block_indexes)
+        elif fa._direct_group(cfg.vision.num_heads // 2, cfg.vision.head_dim) is not None:
+            want["fa_direct"] = cfg.vision.num_active_layers
+        checks[family] = (cfg, one, f32, want, spec)
+        del frozen, trainable, req, chosen, rejected
+        torch.cuda.empty_cache()
+        port = _free_port()
+        started.update({f"(iii) {family} rank {r}": _cli(
+            tmp, f"tp (iii) {family} rank {r}", "llava_reward_torch.dryrun", "step", spec,
+            spec + ".out", env=_dist_env(2, r, port)) for r in range(2)})
+    res = _cli_results(started)
+    for family, (cfg, one, f32, want, spec) in checks.items():
+        outs = [torch.load(f"{spec}.out.{r}", weights_only=True) for r in range(2)]
+        m = outs[0]["metrics"]
+        if outs[1]["metrics"] != m:
+            fail(f"tp: (iii) {family} the ranks disagree: {m} / {outs[1]['metrics']}")
+        for r, o in enumerate(outs):
+            got = {k: v for k, v in o["launches"].items() if v}
+            if got != want:
+                fail(f"tp: (iii) {family} rank {r} launched {got}, expected {want}")
+            counts = {k: counts[k] + o["launches"].get(k, 0) for k in counts}
+        rel = abs(m["preference_loss"] - one["preference_loss"]) / abs(one["preference_loss"])
+        norm = [abs(x["grad_norm"] - f32["grad_norm"]) / f32["grad_norm"] for x in (m, one)]
+        tc = cfg.text
+        say("tp", f"(iii) {family} ({tc.num_layers} x {tc.hidden_size}, {tc.num_heads} / "
+            f"{tc.num_kv_heads} heads, {tc.num_heads // 2} / {tc.num_kv_heads // 2} a rank; "
+            f"vision {cfg.vision.hidden_size} wide): loss {m['preference_loss']:.6f} on two tp "
+            f"ranks, {one['preference_loss']:.6f} on one (relative gap {rel:.3e}, tol "
+            f"{DIST_TOL:g}); grad_norm {m['grad_norm']:.6f} on two tp ranks, "
+            f"{one['grad_norm']:.6f} on one, {f32['grad_norm']:.6f} in fp32 through the "
+            f"reference attention (relative gaps to it {norm[0]:.3e} / {norm[1]:.3e}, tol "
+            f"{DIST_NORM_TOL:g}); each rank's launches {want} (the local-head rule); step "
+            f"{outs[0]['step_s'][0]:.2f} s a rank, exit 0 in "
+            f"{res[f'(iii) {family} rank 0'][2]:.1f} s")
+        if rel > DIST_TOL or max(norm) > DIST_NORM_TOL:
+            fail(f"tp: (iii) {family}: loss against one rank {rel:.3e}, grad_norm against fp32 "
+                 f"{norm}")
+    return counts
 
 
 # ------------------------------------------------------------------ [llava]
@@ -3968,7 +4257,8 @@ def main() -> int:
     # W8A8, and qwen's; batch evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16
     # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
     # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps; the
-    # [dist] train CLI processes' own, as each prints them)
+    # [dist] train CLI processes' own, as each prints them; [tp]'s eight
+    # processes' own)
     served, params = phase_serve(cfg, rcfg)
     data, data_batch, data_rewards = phase_data(cfg, rcfg, params)
     http = phase_http(cfg, rcfg, params)
@@ -3976,10 +4266,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="smoke_load_", dir="build") as tmp:
         loaded, phi3v_dirs = phase_load(cfg, rcfg, params, qcfg, data_batch, tmp)
         evaled = phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp)
-        dist = phase_dist(cfg, tmp)
+        dist, dist_a = phase_dist(cfg, tmp)
+        tp = phase_tp(cfg, rcfg, tmp, dist_a, phi3v_dirs)
     del params, data_batch
     torch.cuda.empty_cache()
-    runs = [served, data, http, loaded, evaled, dist, phase_serve_qwen(qcfg),
+    runs = [served, data, http, loaded, evaled, dist, tp, phase_serve_qwen(qcfg),
             phase_train(cfg, rcfg), phase_train_qwen(qcfg)]
     runs.append(phase_llava())
     counts = {k: sum(r[k] for r in runs) for k in runs[0]}

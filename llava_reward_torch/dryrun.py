@@ -3,6 +3,7 @@
 
   python -m llava_reward_torch.dryrun multichip N [--device cpu]
   python -m llava_reward_torch.dryrun step SPEC OUT [--device cpu]
+  python -m llava_reward_torch.dryrun score SPEC OUT [--device cpu]
 
 Each process is launched by itself with ``LRT_COORDINATOR`` /
 ``LRT_NUM_PROCESSES`` / ``LRT_PROCESS_ID`` (or torchrun's ``MASTER_ADDR`` /
@@ -19,9 +20,17 @@ bf16 and the attention runs the kernels.
 
 ``step SPEC OUT`` takes the training steps that SPEC (a ``torch.save``d
 dict: family, tiny-config and reward-config arguments, frozen and trainable
-trees, chosen / rejected global batches, mesh, optimizer and loss options)
-describes under this process group, and writes this rank's metrics, its
-local shard shapes and the gathered trainable tree to ``OUT.<rank>``.
+trees, chosen / rejected global batches, mesh flags, ``--mesh_tp`` among
+them, optimizer and loss options) describes under this process group, and
+writes this rank's metrics, step seconds, kernel launches, local shard
+shapes and the gathered trainable tree to ``OUT.<rank>``.
+
+``score SPEC OUT`` runs the reward forward of SPEC's ``params`` ({backbone,
+head}) on each of its global ``batches`` under the mesh, once for each of
+its ``impls`` (attention routes), and writes this rank's rewards (its data
+rank's rows) and kernel launches to ``OUT.<rank>``. The config is the tiny
+one of SPEC's ``cfg`` arguments, or read from the ``config.json`` of its
+``pretrain`` directory.
 """
 
 from __future__ import annotations
@@ -36,16 +45,19 @@ import torch
 from .core import config as C
 from .core.device import resolve_device
 from .core.mesh import mesh_from_args, setup_distributed, world_size
+from .core.registry import get_family
 from .lora.lora import QWEN_TARGETS, init_lora
 from .models import llava_next, phi3v, qwen25_vl
-from .parallel.sharding import (Sharded, create_hybrid_mesh, create_mesh, gather_tree,
-                                shard_batch, shard_params)
+from .parallel.sharding import (DATA, Sharded, create_hybrid_mesh, create_mesh, gather_tree,
+                                gather_unstacked, shard_batch, shard_params)
+from .parallel.tensor import tensor_parallel
 from .preprocess.collate import collate_qwen_samples, collate_samples, to_reward_batch
 from .preprocess.phi3v_processor import build_img_gather_idx
-from .reward.model import init_head_params
+from .reward.model import init_head_params, reward_forward
 from .train.optim import make_optimizer, tree_map
 from .train.train_step import (PROJECTOR_PATHS, init_train_state, make_pairwise_loss_fn,
                                make_train_step)
+from .utils.profiling import kernel_launches
 
 FAMILIES = {
     "phi3v": (C.phi3v_tiny_config, phi3v.init_params),
@@ -125,7 +137,7 @@ def _one_step(mesh, cfg, rcfg, frozen, trainable, chosen, rejected, *, projector
     loss_fn = make_pairwise_loss_fn(cfg, rcfg, projector_path=projector_path, mesh=mesh,
                                     **loss_kw)
     train_step = make_train_step(loss_fn, tx, mesh)
-    frozen, trainable = shard_params(frozen, mesh), shard_params(trainable, mesh)
+    frozen, trainable = shard_params(frozen, mesh, cfg), shard_params(trainable, mesh, cfg)
     state = init_train_state(trainable, tx)
     chosen, rejected = shard_batch(chosen, mesh), shard_batch(rejected, mesh)
     margin = shard_batch(margin, mesh)
@@ -222,18 +234,26 @@ def _local_shapes(tree, path=""):
     return {path: tuple(tree.shape)} if isinstance(tree, torch.Tensor) else {}
 
 
-def step(spec_path: str, out_path: str, device: str = "cuda") -> dict:
-    """The steps ``spec_path`` describes, on this process group; writes
-    ``out_path.<rank>``."""
+def _from_spec(spec_path: str, device: str):
+    """Join the process group; -> (device, spec, family, cfg, rcfg, mesh)."""
     dev = resolve_device(device)
     setup_distributed(device=dev.type)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     spec = torch.load(spec_path, map_location=dev, weights_only=True)
     family = spec["family"]
-    cfg = FAMILIES[family][0](**spec["cfg"])
-    rcfg = C.RewardConfig(**spec["rcfg"])
+    if "pretrain" in spec:
+        cfg = get_family(family).config_from_pretrain(spec["pretrain"])
+    else:
+        cfg = FAMILIES[family][0](**spec["cfg"])
     mesh = mesh_from_args(argparse.Namespace(**spec["mesh"]))
+    return dev, spec, family, cfg, C.RewardConfig(**spec["rcfg"]), mesh
+
+
+def step(spec_path: str, out_path: str, device: str = "cuda") -> dict:
+    """The steps ``spec_path`` describes, on this process group; writes
+    ``out_path.<rank>``."""
+    dev, spec, family, cfg, rcfg, mesh = _from_spec(spec_path, device)
     tx = make_optimizer(**spec["optim"])
     state, metrics, times = _one_step(
         mesh, cfg, rcfg, spec["frozen"], spec["trainable"], to_reward_batch(spec["chosen"], dev),
@@ -241,8 +261,26 @@ def step(spec_path: str, out_path: str, device: str = "cuda") -> dict:
         loss_kw=spec.get("loss", {}), projector_path=PROJECTOR_PATHS[family],
         steps=spec.get("steps", 1))
     out = {"rank": mesh.rank, "mesh": mesh.shape, "metrics": metrics, "step_s": times,
-           "local_shapes": _local_shapes(state.trainable),
+           "launches": kernel_launches(), "local_shapes": _local_shapes(state.trainable),
            "trainable": tree_map(lambda t: t.detach().cpu(), gather_tree(state.trainable))}
+    torch.save(out, f"{out_path}.{mesh.rank}")
+    return out
+
+
+@torch.no_grad()
+def score(spec_path: str, out_path: str, device: str = "cuda") -> dict:
+    """The rewards of ``spec_path``'s batches on this process group; writes
+    ``out_path.<rank>``."""
+    dev, spec, _, cfg, rcfg, mesh = _from_spec(spec_path, device)
+    params = gather_unstacked(shard_params(spec["params"], mesh, cfg))
+    batches = [shard_batch(to_reward_batch(b, dev), mesh) for b in spec["batches"]]
+    group = mesh.group(DATA) if mesh.ways(DATA) > 1 else None
+    tp = tensor_parallel(mesh, cfg)
+    rewards = {impl: [reward_forward(params, cfg, rcfg, b, attn_impl=impl, data_group=group,
+                                     tp=tp).reward.float().cpu() for b in batches]
+               for impl in spec.get("impls", ("auto",))}
+    out = {"rank": mesh.rank, "mesh": mesh.shape, "data_index": mesh.index(DATA),
+           "rewards": rewards, "launches": kernel_launches()}
     torch.save(out, f"{out_path}.{mesh.rank}")
     return out
 
@@ -254,17 +292,20 @@ def main(argv=None) -> None:
     sub = p.add_subparsers(dest="cmd", required=True)
     m = sub.add_parser("multichip")
     m.add_argument("n", type=int)
-    s = sub.add_parser("step")
-    s.add_argument("spec")
-    s.add_argument("out")
-    for q in (m, s):
+    subs = [m]
+    for name in ("step", "score"):
+        s = sub.add_parser(name)
+        s.add_argument("spec")
+        s.add_argument("out")
+        subs.append(s)
+    for q in subs:
         q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     try:
         if args.cmd == "multichip":
             multichip(args.n, args.device)
         else:
-            step(args.spec, args.out, args.device)
+            {"step": step, "score": score}[args.cmd](args.spec, args.out, args.device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

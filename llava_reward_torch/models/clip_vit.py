@@ -37,6 +37,7 @@ from ..ops.attention import mha
 from ..ops.linear import mm
 from ..ops.norms import layer_norm
 from ..parallel.sharding import Sharded
+from ..parallel.tensor import column, enter, local_cols, local_heads, lora_of, row
 from ..utils.quantize import cat_out, int8_linear_pre, is_w8a8, qmatmul
 
 
@@ -92,23 +93,16 @@ def embed_patches(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor) -
     return emb + params["position_embedding"][None].to(patches.dtype)
 
 
-def _lora_delta(x, lora_layer, name):
-    """LoRA hook of ``clip_vit.py:99-105`` (vision LoRA, ``--train_vision``);
-    a no-op while ``lora is None``."""
-    if lora_layer is None or name not in lora_layer:
-        return 0.0
-    t = lora_layer[name]
-    return (x @ t["a"].to(x.dtype)) @ t["b"].to(x.dtype) * t["scale"].to(x.dtype)
-
-
 def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, valid_len=None,
-                   quant_route: bool = False):
+                   quant_route: bool = False, tp=None):
     """One encoder layer (``clip_vit.py:108-216``). ``quant_route``: the
     caller asked for the kernel route by name (``attn_impl="pallas"`` /
     ``"plain"``), which turns the LayerNorm quantizing epilogue on off the
-    card too; ``attn_impl`` itself may already read ``"fused"``."""
+    card too; ``attn_impl`` itself may already read ``"fused"``. Under ``tp``
+    this rank's heads and MLP columns: q/k/v and fc1 column-split, out and
+    fc2 row-split (``parallel/tensor.py``)."""
     act = ACT2FN[cfg.hidden_act]
-    nh, hd = cfg.num_heads, cfg.head_dim
+    nh, hd = local_heads(cfg.num_heads, tp), cfg.head_dim
     N, S, H = h.shape
     a = lp["attn"]
     eps = cfg.layer_norm_eps
@@ -124,29 +118,23 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
     if use_ln_quant and is_w8a8(a["q"]["kernel"]) and fused:
         x_codes, x_rs = ln_q(h, lp["ln1"]["weight"], lp["ln1"]["bias"], eps)
     else:
-        x = layer_norm(h, lp["ln1"]["weight"], lp["ln1"]["bias"], eps)
+        x = enter(layer_norm(h, lp["ln1"]["weight"], lp["ln1"]["bias"], eps), tp)
     if fused:
         # fused qkv matmul + the direct kernel (B1), or its plain version on
         # any device: output comes back as (N, S, H); pad keys at or beyond
-        # valid_len are masked in-kernel
+        # valid_len are masked in-kernel. The route takes no LoRA
+        # (``extract_patch_features``)
         from ..ops.flash_attention import direct_attention, fa_direct_plain
 
         # W8A8: codes (K-major) and per-channel scales concatenated on the out
         # axis, so the fused projection is ONE int8 GEMM; per layer and call,
         # as in the JAX package (3 MB of codes at ViT-L)
-        wk = cat_out([a[n]["kernel"] for n in ("q", "k", "v")])
-        wb = torch.cat([a["q"]["bias"], a["k"]["bias"], a["v"]["bias"]])
+        wk = cat_out([local_cols(a[n]["kernel"], tp, (H,)) for n in ("q", "k", "v")])
+        wb = torch.cat([local_cols(a[n]["bias"], tp, (H,)) for n in ("q", "k", "v")])
         if x is None:
             qkv = int8_linear_pre(x_codes, x_rs, wk, h.dtype, plain) + wb
         else:
             qkv = qmatmul(x, wk, plain) + wb
-        if lora_layer is not None:
-            deltas = [_lora_delta(x, lora_layer, n) for n in ("q", "k", "v")]
-            if any(not isinstance(d, float) for d in deltas):
-                qkv = qkv + torch.cat(
-                    [torch.zeros_like(x) if isinstance(d, float) else d for d in deltas],
-                    dim=-1,
-                )
         direct = fa_direct_plain if plain else direct_attention
         attn = direct(
             qkv, None, None, torch.zeros(N, dtype=torch.int32, device=h.device),
@@ -155,13 +143,13 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
         )
     else:
         q, k, v = (
-            (qmatmul(x, a[n]["kernel"], plain) + a[n]["bias"]
-             + _lora_delta(x, lora_layer, n)).reshape(N, S, nh, hd)
+            column(x, a[n]["kernel"], a[n]["bias"], lora_of(lora_layer, n), tp=tp, parts=(H,),
+                   plain=plain).reshape(N, S, nh, hd)
             for n in ("q", "k", "v")
         )
-        attn = mha(q, k, v, causal=False, impl=attn_impl).reshape(N, S, H)
-    attn_out = (qmatmul(attn, a["out"]["kernel"], plain) + a["out"]["bias"]
-                + _lora_delta(attn, lora_layer, "out"))
+        attn = mha(q, k, v, causal=False, impl=attn_impl).reshape(N, S, nh * hd)
+    attn_out = row(attn, a["out"]["kernel"], a["out"]["bias"], lora_of(lora_layer, "out"),
+                   tp=tp, plain=plain)
     h = residual + attn_out
 
     residual = h
@@ -170,10 +158,10 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
         x_codes, x_rs = ln_q(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps)
         x1 = act(int8_linear_pre(x_codes, x_rs, fc1["kernel"], h.dtype, plain) + fc1["bias"])
     else:
-        x = layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps)
-        x1 = act(qmatmul(x, fc1["kernel"], plain) + fc1["bias"]
-                 + _lora_delta(x, lora_layer, "fc1"))
-    x2 = qmatmul(x1, fc2["kernel"], plain) + fc2["bias"] + _lora_delta(x1, lora_layer, "fc2")
+        x = enter(layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps), tp)
+        x1 = act(column(x, fc1["kernel"], fc1["bias"], lora_of(lora_layer, "fc1"), tp=tp,
+                        parts=(cfg.intermediate_size,), plain=plain))
+    x2 = row(x1, fc2["kernel"], fc2["bias"], lora_of(lora_layer, "fc2"), tp=tp, plain=plain)
     return residual + x2
 
 
@@ -214,6 +202,7 @@ def extract_patch_features(
     attn_impl: str = "auto",
     remat: bool = False,
     lora: Optional[dict] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Penultimate-layer patch features, CLS dropped: (N, num_patches, H)
     (``clip_vit.py:226-279``). With a
@@ -221,7 +210,8 @@ def extract_patch_features(
     (B3 forward, B8 backward on the card): the direct kernel (B1) has no
     backward, in the JAX package neither (``clip_vit.py:256-258``). With
     ``remat`` each layer runs under ``torch.utils.checkpoint``
-    (``clip_vit.py:270-272``)."""
+    (``clip_vit.py:270-272``). Under ``tp`` each rank runs its own heads
+    (``_encoder_layer``), B1's head-group rule read on them."""
     h = embed_patches(params, cfg, pixel_values)
     h = layer_norm(
         h, params["pre_layernorm"]["weight"], params["pre_layernorm"]["bias"],
@@ -242,7 +232,7 @@ def extract_patch_features(
     ):
         from ..ops.flash_attention import _direct_group
 
-        if _direct_group(cfg.num_heads, cfg.head_dim) is not None:
+        if _direct_group(local_heads(cfg.num_heads, tp), cfg.head_dim) is not None:
             S_pad = (S + 63) // 64 * 64
             h = torch.nn.functional.pad(h, (0, 0, 0, S_pad - S))
             valid_len = S
@@ -250,5 +240,5 @@ def extract_patch_features(
 
     for i in range(n_active):
         h = stacked_layer(_encoder_layer, i, h, params["layers"], cfg, attn_impl, lora=lora,
-                          remat=remat, valid_len=valid_len, quant_route=quant_route)
+                          remat=remat, valid_len=valid_len, quant_route=quant_route, tp=tp)
     return h[:, 1:S, :]  # drop CLS (and the pad tail)

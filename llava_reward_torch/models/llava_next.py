@@ -81,10 +81,12 @@ def forward(
     attn_impl: str = "auto",
     remat: bool = False,
     lora: Optional[dict] = None,
+    tp=None,
 ) -> LlavaOutput:
     """``llava_next.py:62-123``. The projector's products go through
     ``ops/linear.mm``, so an fp32 trainable projector over bf16 features
-    computes in fp32 as ``jnp.matmul`` does."""
+    computes in fp32 as ``jnp.matmul`` does. Under ``tp`` the CLIP tower and
+    the decoder run split; the projector is whole on every rank."""
     embeds = params["text"]["embed_tokens"][input_ids.long()]
     dtype = embeds.dtype
 
@@ -94,7 +96,7 @@ def forward(
         feats = clip_vit.extract_patch_features(
             params["vision"]["clip"], cfg.vision,
             pixel_values.reshape(B * NT, Hc, Wc, C).to(dtype),
-            attn_impl=attn_impl, remat=remat,
+            attn_impl=attn_impl, remat=remat, tp=tp,
         )  # (B*NT, 576, VH)
         proj = params["vision"]["projector"]
         act = ACT2FN[cfg.projector_hidden_act]
@@ -125,6 +127,6 @@ def forward(
 
     last, collected = qwen25_vl.text_forward(
         params["text"], cfg.text, embeds, attention_mask, position_ids,
-        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora,
+        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora, tp=tp,
     )
     return LlavaOutput(last, collected, vision_embedding)

@@ -38,7 +38,8 @@ from ..ops.attention import fused_rope_attention
 from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_cos_sin_for_config
-from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8, qmatmul
+from ..parallel.tensor import column, enter, local_heads, lora_of, row
+from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8
 from .clip_vit import stacked_layer
 
 
@@ -69,14 +70,6 @@ def init_params(
     }
 
 
-def _maybe_lora(x, base_out, lora_layer, name):
-    """LoRA hook of ``phi3.py:71-80``; a no-op while ``lora is None``."""
-    if lora_layer is None or name not in lora_layer:
-        return base_out
-    t = lora_layer[name]
-    return base_out + (x @ t["a"].to(x.dtype)) @ t["b"].to(x.dtype) * t["scale"].to(x.dtype)
-
-
 def decoder_layer(
     h: torch.Tensor,  # (B, S, H)
     lp: dict,  # per-layer params
@@ -86,7 +79,11 @@ def decoder_layer(
     attention_mask: Optional[torch.Tensor],  # (B, S) 1=valid
     attn_impl: str,
     lora_layer: Optional[dict] = None,
+    tp=None,
 ) -> torch.Tensor:
+    """One layer; under ``tp`` (``parallel/tensor.TensorParallel``) this
+    rank's heads and MLP columns: qkv and gate_up column-split, o and down
+    row-split."""
     lp = dequant_layer(lp, h.dtype)
     eps = cfg.rms_norm_eps
     # attn_impl="plain" sends the epilogues and the int8 GEMM to their plain
@@ -94,17 +91,19 @@ def decoder_layer(
     plain = attn_impl == "plain"
     use_rq = lora_layer is None and (attn_impl == "pallas" or on_card(h)) and qe.supported(h)
     rms_q = qe.rms_quant_plain if plain else qe.rms_quant
+    nh, nkv = local_heads(cfg.num_heads, tp), local_heads(cfg.num_kv_heads, tp)
 
     residual = h
     if use_rq and is_w8a8(lp["qkv_proj"]):
         codes, rs = rms_q(h, lp["input_layernorm"], eps)
         qkv = int8_linear_pre(codes, rs, lp["qkv_proj"], h.dtype, plain)
     else:
-        x = rms_norm(h, lp["input_layernorm"], eps)
-        qkv = _maybe_lora(x, qmatmul(x, lp["qkv_proj"], plain), lora_layer, "qkv_proj")
+        x = enter(rms_norm(h, lp["input_layernorm"], eps), tp)
+        qkv = column(x, lp["qkv_proj"], lora=lora_of(lora_layer, "qkv_proj"), tp=tp,
+                     parts=(cfg.q_size, cfg.kv_size, cfg.kv_size), plain=plain)
     attn = fused_rope_attention(
         qkv, cos, sin,
-        n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        n_heads=nh, n_kv_heads=nkv, head_dim=cfg.head_dim,
         causal=True, key_padding_mask=attention_mask,
         sliding_window=cfg.sliding_window, impl=attn_impl,
     )
@@ -112,7 +111,7 @@ def decoder_layer(
         codes, rs = (qe.row_quant_plain if plain else qe.row_quant)(attn)
         attn = int8_linear_pre(codes, rs, lp["o_proj"], h.dtype, plain)
     else:
-        attn = _maybe_lora(attn, qmatmul(attn, lp["o_proj"], plain), lora_layer, "o_proj")
+        attn = row(attn, lp["o_proj"], lora=lora_of(lora_layer, "o_proj"), tp=tp, plain=plain)
     h = residual + attn
 
     residual = h
@@ -120,9 +119,9 @@ def decoder_layer(
         codes, rs = rms_q(h, lp["post_attention_layernorm"], eps)
         gate_up = int8_linear_pre(codes, rs, lp["gate_up_proj"], h.dtype, plain)
     else:
-        x = rms_norm(h, lp["post_attention_layernorm"], eps)
-        gate_up = _maybe_lora(x, qmatmul(x, lp["gate_up_proj"], plain), lora_layer,
-                              "gate_up_proj")
+        x = enter(rms_norm(h, lp["post_attention_layernorm"], eps), tp)
+        gate_up = column(x, lp["gate_up_proj"], lora=lora_of(lora_layer, "gate_up_proj"),
+                         tp=tp, parts=(cfg.intermediate_size,) * 2, plain=plain)
     if (
         use_rq
         and is_w8a8(lp["down_proj"])
@@ -134,7 +133,8 @@ def decoder_layer(
     else:
         gate, up = torch.chunk(gate_up, 2, dim=-1)
         mlp = up * ACT2FN[cfg.hidden_act](gate)
-        mlp = _maybe_lora(mlp, qmatmul(mlp, lp["down_proj"], plain), lora_layer, "down_proj")
+        mlp = row(mlp, lp["down_proj"], lora=lora_of(lora_layer, "down_proj"), tp=tp,
+                  plain=plain)
     return residual + mlp
 
 
@@ -154,10 +154,13 @@ def forward(
     attn_impl: str = "auto",
     remat: bool = False,
     lora: Optional[dict] = None,
+    tp=None,
 ) -> DecoderOutput:
     """``collect_layer_id`` uses HF hidden_states indexing (0 = embeddings,
     i = output of layer i, pre-final-norm); ``num_layers`` or None means the
-    post-norm last_hidden_state only (``phi3.py:180-225``)."""
+    post-norm last_hidden_state only (``phi3.py:180-225``). Under ``tp`` the
+    layers run split (``decoder_layer``); the hidden states between them are
+    whole on every rank."""
     cos, sin = rope_cos_sin_for_config(position_ids, cfg, dtype=inputs_embeds.dtype)
     collect = collect_layer_id is not None and collect_layer_id < cfg.num_layers
     collected = inputs_embeds if collect else None  # collect_layer_id == 0
@@ -166,7 +169,7 @@ def forward(
     layers = params["layers"]
     for i in range(cfg.num_layers):
         h = stacked_layer(decoder_layer, i, h, layers, cfg, cos, sin, attention_mask, attn_impl,
-                          lora=lora, remat=remat)
+                          lora=lora, remat=remat, tp=tp)
         if collect and i + 1 == collect_layer_id:
             collected = h
 

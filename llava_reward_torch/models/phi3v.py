@@ -68,6 +68,7 @@ def vision_feature_bank(
     attn_impl: str = "auto",
     remat: bool = False,
     vision_lora: Optional[dict] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Dense merged-feature bank (B, 2 + NC*merge_grid^2, 4C): rows 0/1 are
     sub_GN/glb_GN (sentinels first), then every crop's merged patches."""
@@ -75,7 +76,7 @@ def vision_feature_bank(
     feats = clip_vit.extract_patch_features(
         params["vision"]["clip"], cfg.vision,
         pixel_values.reshape(B * NC, Himg, Wimg, C), attn_impl=attn_impl, remat=remat,
-        lora=vision_lora,
+        lora=vision_lora, tp=tp,
     )
     grid = cfg.vision.image_size // cfg.vision.patch_size
     merged = merge_2x2(feats, grid)
@@ -112,14 +113,17 @@ def forward(
     remat: bool = False,
     lora: Optional[dict] = None,
     vision_lora: Optional[dict] = None,  # stacked CLIP LoRA (--train_vision)
+    tp=None,  # parallel/tensor.TensorParallel: the tower and decoder split over tp
 ) -> Phi3VOutput:
+    """The embedding and the projector are whole on every rank (gathered by
+    the caller); under ``tp`` the CLIP tower and the decoder run split."""
     embeds = params["decoder"]["embed_tokens"][input_ids.long()]
     dtype = embeds.dtype
 
     vision_embedding = None
     if pixel_values is not None:
         bank = vision_feature_bank(params, cfg, pixel_values.to(dtype), attn_impl=attn_impl,
-                                   remat=remat, vision_lora=vision_lora)
+                                   remat=remat, vision_lora=vision_lora, tp=tp)
         gathered = _take_rows(bank, img_gather_idx)
         proj = params["vision"]["img_projection"]
         x = gelu(mm(gathered, proj["fc1"]["kernel"]) + proj["fc1"]["bias"])
@@ -136,7 +140,7 @@ def forward(
 
     out = phi3.forward(
         params["decoder"], cfg.decoder, embeds, attention_mask, position_ids,
-        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora,
+        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora, tp=tp,
     )
     return Phi3VOutput(
         last_hidden_state=out.last_hidden_state,

@@ -48,9 +48,9 @@ from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary
 from ..preprocess.qwen_vision import patch_norm_vectors
-from ..utils.quantize import cat_out, dequant_layer, int8_linear_pre, is_w8a8, qmatmul
+from ..parallel.tensor import column, enter, local_heads, lora_of, row
+from ..utils.quantize import cat_out, dequant_layer, int8_linear_pre, is_w8a8
 from .clip_vit import stacked_layer
-from .phi3 import _maybe_lora
 from .phi3v import _take_rows
 
 # ------------------------------------------------------------------ init
@@ -148,14 +148,6 @@ def init_params(
 # ------------------------------------------------------------------ vision
 
 
-def _lin(x: torch.Tensor, p: dict, plain: bool = False) -> torch.Tensor:
-    """x @ kernel (+ bias): the int8 GEMM for a W8A8 kernel."""
-    out = qmatmul(x, p["kernel"], plain)
-    if "bias" in p:
-        out = out + p["bias"]
-    return out
-
-
 def _vision_rope(rot_pos: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """rot_pos (B, P, 2) -> fp32 cos/sin (B, P, head_dim): the per-patch
     frequency vector [h*invf, w*invf], duplicated (``qwen25_vl.py:127-137``)."""
@@ -170,15 +162,18 @@ def _vision_rope(rot_pos: torch.Tensor, head_dim: int) -> Tuple[torch.Tensor, to
 
 
 def _vision_block(h, lp, vc: QwenVisionConfig, cos, sin, patch_valid, is_full: bool,
-                  attn_impl: str):
+                  attn_impl: str, tp=None):
     """One vision block (``qwen25_vl.py:145-190``). ``patch_valid`` holds
     segment ids (0 = pad): a full block attends within one segment, a
-    window block within its window's valid patches."""
+    window block within its window's valid patches. Under ``tp`` this rank's
+    heads and MLP columns: qkv (each part's own slice), gate and up
+    column-split, proj and down row-split."""
     B, P, H = h.shape
-    nh, hd, wp = vc.num_heads, vc.head_dim, vc.win_patches
+    nh, hd, wp = local_heads(vc.num_heads, tp), vc.head_dim, vc.win_patches
 
-    x = rms_norm(h, lp["norm1"], vc.rms_norm_eps)
-    qkv = _lin(x, lp["qkv"]).reshape(B, P, 3, nh, hd)
+    x = enter(rms_norm(h, lp["norm1"], vc.rms_norm_eps), tp)
+    qkv = column(x, lp["qkv"]["kernel"], lp["qkv"]["bias"], tp=tp,
+                 parts=(H,) * 3).reshape(B, P, 3, nh, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q, k = (t.to(h.dtype) for t in apply_rotary(q.float(), k.float(), cos, sin))
 
@@ -193,11 +188,14 @@ def _vision_block(h, lp, vc: QwenVisionConfig, cos, sin, patch_valid, is_full: b
             key_padding_mask=patch_valid.reshape(B * nW, wp), impl=attn_impl,
             mask_layout="arbitrary",
         ).reshape(B, P, nh, hd)
-    h = h + _lin(attn.reshape(B, P, H), lp["proj"])
+    h = h + row(attn.reshape(B, P, nh * hd), lp["proj"]["kernel"], lp["proj"]["bias"], tp=tp)
 
-    x = rms_norm(h, lp["norm2"], vc.rms_norm_eps)
+    x = enter(rms_norm(h, lp["norm2"], vc.rms_norm_eps), tp)
     mlp = lp["mlp"]
-    return h + _lin(silu(_lin(x, mlp["gate"])) * _lin(x, mlp["up"]), mlp["down"])
+    cols = dict(tp=tp, parts=(vc.intermediate_size,))
+    gate = column(x, mlp["gate"]["kernel"], mlp["gate"]["bias"], **cols)
+    up = column(x, mlp["up"]["kernel"], mlp["up"]["bias"], **cols)
+    return h + row(silu(gate) * up, mlp["down"]["kernel"], mlp["down"]["bias"], tp=tp)
 
 
 def vision_forward(
@@ -211,9 +209,11 @@ def vision_forward(
     *,
     attn_impl: str = "auto",
     remat: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """-> (B, U, out_hidden) merged vision tokens in the original unit order,
-    zero on invalid slots (``qwen25_vl.py:193-253``)."""
+    zero on invalid slots (``qwen25_vl.py:193-253``). Under ``tp`` the blocks
+    run split; the merger is whole on every rank."""
     B, P, _ = patches.shape
     mm2 = vc.spatial_merge_size ** 2
     if patches.dtype == torch.uint8:
@@ -230,7 +230,7 @@ def vision_forward(
     full = set(vc.fullatt_block_indexes)
     for i in range(vc.depth):
         h = stacked_layer(_vision_block, i, h, params["blocks"], vc, cos, sin, patch_valid,
-                          i in full, attn_impl, remat=remat)
+                          i in full, attn_impl, remat=remat, tp=tp)
 
     # merger in window order (Qwen2_5_VLPatchMerger)
     m = params["merger"]
@@ -290,11 +290,14 @@ def fuse_decoder_projections(layers: dict) -> dict:
 
 
 def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_impl,
-                   lora_layer=None):
-    """One decoder layer (``qwen25_vl.py:336-435``), either layout."""
+                   lora_layer=None, tp=None):
+    """One decoder layer (``qwen25_vl.py:336-435``), either layout. Under
+    ``tp`` this rank's heads (GQA: its query heads with their kv heads) and
+    MLP columns: q/k/v (or qkv), gate/up (or gate_up) column-split, o and
+    down row-split."""
     lp = dequant_layer(lp, h.dtype)  # no-op unless weight-only quantized
     B, S, _ = h.shape
-    nh, nkv, hd = tc.num_heads, tc.num_kv_heads, tc.head_dim
+    nh, nkv, hd = local_heads(tc.num_heads, tp), local_heads(tc.num_kv_heads, tp), tc.head_dim
     eps = tc.rms_norm_eps
     # attn_impl="plain" sends the epilogues and the int8 GEMM to their plain
     # versions too; "pallas" forces their route on any device
@@ -306,29 +309,36 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
         out = int8_linear_pre(codes, rs, proj["kernel"], hid.dtype, plain)
         return out + proj["bias"] if "bias" in proj else out
 
+    def col(x, name, parts):
+        p = lp[name]
+        return column(x, p["kernel"], p.get("bias"), lora_of(lora_layer, name), tp=tp,
+                      parts=parts, plain=plain)
+
     residual = h
     if "qkv_proj" in lp:
         if use_rq and is_w8a8(lp["qkv_proj"]["kernel"]):
             qkv = rq_lin(h, lp["input_layernorm"], lp["qkv_proj"])
         else:
-            qkv = _lin(rms_norm(h, lp["input_layernorm"], eps), lp["qkv_proj"], plain)
+            qkv = col(enter(rms_norm(h, lp["input_layernorm"], eps), tp), "qkv_proj",
+                      (tc.q_size, tc.kv_size, tc.kv_size))
         attn = fused_rope_attention(
             qkv, cos, sin, n_heads=nh, n_kv_heads=nkv, head_dim=hd, causal=True,
             key_padding_mask=attention_mask, sliding_window=tc.sliding_window,
             impl=attn_impl,
         )
     else:
-        x = rms_norm(h, lp["input_layernorm"], eps)
-        q = _maybe_lora(x, _lin(x, lp["q_proj"], plain), lora_layer, "q_proj")
-        k = _maybe_lora(x, _lin(x, lp["k_proj"], plain), lora_layer, "k_proj")
-        v = _maybe_lora(x, _lin(x, lp["v_proj"], plain), lora_layer, "v_proj")
+        x = enter(rms_norm(h, lp["input_layernorm"], eps), tp)
+        q = col(x, "q_proj", (tc.q_size,))
+        k = col(x, "k_proj", (tc.kv_size,))
+        v = col(x, "v_proj", (tc.kv_size,))
         q, k = apply_rotary(q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), cos, sin)
         v = v.reshape(B, S, nkv, hd)
         attn = mha(
             q, k, v, causal=True, key_padding_mask=attention_mask,
             sliding_window=tc.sliding_window, impl=attn_impl,
         ).reshape(B, S, nh * hd)
-    attn = _maybe_lora(attn, _lin(attn, lp["o_proj"], plain), lora_layer, "o_proj")
+    attn = row(attn, lp["o_proj"]["kernel"], lp["o_proj"].get("bias"),
+               lora_of(lora_layer, "o_proj"), tp=tp, plain=plain)
     h = residual + attn
 
     residual = h
@@ -336,8 +346,8 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
         if use_rq and is_w8a8(lp["gate_up_proj"]["kernel"]):
             gate_up = rq_lin(h, lp["post_attention_layernorm"], lp["gate_up_proj"])
         else:
-            x = rms_norm(h, lp["post_attention_layernorm"], eps)
-            gate_up = _lin(x, lp["gate_up_proj"], plain)
+            x = enter(rms_norm(h, lp["post_attention_layernorm"], eps), tp)
+            gate_up = col(x, "gate_up_proj", (tc.intermediate_size,) * 2)
         if use_rq and is_w8a8(lp["down_proj"]["kernel"]) and tc.intermediate_size % 128 == 0:
             # silu(gate)*up straight to int8 codes for down_proj
             codes, rs = (qe.silu_mul_quant_plain if plain else qe.silu_mul_quant)(gate_up)
@@ -347,11 +357,12 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
             return residual + mlp
         gate, up = torch.chunk(gate_up, 2, dim=-1)
     else:
-        x = rms_norm(h, lp["post_attention_layernorm"], eps)
-        gate = _maybe_lora(x, _lin(x, lp["gate_proj"], plain), lora_layer, "gate_proj")
-        up = _maybe_lora(x, _lin(x, lp["up_proj"], plain), lora_layer, "up_proj")
+        x = enter(rms_norm(h, lp["post_attention_layernorm"], eps), tp)
+        gate = col(x, "gate_proj", (tc.intermediate_size,))
+        up = col(x, "up_proj", (tc.intermediate_size,))
     mlp = silu(gate) * up
-    mlp = _maybe_lora(mlp, _lin(mlp, lp["down_proj"], plain), lora_layer, "down_proj")
+    mlp = row(mlp, lp["down_proj"]["kernel"], lp["down_proj"].get("bias"),
+              lora_of(lora_layer, "down_proj"), tp=tp, plain=plain)
     return residual + mlp
 
 
@@ -372,9 +383,11 @@ def text_forward(
     attn_impl: str = "auto",
     remat: bool = False,
     lora: Optional[dict] = None,
+    tp=None,
 ):
     """-> (post-final-norm last hidden state, the collected pre-norm layer
-    output or None) (``qwen25_vl.py:444-480``)."""
+    output or None) (``qwen25_vl.py:444-480``); the layers split under
+    ``tp``."""
     cos, sin = _mrope_cos_sin(position_ids, tc, inputs_embeds.dtype)
     collect = collect_layer_id is not None and collect_layer_id < tc.num_layers
     collected = inputs_embeds if collect else None
@@ -382,7 +395,7 @@ def text_forward(
     h = inputs_embeds
     for i in range(tc.num_layers):
         h = stacked_layer(_decoder_layer, i, h, params["layers"], tc, cos, sin, attention_mask,
-                          attn_impl, lora=lora, remat=remat)
+                          attn_impl, lora=lora, remat=remat, tp=tp)
         if collect and i + 1 == collect_layer_id:
             collected = h
     return rms_norm(h, params["final_layernorm"], tc.rms_norm_eps), collected
@@ -405,6 +418,7 @@ def forward(
     attn_impl: str = "auto",
     remat: bool = False,
     lora: Optional[dict] = None,
+    tp=None,
 ) -> QwenOutput:
     """``qwen25_vl.py:483-520``. uint8 patches reach ``vision_forward`` as
     they are, which normalises them on the device (the JAX function casts
@@ -418,7 +432,7 @@ def forward(
             patches = patches.to(dtype)
         vision_embedding = vision_forward(
             params["visual"], cfg.vision, patches, patch_valid, rot_pos, unit_gather,
-            num_img_tokens, attn_impl=attn_impl, remat=remat,
+            num_img_tokens, attn_impl=attn_impl, remat=remat, tp=tp,
         ).to(dtype)
         k = torch.clamp(splice_idx, 0, vision_embedding.shape[1] - 1)
         spliced = _take_rows(vision_embedding, k)
@@ -426,6 +440,6 @@ def forward(
 
     last, collected = text_forward(
         params["text"], cfg.text, embeds, attention_mask, position_ids,
-        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora,
+        collect_layer_id=collect_layer_id, attn_impl=attn_impl, remat=remat, lora=lora, tp=tp,
     )
     return QwenOutput(last, collected, vision_embedding)

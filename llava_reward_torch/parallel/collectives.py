@@ -11,6 +11,21 @@ Gathers and scatters work along any dim through a (world, ...) buffer and a
 ``movedim``, so the result is contiguous whatever the dim: rank r's block
 sits at [r * n, (r + 1) * n) of ``dim``, the layout of a JAX
 ``NamedSharding`` over that axis.
+
+Under autograd (the tensor-parallel ones Megatron-style, over the tp group):
+
+  gather_shard  all-gather; backward reduce-scatters (fsdp: each rank's rows
+                take the group's summed gradient)
+  enter_tp      identity; backward all-reduces (the input of a column-split
+                projection, a replicated leaf a rank uses in part)
+  leave_tp      all-reduce; backward identity (a row-split projection's
+                partial sums)
+  gather_whole  all-gather; backward takes this rank's block unsummed (a
+                tp-split leaf used whole: the tp peers hold the same rows
+                and compute the same gradient)
+
+Every rank of a group issues its collectives in the same order, the
+recompute of a checkpointed layer included, since all run the same graph.
 """
 
 from __future__ import annotations
@@ -105,3 +120,53 @@ class _GatherShard(torch.autograd.Function):
 def gather_shard(local: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The whole tensor from each rank's block along ``dim``, under autograd."""
     return _GatherShard.apply(local, dim, group)
+
+
+class _EnterTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce(g, ctx.group), None
+
+
+class _LeaveTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.n, ctx.i = dim, local.shape[dim], dist.get_rank(group)
+        return all_gather(local, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n).contiguous(), None, None
+
+
+def enter_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (Megatron's copy
+    into the tensor-parallel region)."""
+    return _EnterTP.apply(x, group)
+
+
+def leave_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; its gradient passed as it is (Megatron's
+    reduce from the tensor-parallel region)."""
+    return _LeaveTP.apply(x, group)
+
+
+def gather_whole(local: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor from each rank's block along ``dim``; the backward
+    keeps this rank's block of the gradient without summing it."""
+    return _GatherWhole.apply(local, dim, group)

@@ -5,7 +5,7 @@ The mesh has the JAX package's axes:
 
   dp    data parallel (parameters replicated)        -- ZeRO-0
   fsdp  parameters and optimizer state sharded       -- ZeRO-3
-  tp    tensor parallel (only size 1 here: ROADMAP A8)
+  tp    tensor parallel over heads and MLP columns   (``parallel/tensor.py``)
 
 Rank r sits at the row-major position of ``arange(world).reshape(dp, fsdp,
 tp)`` (``sharding.py:40``), so rank = (dp_i * fsdp + fsdp_i) * tp + tp_i.
@@ -17,16 +17,27 @@ Sharding is decided by the JAX package's path rules over the param tree
 (``_PARAM_RULES``, a spec being a tuple of axis names per dim), with any dim
 the mesh does not divide replicated (``_divisible_spec``). ``shard_params``
 keeps, on each rank, its block of every leaf that its spec shards over
-"fsdp", wrapped in ``Sharded``; every other leaf stays whole (W8A8 leaves
-among them: their paths end in ``/qvalues_w8a8`` and match no rule). Models
-gather a ``Sharded`` leaf where they use it (``models/clip_vit.layer_slice``
-for stacked layers, ``gather_unstacked`` for the rest); the gather's
-backward reduce-scatters its gradient.
+"fsdp" or "tp", wrapped in ``Sharded``; every other leaf stays whole. A
+fused out axis ([q | k | v], [gate | up]) split over tp holds, on rank r,
+every part's own r-th slice side by side, so each rank's block is its own
+heads (``_FUSED``); saving and resuming undo and redo that order, so a
+checkpoint is the JAX layout whatever the mesh. Under tp, the model's
+heads, kv heads and MLP widths must divide by tp, and quantized leaves are
+refused (their placement under tp is ROADMAP A9).
+
+Models gather a ``Sharded`` leaf where they use it: a stacked layer over
+fsdp only (``layer``, inside ``models/clip_vit.layer_slice``), keeping its
+tp block for the column- or row-split projection; any other leaf whole
+(``full``, through ``gather_unstacked``): leaves used whole (embeddings,
+projectors, SkipCA) are gathered over tp too, with a backward that keeps
+this rank's block of the gradient unsummed, as the tp peers compute the
+same one. The fsdp gather's backward reduce-scatters its gradient.
 
 Batches shard over ("dp", "fsdp"): data rank d = dp_i * fsdp + fsdp_i takes
 rows [d * B / n, (d + 1) * B / n), axis 1 for the M-RoPE ``position_ids``
-(3, B, S), the global row order of JAX's ``shard_batch``. A rank that loads
-its own rows (the train CLI's per-rank sampler) holds its shard already.
+(3, B, S), the global row order of JAX's ``shard_batch``; the tp peers of a
+data rank hold the same rows. A rank that loads its own rows (the train
+CLI's per-rank sampler) holds its shard already.
 """
 
 from __future__ import annotations
@@ -38,7 +49,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .collectives import all_gather, gather_shard
+from .collectives import gather_shard, gather_whole
+from .tensor import check_tp, fused_parts, slice_parts
 
 AXES = ("dp", "fsdp", "tp")
 DATA = ("dp", "fsdp")
@@ -227,63 +239,122 @@ def _divisible_spec(spec: Spec, leaf, mesh: Mesh) -> Spec:
     return tuple(fixed)
 
 
-def _block(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec`` (a view)."""
-    for d, names in enumerate(spec):
-        if names is None:
-            continue
-        group = names if isinstance(names, tuple) else (names,)
-        w = mesh.ways(group)
-        n = t.shape[d] // w
-        t = t.narrow(d, mesh.index(group) * n, n)
-    return t
+# fused out axes split over tp, by path -> their ``tensor.fused_parts`` key
+_FUSED: Sequence[Tuple[str, str]] = (
+    (r".*layers/qkv_proj$", "qkv"),
+    (r".*layers/gate_up_proj$", "gate_up"),
+    (r".*blocks/qkv/kernel$", "vision_qkv"),
+)
+
+
+def _unsplit_parts(t: torch.Tensor, parts: Sequence[int], size: int, dim: int) -> torch.Tensor:
+    """The inverse of ``slice_parts`` over all ``size`` ranks: ``t`` holds
+    the ranks' blocks in order along ``dim``; each part's slices go back
+    together."""
+    blocks = [b.split([p // size for p in parts], dim) for b in t.chunk(size, dim)]
+    return torch.cat([torch.cat([b[j] for b in blocks], dim) for j in range(len(parts))], dim)
 
 
 class Sharded:
-    """This rank's block of a leaf sharded over the mesh's "fsdp" axis along
-    ``dim``. The optimizer's tree functions map over ``local`` and keep the
-    wrapper (``train/optim.tree_map``), so gradients and Adam's moments stay
-    as sharded as their leaf."""
+    """This rank's block of a leaf split along ``dims`` ({axis: dim}, "fsdp"
+    and / or "tp"); ``parts``, for a fused out axis split over tp, its parts'
+    full widths. The optimizer's tree functions map over ``local`` and keep
+    the wrapper (``train/optim.tree_map``), so gradients and Adam's moments
+    stay as sharded as their leaf."""
 
-    __slots__ = ("local", "dim", "mesh")
+    __slots__ = ("local", "mesh", "dims", "parts")
 
-    def __init__(self, local: torch.Tensor, dim: int, mesh: Mesh):
-        self.local, self.dim, self.mesh = local, dim, mesh
+    def __init__(self, local: torch.Tensor, mesh: Mesh, dims: Dict[str, int],
+                 parts: Optional[Sequence[int]] = None):
+        self.local, self.mesh, self.dims, self.parts = local, mesh, dims, parts
 
     def __repr__(self) -> str:
-        return f"Sharded({tuple(self.local.shape)}, dim={self.dim}, {self.mesh})"
+        return f"Sharded({tuple(self.local.shape)}, {self.dims}, {self.mesh})"
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes this leaf is split over."""
+        return tuple(a for a in ("fsdp", "tp") if a in self.dims)
 
     def with_local(self, local: torch.Tensor) -> "Sharded":
-        return Sharded(local, self.dim, self.mesh)
+        return Sharded(local, self.mesh, self.dims, self.parts)
+
+    def _fsdp(self, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        if "fsdp" not in self.dims:
+            return x
+        return gather_shard(x, self.dims["fsdp"] - lead, self.mesh.group(("fsdp",)))
 
     def full(self) -> torch.Tensor:
-        """The whole leaf, gathered under autograd."""
-        return gather_shard(self.local, self.dim, self.mesh.group(("fsdp",)))
+        """The whole leaf in the JAX layout (fused parts back in order),
+        gathered over both axes under autograd."""
+        x = self._fsdp(self.local)
+        if "tp" not in self.dims:
+            return x
+        d = self.dims["tp"]
+        x = gather_whole(x, d, self.mesh.group(("tp",)))
+        return _unsplit_parts(x, self.parts, self.mesh.shape["tp"], d) if self.parts else x
 
     def layer(self, i: int) -> torch.Tensor:
-        """Layer ``i`` of a stacked leaf, gathered under autograd."""
-        return gather_shard(self.local[i], self.dim - 1, self.mesh.group(("fsdp",)))
+        """Layer ``i`` of a stacked leaf, gathered over fsdp under autograd;
+        its tp block kept for the split projection that uses it."""
+        return self._fsdp(self.local[i], lead=1)
 
 
-def shard_params(tree, mesh: Mesh):
-    """Each leaf whose (divisible) spec names "fsdp" becomes a ``Sharded``
-    holding a contiguous copy of this rank's block; every other leaf stays
-    as it is (``sharding.py:126-152``). With fsdp 1 the tree comes back
-    unchanged."""
-    if mesh.shape["tp"] > 1:
-        raise NotImplementedError("tensor parallelism over tp is ROADMAP A8")
+def _axis_dims(spec: Spec, mesh: Mesh) -> Dict[str, int]:
+    """{axis: dim} for each axis of ``spec`` that splits a dim (size > 1)."""
+    out = {}
+    for d, names in enumerate(spec):
+        for a in (names if isinstance(names, tuple) else (names,)):
+            if a is not None and mesh.shape[a] > 1:
+                out[a] = d
+    return out
+
+
+def _fused_key(path: str) -> Optional[str]:
+    return next((k for pattern, k in _FUSED if re.match(pattern, path)), None)
+
+
+def _block(t: torch.Tensor, dims: Dict[str, int], mesh: Mesh,
+           parts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's block of the whole ``t``: a contiguous slice along the
+    fsdp dim, and along the tp dim each fused part's own slice."""
+    if "fsdp" in dims:
+        n = t.shape[dims["fsdp"]] // mesh.shape["fsdp"]
+        t = t.narrow(dims["fsdp"], mesh.index(("fsdp",)) * n, n)
+    if "tp" in dims:
+        d = dims["tp"]
+        t = slice_parts(t, parts or (t.shape[d],), mesh.shape["tp"], mesh.coords["tp"], d)
+    return t
+
+
+def shard_params(tree, mesh: Mesh, cfg=None):
+    """Each leaf whose (divisible) spec names "fsdp" or "tp" becomes a
+    ``Sharded`` holding a contiguous copy of this rank's block; every other
+    leaf stays as it is (``sharding.py:126-152``). With fsdp and tp 1 the
+    tree comes back unchanged. A tp mesh needs the family's config ``cfg``:
+    tp must divide its heads and MLP widths, which also place the fused
+    blocks; a quantized leaf under tp is refused (ROADMAP A9)."""
+    tp = mesh.shape["tp"]
+    parts = {}
+    if tp > 1:
+        if cfg is None:
+            raise ValueError("a tp mesh needs the model config: its widths place the blocks")
+        check_tp(cfg, tp)
+        parts = fused_parts(cfg)
 
     def one(path, leaf):
+        if tp > 1 and path.rsplit("/", 1)[-1].startswith("qvalues"):
+            raise NotImplementedError(
+                f"{path}: a quantized frozen decoder under tp {tp} is ROADMAP A9 (the JAX "
+                "package keeps those leaves whole on every tp rank)")
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        spec = _divisible_spec(spec_for_path(path, leaf), leaf, mesh)
-        dims = [d for d, names in enumerate(spec)
-                if names is not None and mesh.ways(
-                    names if isinstance(names, tuple) else (names,)) > 1]
+        dims = _axis_dims(_divisible_spec(spec_for_path(path, leaf), leaf, mesh), mesh)
         if not dims:
             return leaf
-        block = _block(leaf.detach(), spec, mesh).contiguous().clone()
-        return Sharded(block.requires_grad_(leaf.requires_grad), dims[0], mesh)
+        p = parts.get(_fused_key(path)) if "tp" in dims else None
+        block = _block(leaf.detach(), dims, mesh, p).contiguous().clone()
+        return Sharded(block.requires_grad_(leaf.requires_grad), mesh, dims, p)
 
     return _walk(one, tree)
 
@@ -297,9 +368,9 @@ def _map(fn, tree):
 
 
 def gather_unstacked(tree):
-    """Every ``Sharded`` leaf gathered whole under autograd, except inside
-    stacked-layer subtrees ("layers", "blocks"), which the models gather a
-    layer at a time."""
+    """Every ``Sharded`` leaf gathered whole under autograd (over fsdp and
+    tp), except inside stacked-layer subtrees ("layers", "blocks"), which the
+    models gather a layer at a time."""
     if isinstance(tree, dict):
         return {k: v if k in ("layers", "blocks") else gather_unstacked(v)
                 for k, v in tree.items()}
@@ -308,10 +379,10 @@ def gather_unstacked(tree):
 
 @torch.no_grad()
 def gather_tree(tree):
-    """The whole tree on every rank, every ``Sharded`` leaf gathered (saving);
-    any other leaf, tensor or not, as it is."""
-    return _map(lambda x: all_gather(x.local, x.dim, x.mesh.group(("fsdp",)))
-                if isinstance(x, Sharded) else x, tree)
+    """The whole tree on every rank, every ``Sharded`` leaf gathered in the
+    JAX layout, fused parts back in order (saving); any other leaf, tensor or
+    not, as it is."""
+    return _map(lambda x: x.full() if isinstance(x, Sharded) else x, tree)
 
 
 def reshard_like(full, like):
@@ -320,9 +391,8 @@ def reshard_like(full, like):
     if isinstance(like, dict):
         return {k: reshard_like(full[k], v) for k, v in like.items()}
     if isinstance(like, Sharded):
-        w, i = like.mesh.shape["fsdp"], like.mesh.index(("fsdp",))
-        n = full.shape[like.dim] // w
-        return like.with_local(full.narrow(like.dim, i * n, n).contiguous().clone())
+        block = _block(full, like.dims, like.mesh, like.parts)
+        return like.with_local(block.contiguous().clone())
     return full
 
 

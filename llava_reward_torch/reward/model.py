@@ -116,11 +116,17 @@ def reward_forward(
     prompt_end_index: Optional[torch.Tensor] = None,
     skipca_batch_max: Optional[torch.Tensor] = None,
     data_group=None,
+    tp=None,
 ) -> RewardOutput:
     """``data_group``: the process group of the data ranks when this batch
     is one rank's share of a global batch. phi3v's SkipCA then zero-pads to
     the global batch's largest image-token count, as the JAX package's
-    forward over the whole batch does."""
+    forward over the whole batch does. ``tp``
+    (``parallel/tensor.TensorParallel``): the backbone's towers and decoder
+    run split over the tp axis; ``params`` holds the stacked layers' blocks
+    (``parallel/sharding.shard_params``) and every other leaf whole
+    (``gather_unstacked``), so SkipCA and the heads run whole on every
+    rank."""
     _check_family(cfg)
     attention_mask = batch.attention_mask
     collect = None if rcfg.layer_id >= num_layers_of(cfg) else rcfg.layer_id
@@ -134,7 +140,7 @@ def reward_forward(
             params["backbone"], cfg, batch.input_ids, attention_mask, batch.position_ids,
             batch.pixel_values, batch.patch_valid, batch.rot_pos, batch.unit_gather,
             batch.splice_idx, batch.num_img_tokens, collect_layer_id=collect,
-            attn_impl=attn_impl, remat=remat, lora=lora,
+            attn_impl=attn_impl, remat=remat, lora=lora, tp=tp,
         )
         skipca_mode = "qwen"  # per-sample -1e4 mask
     elif _is_llava(cfg):
@@ -143,7 +149,7 @@ def reward_forward(
         out = llava_next.forward(
             params["backbone"], cfg, batch.input_ids, attention_mask, batch.pixel_values,
             batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
-            collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora,
+            collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora, tp=tp,
         )
         skipca_mode = None  # SkipCA is not wired for llava (rw:372-375)
     else:
@@ -169,7 +175,7 @@ def reward_forward(
             params["backbone"], cfg, batch.input_ids, attention_mask, position_ids,
             pixel_values, batch.img_gather_idx, batch.splice_idx, batch.num_img_tokens,
             collect_layer_id=collect, attn_impl=attn_impl, remat=remat, lora=lora,
-            vision_lora=vision_lora,
+            vision_lora=vision_lora, tp=tp,
         )
         skipca_mode = "phi3v"
 
@@ -215,6 +221,7 @@ def paired_forward(
     vision_lora: Optional[dict] = None,
     prompt_end_index: Optional[torch.Tensor] = None,
     data_group=None,
+    tp=None,
 ):
     """Score (chosen, rejected) in one stacked forward (``model.py:235-303``).
     Qwen's M-RoPE ``position_ids`` (3, B, S) stack on axis 1. phi3v: each
@@ -244,7 +251,7 @@ def paired_forward(
         params, cfg, rcfg, stacked, training=training, attn_impl=attn_impl, remat=remat,
         lora=lora, vision_lora=vision_lora, prompt_end_index=cat(
             "prompt_end_index", prompt_end_index, prompt_end_index),
-        skipca_batch_max=skipca_bm, data_group=data_group,
+        skipca_batch_max=skipca_bm, data_group=data_group, tp=tp,
     )
     B = chosen.input_ids.shape[0]
     prompt_hidden = out.prompt_hidden[:B] if out.prompt_hidden is not None else None

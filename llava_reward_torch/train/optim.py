@@ -15,7 +15,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..parallel.collectives import all_reduce
+from ..parallel.collectives import all_gather
 from ..parallel.sharding import Sharded
 
 Schedule = Callable[[int], float]
@@ -49,24 +49,27 @@ def tree_leaves(tree) -> list:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (``optax.global_norm``).
-    A ``Sharded`` leaf's squares are summed over its fsdp group, so every
-    rank gets the norm of the whole tree, each replicated leaf counted once."""
-    sq, part, group = 0.0, 0.0, None
+    A ``Sharded`` leaf's squares are summed over the axes it is split over
+    (fsdp, tp or both), so every rank gets the norm of the whole tree, each
+    replicated leaf counted once."""
+    sq, parts, mesh = 0.0, {}, None
 
     def walk(t):
-        nonlocal sq, part, group
+        nonlocal sq, mesh
         if isinstance(t, dict):
             for v in t.values():
                 walk(v)
         elif isinstance(t, Sharded):
-            part = part + torch.sum(t.local.float() ** 2)
-            group = t.mesh.group(("fsdp",))
+            parts[t.axes] = parts.get(t.axes, 0.0) + torch.sum(t.local.float() ** 2)
+            mesh = t.mesh
         elif t is not None:
             sq = sq + torch.sum(t.float() ** 2)
 
     walk(tree)
-    if group is not None:
-        sq = sq + all_reduce(part, group)
+    for axes in sorted(parts):  # the same order on every rank
+        # gathered and summed in group order, so every rank gets the same bits
+        # (gloo's all-reduce of one element over four ranks need not)
+        sq = sq + torch.sum(all_gather(parts[axes][None], 0, mesh.group(axes)))
     return torch.sqrt(torch.as_tensor(sq))
 
 

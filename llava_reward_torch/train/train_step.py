@@ -18,7 +18,8 @@ import torch
 from ..core.config import RewardConfig
 from ..models.phi3 import logits as lm_logits
 from ..parallel.collectives import all_reduce
-from ..parallel.sharding import DATA, Sharded, gather_unstacked
+from ..parallel.sharding import AXES, DATA, Sharded, gather_unstacked
+from ..parallel.tensor import tensor_parallel
 from ..reward import losses
 from ..reward.heads import eos_index_from_mask, prompt_skew_block_matrices
 from ..reward.model import RewardBatch, paired_forward, reward_forward
@@ -103,10 +104,13 @@ def make_pairwise_loss_fn(
     Under a ``mesh`` the batches are this rank's rows and the loss is their
     mean, as every loss here (the ptx term too: a mean over rows of each
     row's token sum) is a mean over rows; ``make_train_step`` averages it
-    over the data ranks."""
+    over the data ranks. A mesh with a tp axis runs the backbone split over
+    it (``parallel/tensor.py``), and refuses a tp that does not divide
+    ``cfg``'s heads and MLP widths."""
     loss_name = select_loss_name(rcfg, cls_based, add_img_eos)
     tau = rcfg.general_preference_tau
     data_group = _data_group(mesh)
+    tp = tensor_parallel(mesh, cfg)
 
     def loss_fn(trainable: dict, frozen: dict, chosen: RewardBatch, rejected: RewardBatch,
                 margin: Optional[torch.Tensor] = None):
@@ -119,7 +123,7 @@ def make_pairwise_loss_fn(
         c_r, r_r, prompt_hidden, chosen_last_hidden = paired_forward(
             params, cfg, rcfg, chosen, rejected, training=True, attn_impl=attn_impl,
             remat=remat, lora=lora, vision_lora=vision_lora, prompt_end_index=prompt_end,
-            data_group=data_group,
+            data_group=data_group, tp=tp,
         )
         if compute_fp32_loss:
             c_r, r_r = c_r.float(), r_r.float()
@@ -165,12 +169,13 @@ def make_cls_loss_fn(cfg, rcfg: RewardConfig, *, compute_fp32_loss: bool = False
                      mesh=None) -> Callable:
     """Pointwise classification objective (``train_step.py:191-215``)."""
     data_group = _data_group(mesh)
+    tp = tensor_parallel(mesh, cfg)
 
     def loss_fn(trainable, frozen, batch: RewardBatch, labels: torch.Tensor):
         params, lora, vision_lora = assemble_params(frozen, trainable, projector_path)
         out = reward_forward(params, cfg, rcfg, batch, training=True, attn_impl=attn_impl,
                              remat=remat, lora=lora, vision_lora=vision_lora,
-                             data_group=data_group)
+                             data_group=data_group, tp=tp)
         r = out.reward[..., 0]
         if compute_fp32_loss:
             r = r.float()
@@ -191,35 +196,40 @@ def _data_group(mesh):
     return mesh.group(DATA) if mesh is not None and mesh.ways(DATA) > 1 else None
 
 
-def _mean_over_data(grads, metrics: dict, mesh):
-    """Each rank's gradients and metrics averaged over the data ranks: a
-    replicated leaf's gradient summed over ("dp", "fsdp"), a ``Sharded``
-    leaf's block (which the gather's backward already summed over fsdp) over
-    dp, both divided by the data ways; one bucket per set of axes."""
-    n = mesh.ways(DATA)
-    plain, sharded = [], []
+def _mean_over_ranks(grads, metrics: dict, mesh):
+    """Each rank's gradients and metrics averaged over the data ranks, and
+    the leaves and metrics that the tp peers all hold over tp too: a leaf's
+    gradient is summed over every mesh axis it is not split over, except
+    fsdp for a ``Sharded`` leaf split over fsdp (its gather's backward took
+    that sum), then divided by the data ways, times tp for a leaf not split
+    over tp; one bucket per set of axes. The tp peers compute their copies of
+    a whole leaf's gradient apart (the CPU's matmuls round by the data's
+    alignment), so the average keeps their copies the same bits."""
+    n, tp = mesh.ways(DATA), mesh.shape["tp"]
+    buckets = {}
 
     def walk(t):
         if isinstance(t, dict):
             for v in t.values():
                 walk(v)
-        elif isinstance(t, Sharded):
-            sharded.append(t.local)
         elif t is not None:
-            plain.append(t)
+            split = t.axes if isinstance(t, Sharded) else ()
+            axes = tuple(a for a in ("dp", "fsdp", "tp") if a not in split)
+            buckets.setdefault(axes, []).append(t.local if isinstance(t, Sharded) else t)
 
     walk(grads)
     reduced = {}
-    for leaves, axes in ((plain, DATA), (sharded, ("dp",))):
-        if not leaves:
-            continue
+    for axes in sorted(buckets):  # the same order on every rank
+        leaves = buckets[axes]
         flat = torch.cat([g.reshape(-1).float() for g in leaves])
         if mesh.ways(axes) > 1:
             flat = all_reduce(flat, mesh.group(axes))
-        for g, piece in zip(leaves, (flat / n).split([g.numel() for g in leaves])):
+        flat = flat / (n * (tp if "tp" in axes else 1))
+        for g, piece in zip(leaves, flat.split([g.numel() for g in leaves])):
             reduced[id(g)] = piece.view_as(g).to(g.dtype)
     keys = sorted(metrics)
-    means = all_reduce(torch.stack([metrics[k].float() for k in keys]), mesh.group(DATA)) / n
+    means = all_reduce(torch.stack([metrics[k].float() for k in keys]),
+                       mesh.group(AXES)) / (n * tp)
     return tree_map(lambda g: reduced[id(g)], grads), dict(zip(keys, means.unbind()))
 
 
@@ -230,8 +240,8 @@ def make_train_step(loss_fn: Callable, tx, mesh=None) -> Callable:
     Metrics come back as detached tensors (reading them waits for the card).
     Under a ``mesh`` with more than one data rank, each rank's loss is over
     its own rows; gradients and metrics are their mean over the data ranks,
-    the global batch's, and equal on every rank."""
-    data_ranks = _data_group(mesh) is not None
+    the global batch's, and equal on every rank (the tp peers' too)."""
+    sync = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, frozen: dict, *loss_args):
         trainable = state.trainable
@@ -244,8 +254,8 @@ def make_train_step(loss_fn: Callable, tx, mesh=None) -> Callable:
         grads = tree_map(lambda _: next(it), trainable)
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
-            if data_ranks:
-                grads, metrics = _mean_over_data(grads, metrics, mesh)
+            if sync:
+                grads, metrics = _mean_over_ranks(grads, metrics, mesh)
             updates, opt_state = tx.update(grads, state.opt_state, trainable)
             new_trainable = tree_map(lambda p, u: (p + u.to(p.dtype)).requires_grad_(),
                                      trainable, updates)

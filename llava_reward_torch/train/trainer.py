@@ -10,10 +10,11 @@ checkpoint is ``torch.save`` of ``{step, trainable, opt_state}`` (the JAX
 package's orbax layout is its own, not the contract). ``wandb_logger``, when
 given, receives the train and eval logs (``trainer.py:190-210,299-303``).
 
-Under a ``mesh`` (``parallel/sharding.py``) every rank steps on its own
-rows; evaluation all-gathers the probabilities (or rewards and labels)
-before the metrics, the samplers' padding duplicates included, as in the
-JAX package; saving gathers the sharded leaves on every rank and rank 0
+Under a ``mesh`` (``parallel/sharding.py``) every data rank steps on its
+own rows (its tp peers on the same rows, the backbone split between them);
+evaluation all-gathers the probabilities (or rewards and labels) over the
+data ranks before the metrics, the samplers' padding duplicates included,
+as in the JAX package; saving gathers the sharded leaves on every rank and rank 0
 alone writes, then all ranks meet at a barrier. The train-state checkpoint
 is the gathered whole state, so it resumes under any mesh, one process
 included. Logs and wandb are rank 0's.
@@ -41,6 +42,7 @@ from ..lora.lora import (DEFAULT_TARGETS, QWEN_TARGETS, peft_adapter_config,
                          stacked_to_peft_state, vision_stacked_to_peft_state)
 from ..parallel.collectives import all_gather_list, barrier
 from ..parallel.sharding import DATA, gather_tree, reshard_like
+from ..parallel.tensor import tensor_parallel
 from ..preprocess.collate import to_reward_batch
 from ..reward.model import reward_forward
 from ..reward.preference import preference_prob
@@ -94,6 +96,7 @@ class RewardTrainer:
         # shard_batch_fn)
         self.data_group = (mesh.group(DATA) if mesh is not None and mesh.ways(DATA) > 1
                            else None)
+        self.tp = tensor_parallel(mesh, cfg)
         self.train_loader, self.eval_loader = train_loader, eval_loader
         self.cls_based, self.margin_loss = cls_based, margin_loss
         self.max_epochs = max_epochs
@@ -196,7 +199,7 @@ class RewardTrainer:
     def _score(self, params, lora, vision_lora, batch) -> torch.Tensor:
         return reward_forward(params, self.cfg, self.rcfg, to_reward_batch(batch, self.device),
                               training=False, lora=lora, vision_lora=vision_lora,
-                              data_group=self.data_group).reward
+                              data_group=self.data_group, tp=self.tp).reward
 
     @torch.no_grad()
     def evaluate(self, global_step: int = 0) -> Dict[str, float]:

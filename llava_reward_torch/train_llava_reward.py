@@ -13,10 +13,13 @@ More than one process (torchrun's ``MASTER_ADDR`` / ``MASTER_PORT`` /
 ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``, or the JAX package's
 ``LRT_COORDINATOR`` / ``LRT_NUM_PROCESSES`` / ``LRT_PROCESS_ID``): the
 mesh comes from ``--zero_stage`` / ``--zpg`` / ``--mesh_dp`` /
-``--mesh_fsdp`` (``core/mesh.py``), both trees are sharded by the JAX
-rules, and each rank reads its own rows (``GroupSampler(num_replicas=world,
-rank=rank)``) in batches of ``--micro_train_batch_size``: one device a
-process, so the global batch is world x micro.
+``--mesh_fsdp`` / ``--mesh_tp`` (``core/mesh.py``), both trees are sharded
+by the JAX rules, and each data rank reads its own rows
+(``GroupSampler(num_replicas=dp x fsdp, rank=its data index)``) in batches
+of ``--micro_train_batch_size``, its tp peers the same rows: one device a
+process, so the global batch is dp x fsdp x micro, as in the JAX CLI. Under
+``--mesh_tp`` the backbone runs split over the tp ranks
+(``parallel/tensor.py``); tp must divide the heads, kv heads and MLP widths.
 
 Orchestration (the reference's train(): model -> tokenizer -> optimizer ->
 data -> scheduler -> trainer.fit): load the backbone (or, without
@@ -36,8 +39,8 @@ quantized frozen decoder (train_llava_reward.py:131-153): the decoder's
 stacked layers are quantized one layer at a time on their way to the
 device. Both need LoRA and exclude each other.
 
-Not here yet, refused with the ROADMAP item that brings it: ``--mesh_tp``
-above 1, tensor parallelism (A8).
+Not here yet, refused with the ROADMAP item that brings it: a quantized
+frozen decoder under ``--mesh_tp`` above 1 (A9).
 """
 
 from __future__ import annotations
@@ -83,10 +86,9 @@ def _refuse(args) -> None:
         raise ValueError("--load_in_4bit/--load_in_8bit require LoRA (frozen backbone)")
     if args.load_in_4bit and args.load_in_8bit:
         raise ValueError("--load_in_4bit and --load_in_8bit are exclusive")
-    if args.mesh_tp > 1:
+    if args.mesh_tp > 1 and (args.load_in_4bit or args.load_in_8bit):
         raise NotImplementedError(
-            f"--mesh_tp {args.mesh_tp}: tensor parallelism is ROADMAP A8; the mesh's tp "
-            "axis is 1 here")
+            f"--mesh_tp {args.mesh_tp} over a quantized frozen decoder is ROADMAP A9")
 
 
 def train(args):
@@ -102,7 +104,7 @@ def train(args):
     from .data.sampler import GroupSampler
     from .io.torch_io import load_torch_state_dict
     from .lora.lora import init_lora, init_vision_lora
-    from .parallel.sharding import shard_params
+    from .parallel.sharding import DATA, shard_params
     from .reward.model import init_head_params, num_layers_of
     from .train.optim import make_optimizer, tree_leaves, tree_map
     from .train.train_step import make_cls_loss_fn, make_pairwise_loss_fn
@@ -118,6 +120,7 @@ def train(args):
     mesh = mesh_from_args(args)
     logger.info("mesh %s, rank %d, backend %s", mesh.shape, mesh.rank, backend())
     world, rank = mesh.size, mesh.rank
+    data_ways, data_rank = mesh.ways(DATA), mesh.index(DATA)
     family = get_family(args.model_type)
 
     def generator(seed):
@@ -202,8 +205,8 @@ def train(args):
                         and args.model_type == "phi3v" else None),
     }
 
-    # ---- shard over the mesh (each leaf whole where fsdp is 1)
-    frozen, trainable = shard_params(frozen, mesh), shard_params(trainable, mesh)
+    # ---- shard over the mesh (each leaf whole where fsdp and tp are 1)
+    frozen, trainable = shard_params(frozen, mesh, cfg), shard_params(trainable, mesh, cfg)
     del backbone, train_backbone
 
     # ---- data
@@ -215,9 +218,10 @@ def train(args):
     train_ds = ds_cls(train_rows, processor, tokenizer, args.image_root)
     eval_ds = ds_cls(eval_rows, processor, tokenizer, args.image_root) if eval_rows else None
     pad_id = family.decoder_cfg(cfg).pad_token_id
-    # every rank reads its own rows (the reference's per-rank sampler); one
-    # device a process, so the local batch is the micro batch
-    sampler = GroupSampler(len(train_ds), num_replicas=world, rank=rank, shuffle=True,
+    # every data rank reads its own rows (the reference's per-rank sampler),
+    # its tp peers the same; one device a process, so the local batch is the
+    # micro batch
+    sampler = GroupSampler(len(train_ds), num_replicas=data_ways, rank=data_rank, shuffle=True,
                            seed=args.seed, group_size=args.group_size)
     train_loader = PrefetchLoader(
         train_ds, sampler, args.micro_train_batch_size,
@@ -227,7 +231,8 @@ def train(args):
     eval_loader = None
     if eval_ds is not None:
         eval_loader = PrefetchLoader(
-            eval_ds, GroupSampler(len(eval_ds), num_replicas=world, rank=rank, shuffle=False),
+            eval_ds, GroupSampler(len(eval_ds), num_replicas=data_ways, rank=data_rank,
+                                  shuffle=False),
             args.micro_train_batch_size,
             collate_fn=lambda items: eval_ds.collate(items, args.seq_len, pad_id),
             num_workers=args.num_workers, drop_last=False)

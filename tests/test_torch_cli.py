@@ -18,10 +18,11 @@
 - ``--load_in_8bit`` and ``--load_in_4bit`` (nf4, absmax) train LoRA over
   a quantized frozen decoder and refuse full fine-tuning and each other, as
   the JAX CLI does;
-- ``--mesh_tp`` above 1 refuses with ROADMAP A8, a mesh that does not match
-  the world refuses as the JAX CLI's does, two ranks launched with
-  torchrun's environment each train on their own rows over fsdp 2, and
-  ``--device`` defaults to cuda, which raises on a machine without one.
+- ``--mesh_tp`` above 1 over a quantized decoder refuses with ROADMAP A9, a
+  mesh that does not match the world refuses as the JAX CLI's does, two
+  ranks launched with torchrun's environment each train on their own rows
+  over fsdp 2, or on the same rows over tp 2, and ``--device`` defaults to
+  cuda, which raises on a machine without one.
 
 JAX twins: tests/test_safety_pointwise_data.py (the pointwise train CLI),
 tests/test_llava_adaptor.py and tests/test_artifact_io.py (artifacts).
@@ -232,10 +233,12 @@ def test_pointwise_rows_train_the_cls_objective(tmp_path):
 
 @pytest.mark.parametrize("flags, exc, match", [
     (["--mesh_dp", "2"], ValueError, "mesh 2x-1x1: 1 devices"),
-    (["--mesh_tp", "2"], NotImplementedError, "A8")], ids=["mesh_dp_one_process", "mesh_tp"])
+    (["--load_in_8bit", "--mesh_tp", "2"], NotImplementedError, "A9")],
+    ids=["mesh_dp_one_process", "mesh_tp"])
 def test_unported_train_options_name_their_roadmap_item(flags, exc, match, tmp_path):
-    """``--mesh_tp`` above 1 (tensor parallelism) is ROADMAP A8. ``--mesh_dp
-    2`` in one process asks for a mesh that does not match the world, which
+    """``--mesh_tp`` above 1 over a quantized frozen decoder is ROADMAP A9
+    (refused before any process group starts). ``--mesh_dp 2`` in one
+    process asks for a mesh that does not match the world, which
     ``create_mesh`` refuses, as the JAX one does."""
     with pytest.raises(exc, match=match):
         _port_train(tmp_path, "phi3v", flags)
@@ -290,6 +293,25 @@ def test_more_than_one_process_names_a7(tmp_path):
         assert x["rows"] == list(GroupSampler(n_train, num_replicas=2, rank=x["rank"],
                                               shuffle=True, seed=42))
     assert s[0]["losses"] == s[1]["losses"] and s[0]["steps"] == s[1]["steps"] >= 1
+
+
+def test_two_tp_ranks_read_the_same_rows(tmp_path):
+    """``--mesh_tp 2`` on 2 ranks (torchrun's environment): one data rank, so
+    both ranks read every row (``GroupSampler(num_replicas=1)``), log the same
+    losses, report the tp mesh, and rank 0 alone writes the artifact."""
+    outs = _launch(2, ["-m", "llava_reward_torch.train_llava_reward", *SMOKE,
+                       "--model_type", "llava", "--seq_len", SEQ["llava"], "--mesh_tp", "2",
+                       "--micro_train_batch_size", "1", "--save_path", str(tmp_path / "save"),
+                       "--ckpt_path", str(tmp_path / "ckpt"), "--device", "cpu"],
+                   torchrun_env=True)
+    s = [json.loads(out.split("train summary ")[1].splitlines()[0]) for out in outs]
+    assert all(x["mesh"] == {"dp": 1, "fsdp": 1, "tp": 2} for x in s)
+    n_train = len(s[0]["rows"])
+    assert s[0]["rows"] == s[1]["rows"] == list(GroupSampler(n_train, num_replicas=1, rank=0,
+                                                             shuffle=True, seed=42))
+    assert s[0]["losses"] == s[1]["losses"] and s[0]["steps"] == s[1]["steps"] >= 1
+    assert [out.count("saved reward artifact") for out in outs] == [1, 0]
+    assert os.listdir(tmp_path / "save") == ["epoch_0"]
 
 
 def test_device_defaults_to_cuda(bases, phi3v_artifact, tmp_path):

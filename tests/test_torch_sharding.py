@@ -35,6 +35,7 @@ from llava_reward_tpu.models import qwen25_vl as jqwen
 from llava_reward_tpu.parallel import sharding as js
 from llava_reward_tpu.reward.model import init_head_params as j_init_head
 from llava_reward_tpu.utils.quantize import quantize_stacked_layers as j_quantize
+from llava_reward_torch.core import config as tconfig
 from llava_reward_torch.core import mesh as tmesh
 from llava_reward_torch.io.convert import to_torch
 from llava_reward_torch.parallel import sharding as ts
@@ -203,9 +204,23 @@ def test_mesh_that_does_not_match_the_world_raises(dp, fsdp):
 
 
 def test_tensor_parallel_leaves_are_refused():
-    tm = ts.create_mesh(1, 4, 2, world_size=8, rank=0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ts.shard_params({"embed_tokens": torch.zeros(8, 8)}, tm)
+    """A tp that does not divide the heads, kv heads or MLP widths is refused
+    with the widths named (XLA would split any width that divides: ROADMAP
+    §C); so is a tp mesh with no config to place the fused blocks, and a
+    quantized leaf under tp (ROADMAP A9)."""
+    tree = {"embed_tokens": torch.zeros(8, 8)}
+    tm = ts.create_mesh(1, 1, 8, world_size=8, rank=0)
+    qwen = tconfig.qwen_tiny_config(num_layers=2, vision_depth=2)  # 4 heads, 2 kv heads
+    with pytest.raises(ValueError, match=r"tp 8 does not divide .*'decoder heads': 4"):
+        ts.shard_params(tree, tm, tconfig.phi3v_tiny_config(num_crops=1))
+    with pytest.raises(ValueError, match=r"tp 4 does not divide \{'decoder kv heads': 2\}"):
+        ts.shard_params(tree, ts.create_mesh(1, 2, 4, world_size=8, rank=0), qwen)
+    with pytest.raises(ValueError, match="config"):
+        ts.shard_params(tree, ts.create_mesh(1, 4, 2, world_size=8, rank=0))
+    q = {"layers": {"qkv_proj": {"qvalues_w8a8": torch.zeros(2, 8, 8, dtype=torch.int8),
+                                 "scale": torch.ones(2, 8)}}}
+    with pytest.raises(NotImplementedError, match="A9"):
+        ts.shard_params(q, ts.create_mesh(1, 4, 2, world_size=8, rank=0), qwen)
 
 
 @pytest.mark.parametrize("mesh_key", ["2x4x1", "4x2x1"])

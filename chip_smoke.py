@@ -33,7 +33,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      mode over a video's four temporal slices (2, 16, 5120, 80), B6 and the
      dynamic GEMM at the W8A8 LoRA steps' rows (qwen 2 x 1792, LLaVA
      2 x 2976), and _Int8LinearCore there (forward through B6 + the GEMM,
-     backward on the tensor cores against the fp32 product);
+     backward on the tensor cores against the fp32 product); B6 and B5 in
+     their tensor-parallel modes at a tp-2 rank's shapes of a B=8 request
+     (LLaVA down_proj K 6912, qwen o_proj K 1792, qwen's MLP I 9472): the raw
+     absmax of a rank's columns and the codes on the MAX-reduced amax
+     against their plain versions, and the two ranks' codes together against
+     the kernel's own whole-row codes, bit for bit;
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -115,7 +120,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      (iii) python -m llava_reward_torch.dryrun step of a Qwen2.5-VL-7B and a
      LLaVA-NeXT-13B LoRA step at full width (2 decoder layers, 2 vision
      blocks) on two tp ranks: the loss against one rank's, grad_norm
-     against the same step in fp32, launches by the local-head rule;
+     against the same step in fp32, launches by the local-head rule; (iv)
+     the train CLI with --mesh_tp 2 --load_in_8bit on (i)'s rows against one
+     rank's --load_in_8bit run (the loss under [dist]'s bound, grad_norm
+     under TP_W8A8_NORM_TOL), the ranks agreeing exactly, each rank holding
+     half of the decoder's W8A8 code bytes, its
+     launches of B6 (the row-split projections' inputs in the absmax and
+     given-amax modes at K / 2) and of the GEMM counted and shaped (K / 2,
+     N / 2) by the rule; (v) python -m llava_reward_torch.dryrun score of
+     (ii)'s tree with the decoder W8A8 on two tp ranks at B=2 against one
+     rank's W8A8 rewards under phase 4's bound, every decision the same, B4,
+     B5 and B6 (in their tp modes) and the GEMM launched and shaped by the
+     rule;
   5q. Qwen2.5-VL-7B at full width and depth (vision 32 x 1280, text 28 x
      3584; random bf16 weights built on the card from seed 0, the decoder's
      projections fused as the adaptor leaves them, GPM dim 2 + SkipCA)
@@ -300,7 +316,8 @@ QWEN_SEQ, QWEN_PATCHES, QWEN_UNITS = 1792, 1280, 320
 # boundary may take the neighbouring code. B5: the JAX package's rule for
 # sigmoid's rounding (tests/test_quant_epilogue.py). B6 and B7 are exact.
 # B9 sums x and xc^2 in another order, like B4.
-CODE_SHARE = {"rms_quant": 1e-3, "silu_mul_quant": 0.02, "row_quant": 0.0, "ln_quant": 1e-3}
+CODE_SHARE = {"rms_quant": 1e-3, "silu_mul_quant": 0.02, "row_quant": 0.0, "ln_quant": 1e-3,
+              "row_quant_given": 0.0, "silu_mul_quant_given": 0.02}
 # Phi-3.5-vision with the CLIP tower W8A8 too: 23 more layers requantize their
 # activations four times each, and a flipped code in the tower moves an image
 # feature that every decoder layer then reads. The end-to-end bound is set at
@@ -404,6 +421,19 @@ KERNELS = {
     "ln_quant": dict(
         route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
         replaces="llava_reward_tpu/ops/quant_epilogue.py:32"),
+    # B6's and B5's modes for a row split over tp ranks (the same kernels)
+    "row_absmax": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:183"),
+    "row_quant_given": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:183"),
+    "silu_mul_absmax": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:126"),
+    "silu_mul_quant_given": dict(
+        route="cuda", source="llava_reward_torch/csrc/quant_epilogue.cu",
+        replaces="llava_reward_tpu/ops/quant_epilogue.py:126"),
 }
 
 
@@ -1175,6 +1205,7 @@ def phase_kernels(cfg, qcfg):
     # before LLaVA came, so that each kernel's series reads on
     check_llava_kernels(gen, LlavaNextConfig())
     check_new_callers(gen, qcfg, LlavaNextConfig())
+    rows += check_tp_modes(gen, qcfg, LlavaNextConfig())
     return rows
 
 
@@ -1208,6 +1239,75 @@ def check_new_callers(gen, qcfg, lcfg):
         _check_gemm_shapes(gen, M, (H, dcfg.q_size), ())
         _check_int8_core(gen, name, M, H, dcfg.q_size)
         torch.cuda.empty_cache()
+
+
+def check_tp_modes(gen, qcfg, lcfg, tp=2):
+    """B6 and B5 in their tensor-parallel modes at a tp-2 rank's shapes of a
+    B=8 request (LLaVA-NeXT's down_proj, K 13824 / 2; qwen's o_proj, K 3584 /
+    2, and its MLP, I 18944 / 2: the kernels line takes each mode's last row,
+    at qwen's shapes)."""
+    rows = []
+    for name, what, M, K in (
+            ("row_quant", "LLaVA down_proj", 8 * LLAVA_SEQ, lcfg.text.intermediate_size),
+            ("row_quant", "qwen o_proj", QWEN_M, qcfg.text.q_size),
+            ("silu_mul_quant", "qwen down_proj", QWEN_M, qcfg.text.intermediate_size)):
+        rows += _check_tp_mode(gen, name, what, M, K, tp)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _check_tp_mode(gen, name, what, M, K, tp):
+    """A row of width K (B5: the fused 2K gate_up) split over ``tp`` ranks:
+    each rank's raw absmax (the absmax mode) against its plain version (B6
+    exact, B5 within 2^-7), the MAX over ranks, each rank's codes on it (the
+    given-amax mode) against the plain version on the same amax (B6 bit for
+    bit, B5 under CODE_SHARE), and the ranks' codes together against the
+    kernel's own codes of the whole row, bit for bit (both). Rank 0's launch
+    timed, CUDA events over 100 launches."""
+    silu = name == "silu_mul_quant"
+    bf = torch.bfloat16
+    x = _zero_rows(torch.randn(M, 2 * K if silu else K, generator=gen, device="cuda", dtype=bf))
+    x[1, :K // tp] = 0  # zero on rank 0's columns: its raw absmax is 0
+    if silu:
+        x[1, K:K + K // tp] = 0
+        blocks = [torch.cat([p.chunk(tp, -1)[r] for p in x.chunk(2, -1)], -1).contiguous()
+                  for r in range(tp)]
+        absmax, quant = qe.silu_mul_absmax, qe.silu_mul_quant
+        absmax_plain, quant_plain = qe.silu_mul_absmax_plain, qe.silu_mul_quant_plain
+    else:
+        blocks = [b.contiguous() for b in x.chunk(tp, -1)]
+        absmax, quant, absmax_plain, quant_plain = (qe.row_absmax, qe.row_quant,
+                                                    qe.row_absmax_plain, qe.row_quant_plain)
+    whole = quant(x)
+    local = [absmax(b) for b in blocks]
+    amax = torch.stack(local).amax(0)
+    codes = [quant(b, amax) for b in blocks]
+    same = torch.equal(torch.cat([c for c, _ in codes], -1), whole[0]) and all(
+        torch.equal(a, whole[1]) for _, a in codes)
+    stem, b, n = name[:-len("_quant")], blocks[0], K // tp
+    tag = f"{'B5' if silu else 'B6'} {stem}"
+    if not same or float(local[0][1]) != 0.0:
+        fail(f"{tag} {what}: the ranks' codes on the MAX-reduced amax are not the whole row's")
+    ra, got = absmax_plain(b), absmax(b)
+    err = (got - ra).abs().max().item()
+    within = torch.allclose(got, ra, rtol=2 ** -7, atol=0) if silu else torch.equal(got, ra)
+    read = M * b.shape[-1] * 2
+    lib = None if silu else time_ms(
+        lambda: torch.linalg.vector_norm(b, float("inf"), dim=-1), iters=100)
+    b_ms, b_by = bound_ms((10 if silu else 2) * M * n, read + M * 4, PEAK_FP32_FLOPS)
+    rows = [_report(f"{tag}_absmax {what} tp rank ({M},{b.shape[-1]}) bf16", f"{stem}_absmax",
+                    err, "2^-7 relative" if silu else "0 (exact)", within,
+                    bool(torch.isfinite(got).all()), time_ms(lambda: absmax(b), iters=100),
+                    time_ms(lambda: absmax_plain(b), iters=3, warmup=1), lib, b_ms, b_by,
+                    f"the raw absmax of rank 0's {b.shape[-1]} columns of {tp}")]
+    rows.append(_codes_report(
+        f"{tag}_quant_given {what} tp rank ({M},{b.shape[-1]}) bf16", f"{name}_given",
+        quant(b, amax), quant_plain(b, amax), time_ms(lambda: quant(b, amax), iters=100),
+        time_ms(lambda: quant_plain(b, amax), iters=3, warmup=1), read + M * 4 + M * n + M * 4,
+        (8 if silu else 2) * M * n,
+        f"codes on the MAX over {tp} ranks' absmax; the ranks' codes together equal the "
+        f"kernel's whole-row codes ({M},{2 * K if silu else K}) bit for bit"))
+    return rows
 
 
 def _check_int8_core(gen, name, M, K, N):
@@ -3496,6 +3596,18 @@ TRAIN_CLI = "llava_reward_torch.train_llava_reward"
 # tens of percent.
 DIST_TOL = 2.0 ** -8
 DIST_NORM_TOL = 2.0 ** -6
+# [tp] (iv): two tp ranks over the decoder in W8A8 against one rank. The
+# decoder requantizes every activation, on bf16 values; tp's bf16 partial
+# sums (the CLIP tower's, the LoRA deltas') move activations by a bf16 ulp,
+# ~0.4 % of a value, which carries a large share of codes across their
+# rounding boundary (the codes themselves are the whole row's on both
+# layouts). On an H100 80GB HBM3 at 700 W grad_norm read 1.08e-02 at step
+# 1 and 2.10e-02 at step 2 (where AdamW's first update has moved each LoRA
+# element by +-lr whatever its gradient's size), the loss 1.1e-04, against
+# the bf16 runs' 7e-04 / 8.1e-03 ((i)); so grad_norm is held to 2^-5 here,
+# the loss to DIST_TOL. A fault of the tp path (a gradient not summed over
+# tp, a misplaced block) moves grad_norm by tens of percent.
+TP_W8A8_NORM_TOL = 2.0 ** -5
 
 
 def _dist_env(world, rank, port):
@@ -3692,9 +3804,10 @@ def _cli_launches(cfg, tp, step_rows, steps, eval_rows):
 def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
     """Tensor parallelism over tp on two ranks sharing this card over gloo:
     (i) the train CLI with --mesh_tp 2 against [dist] (a), (ii) scoring
-    [load]'s tree on two tp ranks against one rank, (iii) qwen and LLaVA
-    LoRA steps at full width (``_tp_steps``). Returns the launches of the
-    eight processes."""
+    [load]'s tree on two tp ranks against one rank, (iv) and (v) the same
+    over the decoder in W8A8 (``_tp_w8a8``), (iii) qwen and LLaVA LoRA steps
+    at full width (``_tp_steps``). Returns the launches of the thirteen
+    processes."""
     t_phase = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -3709,14 +3822,20 @@ def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
     reqs = [make_request(cfg2, gen, 1, DATA_SEQ, {1: 40}), make_request(cfg2, gen, 4, DATA_SEQ, {})]
     params["head"], spread = _principal_head(cfg2, rcfg, params, reqs)
     _say_head("tp", "the B=2 and B=8 requests'", spread)
+    # (v)'s: the same tree with the decoder W8A8, one rank's B=2 rewards
+    dec = params["backbone"]["decoder"]
+    qparams = dict(params, backbone=dict(params["backbone"], decoder=dict(
+        dec, layers=quantize_stacked_layers(dec["layers"], scheme="w8a8"))))
     with torch.inference_mode():
         one = [reward_forward(params, cfg2, rcfg, r).reward.float().cpu() for r in reqs]
-    spec = os.path.join(tmp, "tp_score.pt")
-    torch.save({"family": "phi3v", "pretrain": base, "rcfg": dataclasses.asdict(rcfg),
-                "mesh": {"mesh_tp": 2}, "params": tree_map(lambda t: t.cpu(), params),
-                "batches": [{k: v.cpu() for k, v in r._asdict().items() if v is not None}
-                            for r in reqs]}, spec)
-    del adaptor, params
+        one_w8 = reward_forward(qparams, cfg2, rcfg, reqs[0]).reward.float().cpu()
+    batches = [{k: v.cpu() for k, v in r._asdict().items() if v is not None} for r in reqs]
+    spec, qspec = (os.path.join(tmp, f"tp_score{t}.pt") for t in ("", "_w8a8"))
+    for path, tree, bs in ((spec, params, batches), (qspec, qparams, batches[:1])):
+        torch.save({"family": "phi3v", "pretrain": base, "rcfg": dataclasses.asdict(rcfg),
+                    "mesh": {"mesh_tp": 2}, "params": tree_map(lambda t: t.cpu(), tree),
+                    "batches": bs}, path)
+    del adaptor, params, qparams, dec
     torch.cuda.empty_cache()
 
     port = [_free_port() for _ in range(2)]
@@ -3726,6 +3845,18 @@ def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
     started.update({f"(ii) rank {r}": _cli(tmp, f"tp (ii) rank {r}", "llava_reward_torch.dryrun",
                                            "score", spec, os.path.join(tmp, "tp_score.out"),
                                            env=_dist_env(2, r, port[1])) for r in range(2)})
+    # (iv): the train CLI over the decoder in W8A8, on two tp ranks and on one
+    port += [_free_port() for _ in range(2)]
+    started.update({f"(iv) rank {r}": _cli(
+        tmp, f"tp (iv) rank {r}", TRAIN_CLI, *_dist_args(tmp), "--load_in_8bit",
+        *_dist_run(tmp, "tp_w8a8", 4, "--mesh_tp", "2"), env=_dist_env(2, r, port[2]))
+        for r in range(2)})
+    started["(iv) one rank"] = _cli(tmp, "tp (iv) one rank", TRAIN_CLI, *_dist_args(tmp),
+                                    "--load_in_8bit", *_dist_run(tmp, "one_w8a8", 4))
+    # (v): scoring the W8A8 tree on two tp ranks
+    started.update({f"(v) rank {r}": _cli(tmp, f"tp (v) rank {r}", "llava_reward_torch.dryrun",
+                                          "score", qspec, os.path.join(tmp, "tp_score_w8a8.out"),
+                                          env=_dist_env(2, r, port[3])) for r in range(2)})
     res = _cli_results(started)
     s = {tag: _summary(tag, res[tag][1]) for tag in ("(i) rank 0", "(i) rank 1")}
     t0, t1 = s["(i) rank 0"], s["(i) rank 1"]
@@ -3792,8 +3923,117 @@ def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
         _same_decisions("tp", {"one rank": one[i], "tp 2": rt[0]}, pairs, rcfg)
     say("tp", f"(ii) each rank's launches over both requests {outs[0]['launches']} (the "
         f"local-head rule: {want}); exit 0 in {res['(ii) rank 0'][2]:.1f} s")
+    counts = _tp_w8a8(cfg2, rcfg, tmp, res, one_w8, counts, card)
     counts = _tp_steps(tmp, counts)
     say("tp", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _w8a8_launches(dec, tp, forwards, fused):
+    """The W8A8 launches and their shapes of ``forwards`` decoder forwards on
+    a rank holding 1 / ``tp`` of each projection. ``fused`` (scoring, no
+    LoRA): B4 into qkv and gate_up, B6's codes for o_proj and B5's for down;
+    otherwise (LoRA) B6 on every projection's input, qkv and gate_up on the
+    whole row. Under tp the row-split o / down take B6's (B5's) absmax and
+    given-amax modes at K / tp."""
+    L, H, I, q = dec.num_layers, dec.hidden_size, dec.intermediate_size, dec.q_size
+    n = L * forwards
+    counts, shapes = {"int8_matmul": 4 * n}, {}
+
+    def add(d, key, v):
+        d[key] = d.get(key, 0) + v
+
+    for k, out, split_rows in ((H, q + 2 * dec.kv_size, False), (q, H, True), (H, 2 * I, False),
+                               (I, H, True)):
+        add(shapes, f"int8_matmul K{k // tp if split_rows else k} N"
+                    f"{out if split_rows else out // tp}", n)
+    if fused:
+        add(counts, "rms_quant", 2 * n)
+        rows = (("row", q), ("silu_mul", I))
+    else:
+        add(counts, "row_quant", 2 * n)
+        add(shapes, f"row_quant {H}", 2 * n)
+        rows = (("row", q), ("row", I))
+    for stem, k in rows:
+        modes = (f"{stem}_quant",) if tp == 1 else (f"{stem}_absmax", f"{stem}_quant_given")
+        for m in modes:
+            add(counts, m, n)
+            add(shapes, f"{m} {k // tp}", n)
+    return counts, shapes
+
+
+def _tp_w8a8(cfg, rcfg, tmp, res, one_w8, counts, card):
+    """(iv) the train CLI with --load_in_8bit on two tp ranks against one
+    rank's --load_in_8bit run on the same rows (the loss under DIST_TOL,
+    grad_norm under TP_W8A8_NORM_TOL: the W8A8 codes' flips); each
+    rank holding half of the decoder's W8A8 code bytes, its B6 / GEMM
+    launches counted and shaped by the rule (the row-split projections'
+    codes on the tp-global amax: B6's absmax and given-amax modes at K / 2);
+    (v) the W8A8 tree's B=2 rewards on two tp ranks against one rank's under
+    phase 4's bound, every decision the same, with B4, B5 and B6 in their tp
+    modes and the GEMM on each rank's blocks. Returns ``counts`` with the
+    five processes' launches added."""
+    dec = cfg.decoder
+    s = {tag: {**_summary(tag, res[tag][1]), "shapes": json.loads(re.findall(
+        r"^kernel shapes (\{.*\})$", res[tag][1], re.M)[0])}
+        for tag in ("(iv) rank 0", "(iv) rank 1", "(iv) one rank")}
+    t0, t1, one = s["(iv) rank 0"], s["(iv) rank 1"], s["(iv) one rank"]
+    forwards = 2 * 2 + 2  # two steps (forward, remat recompute), two held-out sides
+    for tag, x in s.items():
+        tp = 2 if "one" not in tag else 1
+        want = _cli_launches(cfg, tp, step_rows=8, steps=2, eval_rows=2)
+        w8, shapes = _w8a8_launches(dec, tp, forwards, fused=False)
+        want.update(w8)
+        if x["launches"] != {k: want.get(k, 0) for k in x["launches"]} or x["shapes"] != shapes:
+            fail(f"tp: (iv) {tag} launched {x['launches']} {x['shapes']}, expected {want} "
+                 f"{shapes}")
+        counts = {k: counts[k] + x["launches"].get(k, 0) for k in counts}
+    if (t0["losses"], t0["grad_norms"]) != (t1["losses"], t1["grad_norms"]) or t0["steps"] != 2:
+        fail(f"tp: (iv) the ranks disagree: {t0['losses']} {t0['grad_norms']} / "
+             f"{t1['losses']} {t1['grad_norms']}")
+    if not t0["rows"] == t1["rows"] == one["rows"]:
+        fail(f"tp: (iv) rows {t0['rows']} / {t1['rows']}, one rank {one['rows']}")
+    rel = [max(abs(x - y) / abs(y) for x, y in zip(t0[k], one[k])) for k in ("losses",
+                                                                            "grad_norms")]
+    H, I, q = dec.hidden_size, dec.intermediate_size, dec.q_size
+    codes = dec.num_layers * (H * (q + 2 * dec.kv_size) + q * H + H * 2 * I + I * H)
+    for tag, x in s.items():
+        say("tp", f"(iv) {tag[5:]}: mesh {x['mesh']}, losses {x['losses']}, grad_norms "
+            f"{x['grad_norms']}, s/step {x['step_times_s']}, peak {x['peak_gib']:.2f} GiB, "
+            f"decoder W8A8 code bytes {x['code_bytes']} of {codes}, layer bytes "
+            f"{x['layer_bytes']}; exit 0 in {res[tag][2]:.1f} s; W8A8 launches by shape "
+            f"{x['shapes']}")
+    say("tp", f"{card}: (iv) two tp ranks over the W8A8 decoder against one rank, the largest "
+        f"relative gap of the losses {rel[0]:.3e} (tol {DIST_TOL:g}) and of grad_norm "
+        f"{rel[1]:.3e} (tol {TP_W8A8_NORM_TOL:g}); two ranks share one card: no scaling figure")
+    if rel[0] > DIST_TOL or rel[1] > TP_W8A8_NORM_TOL:
+        fail(f"tp: (iv) against one rank {rel} (tol {DIST_TOL:g} loss, {TP_W8A8_NORM_TOL:g} "
+             f"grad_norm)")
+    if not (one["code_bytes"] == codes and t0["code_bytes"] == t1["code_bytes"] == codes // 2):
+        fail(f"tp: (iv) W8A8 code bytes one rank {one['code_bytes']}, tp {t0['code_bytes']} / "
+             f"{t1['code_bytes']} (the decoder's {codes})")
+
+    outs = [torch.load(os.path.join(tmp, f"tp_score_w8a8.out.{r}"), weights_only=True)
+            for r in range(2)]
+    want = _attention_launches(cfg, 2, 2)
+    w8, shapes = _w8a8_launches(dec, 2, 1, fused=True)
+    want.update(w8)
+    for r, o in enumerate(outs):
+        got = {k: v for k, v in o["launches"].items() if v}
+        if got != {k: v for k, v in want.items() if v} or o["shapes"] != shapes:
+            fail(f"tp: (v) rank {r} launched {o['launches']} {o['shapes']}, expected {want} "
+                 f"{shapes}")
+        counts = {k: counts[k] + o["launches"].get(k, 0) for k in counts}
+    rt = [o["rewards"]["auto"][0] for o in outs]
+    gap = (rt[0] - one_w8).abs().max().item()
+    say("tp", f"(v) W8A8 B=2: rewards on two tp ranks {rt[0].numpy().round(6).tolist()}, one "
+        f"rank {one_w8.numpy().round(6).tolist()}; max gap {gap:.3e} (tol {REWARD_TOL:g}); "
+        f"each rank's launches {got}, by shape {outs[0]['shapes']}; exit 0 in "
+        f"{res['(v) rank 0'][2]:.1f} s")
+    if not torch.equal(rt[0], rt[1]) or not bool(torch.isfinite(rt[0]).all()) or \
+            gap > REWARD_TOL:
+        fail(f"tp: (v) W8A8 rewards on tp 2 {rt} against one rank {one_w8}: gap {gap:.3e}")
+    _same_decisions("tp", {"one rank": one_w8, "tp 2": rt[0]}, 1, rcfg)
     return counts
 
 
@@ -4257,8 +4497,8 @@ def main() -> int:
     # W8A8, and qwen's; batch evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16
     # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
     # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps; the
-    # [dist] train CLI processes' own, as each prints them; [tp]'s eight
-    # processes' own)
+    # [dist] train CLI processes' own, as each prints them; [tp]'s thirteen
+    # processes' own, B5 / B6's tp modes among them)
     served, params = phase_serve(cfg, rcfg)
     data, data_batch, data_rewards = phase_data(cfg, rcfg, params)
     http = phase_http(cfg, rcfg, params)

@@ -14,6 +14,14 @@
 //   columns), rounded to bf16 for bf16 input, then codes and amax.
 // row_quant_kernel replaces _row_quant_kernel (B6): codes and amax of x.
 //
+// B5 and B6 have two more modes for a row split over tensor-parallel ranks
+// (each rank holds some of the row's columns), so that the codes are those of
+// the whole row: with codes == nullptr the kernel writes the raw row absmax
+// (no amax := 1; the ranks' values go to a MAX all-reduce), and with a given
+// amax_in (the all-reduced, tp-global amax) it skips the row reduction and
+// writes codes = rint(y * (127 / amax)) with that amax (amax := 1 for zero)
+// in one pass, and copies the amax out.
+//
 // All emit codes = rint(y * (127 / amax)) (round half to even) with
 // amax := 1 for an all-zero row, and write amax itself as the row scale.
 // The arithmetic uses the _rn intrinsics (IEEE division, sqrt, reciprocal,
@@ -49,7 +57,9 @@
 // B5 and B6: one block of 256 threads owns one row: it reads the row once
 // from device memory with 16-byte loads, keeps the fp32 values in shared
 // memory (12 KB for B6 at H = 3072, 32 KB for B5 at I = 8192), reduces in
-// registers and shared memory, and writes the codes with 8-byte stores.
+// registers and shared memory, and writes the codes with 8-byte stores. The
+// absmax-only and given-amax modes keep nothing in shared memory: the first
+// reads the row and reduces, the second reads it and writes its codes.
 #include <atomic>
 
 #include "common.cuh"
@@ -450,60 +460,116 @@ int norm_quant(const void* x, const void* w, const void* b, int wflags, void* co
 
 // ------------------------------------------------------------------ B5, B6
 
+// y of B5 for 8 consecutive columns of a row: silu(g) * u in fp32, rounded
+// to bf16 for bf16 input.
+template <typename T>
+__device__ __forceinline__ void silu_mul8(const T* gr, int I, int c, float* y) {
+  float g[8], u[8];
+  load8<T>(gr + c * 8, g);
+  load8<T>(gr + I + c * 8, u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[e])));
+    y[e] = __fmul_rn(__fmul_rn(g[e], sig), u[e]);
+    if (sizeof(T) == 2) y[e] = bf16_round(y[e]);
+  }
+}
+
+// Codes of 8 values on the row's amax (given mode): q = 127 / amax.
+__device__ __forceinline__ void store_codes8(const float* v, float q, int8_t* codes) {
+  union {
+    uint2 u;
+    int8_t b[8];
+  } w;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) w.b[e] = (int8_t)rintf(__fmul_rn(v[e], q));
+  *reinterpret_cast<uint2*>(codes) = w.u;
+}
+
+// B5. Modes: codes and amax of the row (amax_in == nullptr, codes set); the
+// raw row absmax alone (codes == nullptr); codes on a given amax (amax_in).
 template <typename T>
 __global__ void __launch_bounds__(NT)
     silu_mul_quant_kernel(const T* __restrict__ gu, int8_t* __restrict__ codes,
-                          float* __restrict__ amax_out, int I) {
+                          float* __restrict__ amax_out, const float* __restrict__ amax_in,
+                          int I) {
   extern __shared__ float ys[];
   __shared__ float red[NT / 32];
   const long long row = blockIdx.x;
   const T* gr = gu + row * 2LL * I;
-  const bool is_bf16 = sizeof(T) == 2;
+  if (amax_in != nullptr) {
+    const float amax = amax_in[row] > 0.f ? amax_in[row] : 1.f;
+    const float q = __fdiv_rn(127.f, amax);
+    for (int c = threadIdx.x; c < I / 8; c += NT) {
+      float y[8];
+      silu_mul8<T>(gr, I, c, y);
+      store_codes8(y, q, codes + row * I + c * 8);
+    }
+    if (threadIdx.x == 0) amax_out[row] = amax;
+    return;
+  }
   float mx = 0.f;
   for (int c = threadIdx.x; c < I / 8; c += NT) {
-    float g[8], u[8];
-    load8<T>(gr + c * 8, g);
-    load8<T>(gr + I + c * 8, u);
+    float y[8];
+    silu_mul8<T>(gr, I, c, y);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[e])));
-      float y = __fmul_rn(__fmul_rn(g[e], sig), u[e]);
-      if (is_bf16) y = bf16_round(y);
-      ys[c * 8 + e] = y;
-      mx = fmaxf(mx, fabsf(y));
+      if (codes != nullptr) ys[c * 8 + e] = y[e];
+      mx = fmaxf(mx, fabsf(y[e]));
     }
   }
   mx = block_reduce<true>(mx, red);
+  if (codes == nullptr) {
+    if (threadIdx.x == 0) amax_out[row] = mx;
+    return;
+  }
   write_codes(ys, I, mx, codes + row * I, amax_out + row);
 }
 
+// B6, with B5's three modes.
 template <typename T>
 __global__ void __launch_bounds__(NT)
     row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ codes,
-                     float* __restrict__ amax_out, int H) {
+                     float* __restrict__ amax_out, const float* __restrict__ amax_in, int H) {
   extern __shared__ float ys[];
   __shared__ float red[NT / 32];
   const long long row = blockIdx.x;
   const T* xr = x + row * H;
+  if (amax_in != nullptr) {
+    const float amax = amax_in[row] > 0.f ? amax_in[row] : 1.f;
+    const float q = __fdiv_rn(127.f, amax);
+    for (int c = threadIdx.x; c < H / 8; c += NT) {
+      float v[8];
+      load8<T>(xr + c * 8, v);
+      store_codes8(v, q, codes + row * H + c * 8);
+    }
+    if (threadIdx.x == 0) amax_out[row] = amax;
+    return;
+  }
   float mx = 0.f;
   for (int c = threadIdx.x; c < H / 8; c += NT) {
     float v[8];
     load8<T>(xr + c * 8, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      ys[c * 8 + e] = v[e];
+      if (codes != nullptr) ys[c * 8 + e] = v[e];
       mx = fmaxf(mx, fabsf(v[e]));
     }
   }
   mx = block_reduce<true>(mx, red);
+  if (codes == nullptr) {
+    if (threadIdx.x == 0) amax_out[row] = mx;
+    return;
+  }
   write_codes(ys, H, mx, codes + row * H, amax_out + row);
 }
 
-// Launch one block per row with n fp32 values of dynamic shared memory.
+// Launch one block per row, with n fp32 values of dynamic shared memory when
+// the row is staged there (whole-row codes: ``staged``), none otherwise.
 template <typename Kernel, typename... Args>
-int launch_rows(Kernel kernel, int M, int n, cudaStream_t st, Args... args) {
+int launch_rows(Kernel kernel, int M, int n, bool staged, cudaStream_t st, Args... args) {
   if (M == 0) return 0;
-  const size_t smem = (size_t)n * sizeof(float);
+  const size_t smem = staged ? (size_t)n * sizeof(float) : 0;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -535,29 +601,33 @@ extern "C" int lrt_ln_quant(const void* x, const void* w, const void* b, void* c
   return norm_quant<float, true>(x, w, b, wf, codes, amax, M, H, eps, R, S, st);
 }
 
-// B5: gate_up (M, 2I) bf16 or f32 -> codes (M, I) int8, amax (M,) f32.
-extern "C" int lrt_silu_mul_quant(const void* gate_up, void* codes, void* amax, int M, int I,
-                                  int is_bf16, void* stream) {
+// B5: gate_up (M, 2I) bf16 or f32 -> codes (M, I) int8, amax (M,) f32. With
+// codes null: the raw row absmax only; with amax_in (M,) f32: codes on it.
+extern "C" int lrt_silu_mul_quant(const void* gate_up, void* codes, void* amax,
+                                  const void* amax_in, int M, int I, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* cp = static_cast<int8_t*>(codes);
   float* ap = static_cast<float*>(amax);
+  const float* ai = static_cast<const float*>(amax_in);
+  const bool staged = cp != nullptr && ai == nullptr;
   if (is_bf16)
-    return launch_rows(silu_mul_quant_kernel<bf16>, M, I, st,
-                       static_cast<const bf16*>(gate_up), cp, ap, I);
-  return launch_rows(silu_mul_quant_kernel<float>, M, I, st,
-                     static_cast<const float*>(gate_up), cp, ap, I);
+    return launch_rows(silu_mul_quant_kernel<bf16>, M, I, staged, st,
+                       static_cast<const bf16*>(gate_up), cp, ap, ai, I);
+  return launch_rows(silu_mul_quant_kernel<float>, M, I, staged, st,
+                     static_cast<const float*>(gate_up), cp, ap, ai, I);
 }
 
-// B6: x (M, H) bf16 or f32 -> codes (M, H) int8, amax (M,) f32.
-extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, int M, int H,
-                             int is_bf16, void* stream) {
+// B6: x (M, H) bf16 or f32 -> codes (M, H) int8, amax (M,) f32; the modes of B5.
+extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, const void* amax_in,
+                             int M, int H, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* cp = static_cast<int8_t*>(codes);
   float* ap = static_cast<float*>(amax);
+  const float* ai = static_cast<const float*>(amax_in);
+  const bool staged = cp != nullptr && ai == nullptr;
   if (is_bf16)
-    return launch_rows(row_quant_kernel<bf16>, M, H, st, static_cast<const bf16*>(x), cp, ap,
-                       H);
-  return launch_rows(row_quant_kernel<float>, M, H, st, static_cast<const float*>(x), cp, ap,
-                     H);
+    return launch_rows(row_quant_kernel<bf16>, M, H, staged, st, static_cast<const bf16*>(x),
+                       cp, ap, ai, H);
+  return launch_rows(row_quant_kernel<float>, M, H, staged, st, static_cast<const float*>(x),
+                     cp, ap, ai, H);
 }
-

@@ -22,13 +22,17 @@ bf16 and the attention runs the kernels.
 dict: family, tiny-config and reward-config arguments, frozen and trainable
 trees, chosen / rejected global batches, mesh flags, ``--mesh_tp`` among
 them, optimizer and loss options) describes under this process group, and
-writes this rank's metrics, step seconds, kernel launches, local shard
-shapes and the gathered trainable tree to ``OUT.<rank>``.
+writes this rank's metrics, step seconds, kernel launches (and plain
+versions' calls), local shard shapes and the gathered trainable tree to
+``OUT.<rank>``. The frozen tree may be quantized (W8A8, NF4, absmax int4),
+also on a tp mesh, where each rank keeps its block of every split leaf.
 
 ``score SPEC OUT`` runs the reward forward of SPEC's ``params`` ({backbone,
 head}) on each of its global ``batches`` under the mesh, once for each of
 its ``impls`` (attention routes), and writes this rank's rewards (its data
-rank's rows) and kernel launches to ``OUT.<rank>``. The config is the tiny
+rank's rows), kernel launches and plain versions' calls to ``OUT.<rank>``;
+a W8A8 decoder runs its quantizing epilogues on the kernel route, on a tp
+mesh too. The config is the tiny
 one of SPEC's ``cfg`` arguments, or read from the ``config.json`` of its
 ``pretrain`` directory.
 """
@@ -57,7 +61,7 @@ from .reward.model import init_head_params, reward_forward
 from .train.optim import make_optimizer, tree_map
 from .train.train_step import (PROJECTOR_PATHS, init_train_state, make_pairwise_loss_fn,
                                make_train_step)
-from .utils.profiling import kernel_launches
+from .utils.profiling import kernel_launches, kernel_shapes, plain_calls
 
 FAMILIES = {
     "phi3v": (C.phi3v_tiny_config, phi3v.init_params),
@@ -261,7 +265,8 @@ def step(spec_path: str, out_path: str, device: str = "cuda") -> dict:
         loss_kw=spec.get("loss", {}), projector_path=PROJECTOR_PATHS[family],
         steps=spec.get("steps", 1))
     out = {"rank": mesh.rank, "mesh": mesh.shape, "metrics": metrics, "step_s": times,
-           "launches": kernel_launches(), "local_shapes": _local_shapes(state.trainable),
+           "launches": kernel_launches(), "plain_calls": plain_calls(),
+           "shapes": kernel_shapes(), "local_shapes": _local_shapes(state.trainable),
            "trainable": tree_map(lambda t: t.detach().cpu(), gather_tree(state.trainable))}
     torch.save(out, f"{out_path}.{mesh.rank}")
     return out
@@ -280,7 +285,8 @@ def score(spec_path: str, out_path: str, device: str = "cuda") -> dict:
                                      tp=tp).reward.float().cpu() for b in batches]
                for impl in spec.get("impls", ("auto",))}
     out = {"rank": mesh.rank, "mesh": mesh.shape, "data_index": mesh.index(DATA),
-           "rewards": rewards, "launches": kernel_launches()}
+           "rewards": rewards, "launches": kernel_launches(), "plain_calls": plain_calls(),
+           "shapes": kernel_shapes()}
     torch.save(out, f"{out_path}.{mesh.rank}")
     return out
 

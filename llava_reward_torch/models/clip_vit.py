@@ -11,7 +11,10 @@ neither): they run through the int8 GEMM. With no LoRA and a 128-multiple
 width, the kernel route (on the card, or ``attn_impl="pallas"``) takes the
 activation codes of qkv (fused route only) and fc1 straight from the
 LayerNorm quantizing epilogue (``ops/quant_epilogue.ln_quant``, B9);
-``out`` and ``fc2`` quantize their input dynamically (B6 + the GEMM).
+``out`` and ``fc2`` quantize their input dynamically (B6 + the GEMM). Under
+tp, B9's codes are the whole row's, into the rank's q/k/v and fc1 columns,
+and out / fc2 take their codes on the tp-global amax
+(``parallel/tensor.row``).
 
 Param tree (linear kernels stored (in, out)):
   {'class_embedding': (H,), 'patch_proj': (P*P*C, H),
@@ -156,7 +159,9 @@ def _encoder_layer(h, lp, cfg: VisionConfig, attn_impl: str, lora_layer=None, va
     fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
     if use_ln_quant and is_w8a8(fc1["kernel"]):
         x_codes, x_rs = ln_q(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps)
-        x1 = act(int8_linear_pre(x_codes, x_rs, fc1["kernel"], h.dtype, plain) + fc1["bias"])
+        I = cfg.intermediate_size
+        x1 = act(int8_linear_pre(x_codes, x_rs, local_cols(fc1["kernel"], tp, (I,)), h.dtype,
+                                 plain) + local_cols(fc1["bias"], tp, (I,)))
     else:
         x = enter(layer_norm(h, lp["ln2"]["weight"], lp["ln2"]["bias"], eps), tp)
         x1 = act(column(x, fc1["kernel"], fc1["bias"], lora_of(lora_layer, "fc1"), tp=tp,

@@ -14,7 +14,10 @@ With W8A8 leaves, no LoRA and a 128-multiple width, the kernel route
 (on the card, or ``attn_impl="pallas"``) takes the activation codes straight
 from the quantizing epilogues (``ops/quant_epilogue.py``): RMSNorm ->
 codes for qkv and gate_up, attention output -> codes for o_proj,
-silu(gate)*up -> codes for down (``phi3.py:103-166``).
+silu(gate)*up -> codes for down (``phi3.py:103-166``). Under tp the
+RMSNorm codes are the whole row's, the same on every rank, into the rank's
+qkv / gate_up columns; o_proj's and down's codes are taken on the tp-global
+row amax (``parallel/tensor.row`` / ``row_silu_mul``).
 
 Param tree:
   {'embed_tokens': (V, H),
@@ -38,7 +41,8 @@ from ..ops.attention import fused_rope_attention
 from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_cos_sin_for_config
-from ..parallel.tensor import column, enter, local_heads, lora_of, row
+from ..parallel.tensor import (column, enter, local_cols, local_heads, lora_of, row,
+                               row_silu_mul)
 from ..utils.quantize import dequant_layer, int8_linear_pre, is_w8a8
 from .clip_vit import stacked_layer
 
@@ -92,44 +96,44 @@ def decoder_layer(
     use_rq = lora_layer is None and (attn_impl == "pallas" or on_card(h)) and qe.supported(h)
     rms_q = qe.rms_quant_plain if plain else qe.rms_quant
     nh, nkv = local_heads(cfg.num_heads, tp), local_heads(cfg.num_kv_heads, tp)
+    qkv_parts, gate_up_parts = (cfg.q_size, cfg.kv_size, cfg.kv_size), (cfg.intermediate_size,) * 2
 
     residual = h
     if use_rq and is_w8a8(lp["qkv_proj"]):
         codes, rs = rms_q(h, lp["input_layernorm"], eps)
-        qkv = int8_linear_pre(codes, rs, lp["qkv_proj"], h.dtype, plain)
+        qkv = int8_linear_pre(codes, rs, local_cols(lp["qkv_proj"], tp, qkv_parts), h.dtype,
+                              plain)
     else:
         x = enter(rms_norm(h, lp["input_layernorm"], eps), tp)
         qkv = column(x, lp["qkv_proj"], lora=lora_of(lora_layer, "qkv_proj"), tp=tp,
-                     parts=(cfg.q_size, cfg.kv_size, cfg.kv_size), plain=plain)
+                     parts=qkv_parts, plain=plain)
     attn = fused_rope_attention(
         qkv, cos, sin,
         n_heads=nh, n_kv_heads=nkv, head_dim=cfg.head_dim,
         causal=True, key_padding_mask=attention_mask,
         sliding_window=cfg.sliding_window, impl=attn_impl,
     )
-    if use_rq and is_w8a8(lp["o_proj"]):
-        codes, rs = (qe.row_quant_plain if plain else qe.row_quant)(attn)
-        attn = int8_linear_pre(codes, rs, lp["o_proj"], h.dtype, plain)
-    else:
-        attn = row(attn, lp["o_proj"], lora=lora_of(lora_layer, "o_proj"), tp=tp, plain=plain)
+    # a W8A8 o_proj quantizes its input by rows (B6, on the tp-global amax
+    # under tp) into the GEMM, on every route
+    attn = row(attn, lp["o_proj"], lora=lora_of(lora_layer, "o_proj"), tp=tp, plain=plain)
     h = residual + attn
 
     residual = h
     if use_rq and is_w8a8(lp["gate_up_proj"]):
         codes, rs = rms_q(h, lp["post_attention_layernorm"], eps)
-        gate_up = int8_linear_pre(codes, rs, lp["gate_up_proj"], h.dtype, plain)
+        gate_up = int8_linear_pre(codes, rs, local_cols(lp["gate_up_proj"], tp, gate_up_parts),
+                                  h.dtype, plain)
     else:
         x = enter(rms_norm(h, lp["post_attention_layernorm"], eps), tp)
         gate_up = column(x, lp["gate_up_proj"], lora=lora_of(lora_layer, "gate_up_proj"),
-                         tp=tp, parts=(cfg.intermediate_size,) * 2, plain=plain)
+                         tp=tp, parts=gate_up_parts, plain=plain)
     if (
         use_rq
         and is_w8a8(lp["down_proj"])
         and cfg.hidden_act == "silu"
-        and cfg.intermediate_size % 128 == 0
+        and local_heads(cfg.intermediate_size, tp) % 128 == 0
     ):
-        codes, rs = (qe.silu_mul_quant_plain if plain else qe.silu_mul_quant)(gate_up)
-        mlp = int8_linear_pre(codes, rs, lp["down_proj"], h.dtype, plain)
+        mlp = row_silu_mul(gate_up, lp["down_proj"], tp=tp, plain=plain)
     else:
         gate, up = torch.chunk(gate_up, 2, dim=-1)
         mlp = up * ACT2FN[cfg.hidden_act](gate)

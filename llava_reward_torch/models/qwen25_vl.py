@@ -48,7 +48,7 @@ from ..ops.linear import mm
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rotary
 from ..preprocess.qwen_vision import patch_norm_vectors
-from ..parallel.tensor import column, enter, local_heads, lora_of, row
+from ..parallel.tensor import column, enter, local_cols, local_heads, lora_of, row, row_silu_mul
 from ..utils.quantize import cat_out, dequant_layer, int8_linear_pre, is_w8a8
 from .clip_vit import stacked_layer
 from .phi3v import _take_rows
@@ -304,10 +304,11 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
     plain = attn_impl == "plain"
     use_rq = lora_layer is None and (attn_impl == "pallas" or on_card(h)) and qe.supported(h)
 
-    def rq_lin(hid, gamma, proj):
+    def rq_lin(hid, gamma, proj, parts):
+        # B4 on the whole row (the same on every tp rank) into this rank's columns
         codes, rs = (qe.rms_quant_plain if plain else qe.rms_quant)(hid, gamma, eps)
-        out = int8_linear_pre(codes, rs, proj["kernel"], hid.dtype, plain)
-        return out + proj["bias"] if "bias" in proj else out
+        out = int8_linear_pre(codes, rs, local_cols(proj["kernel"], tp, parts), hid.dtype, plain)
+        return out + local_cols(proj["bias"], tp, parts) if "bias" in proj else out
 
     def col(x, name, parts):
         p = lp[name]
@@ -316,11 +317,11 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
 
     residual = h
     if "qkv_proj" in lp:
+        qkv_parts = (tc.q_size, tc.kv_size, tc.kv_size)
         if use_rq and is_w8a8(lp["qkv_proj"]["kernel"]):
-            qkv = rq_lin(h, lp["input_layernorm"], lp["qkv_proj"])
+            qkv = rq_lin(h, lp["input_layernorm"], lp["qkv_proj"], qkv_parts)
         else:
-            qkv = col(enter(rms_norm(h, lp["input_layernorm"], eps), tp), "qkv_proj",
-                      (tc.q_size, tc.kv_size, tc.kv_size))
+            qkv = col(enter(rms_norm(h, lp["input_layernorm"], eps), tp), "qkv_proj", qkv_parts)
         attn = fused_rope_attention(
             qkv, cos, sin, n_heads=nh, n_kv_heads=nkv, head_dim=hd, causal=True,
             key_padding_mask=attention_mask, sliding_window=tc.sliding_window,
@@ -343,17 +344,19 @@ def _decoder_layer(h, lp, tc: QwenTextConfig, cos, sin, attention_mask, attn_imp
 
     residual = h
     if "gate_up_proj" in lp:
+        gate_up_parts = (tc.intermediate_size,) * 2
         if use_rq and is_w8a8(lp["gate_up_proj"]["kernel"]):
-            gate_up = rq_lin(h, lp["post_attention_layernorm"], lp["gate_up_proj"])
+            gate_up = rq_lin(h, lp["post_attention_layernorm"], lp["gate_up_proj"],
+                             gate_up_parts)
         else:
             x = enter(rms_norm(h, lp["post_attention_layernorm"], eps), tp)
-            gate_up = col(x, "gate_up_proj", (tc.intermediate_size,) * 2)
-        if use_rq and is_w8a8(lp["down_proj"]["kernel"]) and tc.intermediate_size % 128 == 0:
-            # silu(gate)*up straight to int8 codes for down_proj
-            codes, rs = (qe.silu_mul_quant_plain if plain else qe.silu_mul_quant)(gate_up)
-            mlp = int8_linear_pre(codes, rs, lp["down_proj"]["kernel"], h.dtype, plain)
-            if "bias" in lp["down_proj"]:
-                mlp = mlp + lp["down_proj"]["bias"]
+            gate_up = col(x, "gate_up_proj", gate_up_parts)
+        if use_rq and is_w8a8(lp["down_proj"]["kernel"]) \
+                and local_heads(tc.intermediate_size, tp) % 128 == 0:
+            # silu(gate)*up straight to int8 codes for down_proj (under tp on
+            # the tp-global amax, this rank's K-block)
+            mlp = row_silu_mul(gate_up, lp["down_proj"]["kernel"], lp["down_proj"].get("bias"),
+                               tp=tp, plain=plain)
             return residual + mlp
         gate, up = torch.chunk(gate_up, 2, dim=-1)
     else:

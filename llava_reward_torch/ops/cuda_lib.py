@@ -37,8 +37,10 @@ _SIGNATURES = {
     "lrt_rms_quant": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
     # x, w, b, codes, amax, M, H, eps, x / w / b is bf16, rows a tile, stages
     "lrt_ln_quant": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P],
-    "lrt_silu_mul_quant": [_P, _P, _P, _I, _I, _I, _P],
-    "lrt_row_quant": [_P, _P, _P, _I, _I, _I, _P],
+    # x, codes (null: the raw row absmax only), amax, given amax (or null), M,
+    # width, x is bf16
+    "lrt_silu_mul_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "lrt_row_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrt_fa_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _I, _I, _I, _F, _P],
 }

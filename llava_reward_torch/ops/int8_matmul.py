@@ -41,12 +41,15 @@ from . import quant_epilogue as qe
 
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
 PLAIN_CALLS: Dict[str, int] = {"int8_matmul": 0}
+# launches by weight shape, "int8_matmul K<K> N<N>" (a tp rank's K / tp or N / tp)
+SHAPES: Dict[str, int] = {}
 
 
 def reset_counters() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+    SHAPES.clear()
 
 
 # --------------------------------------------------------------- plain versions
@@ -73,9 +76,9 @@ def int8_matmul_pre_plain(
     return yf.to(out_dtype)
 
 
-def w8a8_matmul_plain(x, wq, wscale, out_dtype: Optional[torch.dtype] = None):
+def w8a8_matmul_plain(x, wq, wscale, out_dtype: Optional[torch.dtype] = None, amax=None):
     """Plain version of B7's dynamic form (``_int8_matmul_2d`` semantics)."""
-    codes, amax = qe.row_quant_plain(x)
+    codes, amax = qe.row_quant_plain(x, amax)
     return int8_matmul_pre_plain(codes, amax, wq, wscale, out_dtype or x.dtype)
 
 
@@ -122,6 +125,8 @@ def _launch(codes, amax, wq, wscale, out_dtype):
     )
     cuda_lib.check(err, "lrt_int8_matmul")
     LAUNCHES["int8_matmul"] += 1
+    key = f"int8_matmul K{K} N{N}"
+    SHAPES[key] = SHAPES.get(key, 0) + 1
     return out
 
 
@@ -136,11 +141,14 @@ def int8_matmul_pre(codes, amax, wq, wscale, out_dtype: torch.dtype = torch.bflo
     return _launch(codes, amax, wq, wscale, out_dtype)
 
 
-def w8a8_matmul(x, wq, wscale, out_dtype: Optional[torch.dtype] = None):
+def w8a8_matmul(x, wq, wscale, out_dtype: Optional[torch.dtype] = None, amax=None):
     """B7's dynamic form (``int8_matmul.py:124``): x (M, K) float ->
-    (M, N) ``out_dtype`` (default x's dtype); B6 then the GEMM on the card."""
+    (M, N) ``out_dtype`` (default x's dtype); B6 then the GEMM on the card.
+    With ``amax`` (M, 1) f32, x's codes are taken on it (B6's given-amax
+    mode): a row-split projection's tp-global amax, so that this rank's
+    K-block of codes is that of the whole row."""
     out_dtype = out_dtype or x.dtype
     if not on_card(x):
-        return w8a8_matmul_plain(x, wq, wscale, out_dtype)
-    codes, amax = qe.row_quant(x)
+        return w8a8_matmul_plain(x, wq, wscale, out_dtype, amax)
+    codes, amax = qe.row_quant(x, amax)
     return _launch(codes, amax, wq, wscale, out_dtype)

@@ -28,6 +28,18 @@ B9 quantizes the fp32 LayerNorm output (no bf16 rounding in between, unlike
 B4). It fires in ``models/clip_vit.py`` on W8A8 CLIP weights, which a
 caller builds with ``quantize_stacked_layers(clip["layers"], scheme="w8a8")``.
 
+B5 and B6 have two more modes for a row split over tensor-parallel ranks
+(``parallel/tensor.py``: each rank holds some of the row's columns), so that
+every rank's codes are those of the whole row, as the JAX package takes them
+on one device: ``row_absmax`` / ``silu_mul_absmax`` give the raw absmax of
+this rank's columns (no ``amax := 1``), which the ranks MAX-reduce; then
+``row_quant(x, amax)`` / ``silu_mul_quant(gate_up, amax)`` write the codes
+on that given amax in one pass, with no row reduction. Max and the
+per-element rounding are exact, so the codes equal the whole row's bit for
+bit. These four launches are counted apart, in ``TP_LAUNCHES`` (and
+``TP_PLAIN_CALLS``); ``SHAPES`` counts B5's and B6's launches by mode and
+row width.
+
 B4 and B9 are one streaming kernel (``norm_quant_kernel``): tiles of R rows
 come into a ring of S stages in shared memory by one bulk copy each, one
 warp per row. ``tile_plan`` chooses R and S per width and dtype; the launch
@@ -38,7 +50,7 @@ refuses a width the kernel does not take (not a multiple of 16, or above
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,14 +59,28 @@ from ..core.device import on_card
 _NAMES = ("rms_quant", "silu_mul_quant", "row_quant", "ln_quant")
 LAUNCHES: Dict[str, int] = {n: 0 for n in _NAMES}
 PLAIN_CALLS: Dict[str, int] = {n: 0 for n in _NAMES}
+# B5 / B6 on a row split over tp ranks: the raw absmax of this rank's columns,
+# and the codes on a given (tp-global) amax
+TP_NAMES = ("row_absmax", "row_quant_given", "silu_mul_absmax", "silu_mul_quant_given")
+TP_LAUNCHES: Dict[str, int] = {n: 0 for n in TP_NAMES}
+TP_PLAIN_CALLS: Dict[str, int] = {n: 0 for n in TP_NAMES}
+# B5 / B6 launches by mode and row width, "<name> <width>" (a tp rank's share)
+SHAPES: Dict[str, int] = {}
 
 Codes = Tuple[torch.Tensor, torch.Tensor]  # int8 (..., n), f32 amax (..., 1)
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, TP_LAUNCHES, TP_PLAIN_CALLS):
         for k in d:
             d[k] = 0
+    SHAPES.clear()
+
+
+def _count(counts: Dict[str, int], name: str, width: int) -> None:
+    counts[name] += 1
+    key = f"{name} {width}"
+    SHAPES[key] = SHAPES.get(key, 0) + 1
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -81,9 +107,11 @@ def ieee_div(a, b: torch.Tensor) -> torch.Tensor:
     return torch.div(a, b)
 
 
-def row_codes(y: torch.Tensor) -> Codes:
-    """fp32 (..., n) -> (int8 codes, amax): the shared tail of every kernel."""
-    amax = y.abs().amax(dim=-1, keepdim=True)
+def row_codes(y: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
+    """fp32 (..., n) -> (int8 codes, amax): the shared tail of every kernel;
+    on the row's own absmax, or on a given one (a tp-global amax)."""
+    if amax is None:
+        amax = y.abs().amax(dim=-1, keepdim=True)
     amax = torch.where(amax > 0, amax, torch.ones_like(amax))
     return torch.round(y * ieee_div(127.0, amax)).to(torch.int8), amax
 
@@ -118,23 +146,46 @@ def ln_quant_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return row_codes(y * weight.float() + bias.float())
 
 
-def silu_mul_quant_plain(gate_up: torch.Tensor) -> Codes:
-    """Plain version of B5: gate in the first I columns of (..., 2I);
-    ``g * sigmoid(g) * u`` in fp32, rounded to bf16 for bf16 input."""
-    PLAIN_CALLS["silu_mul_quant"] += 1
+def _silu_mul(gate_up: torch.Tensor) -> torch.Tensor:
     I = gate_up.shape[-1] // 2
     g = gate_up[..., :I].float()
     u = gate_up[..., I:].float()
     y = g * torch.sigmoid(g) * u
-    if gate_up.dtype == torch.bfloat16:
-        y = _bf16_round(y)
-    return row_codes(y)
+    return _bf16_round(y) if gate_up.dtype == torch.bfloat16 else y
 
 
-def row_quant_plain(x: torch.Tensor) -> Codes:
-    """Plain version of B6: per-row absmax and round."""
-    PLAIN_CALLS["row_quant"] += 1
-    return row_codes(x.float())
+def _absmax(y: torch.Tensor) -> torch.Tensor:
+    return y.abs().amax(dim=-1, keepdim=True)
+
+
+def silu_mul_quant_plain(gate_up: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
+    """Plain version of B5: gate in the first I columns of (..., 2I);
+    ``g * sigmoid(g) * u`` in fp32, rounded to bf16 for bf16 input; codes on
+    the row's amax, or on the given ``amax`` (..., 1)."""
+    (PLAIN_CALLS if amax is None else TP_PLAIN_CALLS)[
+        "silu_mul_quant" if amax is None else "silu_mul_quant_given"] += 1
+    return row_codes(_silu_mul(gate_up), amax)
+
+
+def silu_mul_absmax_plain(gate_up: torch.Tensor) -> torch.Tensor:
+    """Plain version of B5's absmax-only mode: the raw row absmax of
+    silu(gate) * up (..., 1), fp32."""
+    TP_PLAIN_CALLS["silu_mul_absmax"] += 1
+    return _absmax(_silu_mul(gate_up))
+
+
+def row_quant_plain(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
+    """Plain version of B6: per-row absmax and round; or the codes on the
+    given ``amax`` (..., 1)."""
+    (PLAIN_CALLS if amax is None else TP_PLAIN_CALLS)[
+        "row_quant" if amax is None else "row_quant_given"] += 1
+    return row_codes(x.float(), amax)
+
+
+def row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of B6's absmax-only mode: the raw row absmax (..., 1)."""
+    TP_PLAIN_CALLS["row_absmax"] += 1
+    return _absmax(x.float())
 
 
 # --------------------------------------------------------------- B4 / B9 tile plan
@@ -270,7 +321,20 @@ def _launch_ln_quant(x, weight, bias, eps):
     return codes.view(*x.shape[:-1], H), amax.view(*x.shape[:-1], 1)
 
 
-def _launch_silu_mul_quant(gate_up):
+def _given(name: str, amax: Optional[torch.Tensor], x: torch.Tensor, M: int):
+    """A given amax as the kernels read it: (M,) f32, contiguous, on x's card."""
+    if amax is None:
+        return None
+    if amax.numel() != M or amax.dtype != torch.float32 or amax.device != x.device \
+            or not amax.is_contiguous():
+        raise ValueError(f"{name}: the given amax must be a contiguous f32 tensor of {M} rows "
+                         f"on {x.device}, got {tuple(amax.shape)} {amax.dtype} on {amax.device}")
+    return amax
+
+
+def _launch_silu_mul_quant(gate_up, amax_in=None, codes_out=True):
+    """B5; with ``amax_in`` its given-amax mode, with ``codes_out`` False its
+    absmax-only mode (-> the raw amax alone)."""
     from . import cuda_lib
 
     I2 = gate_up.shape[-1]
@@ -278,29 +342,48 @@ def _launch_silu_mul_quant(gate_up):
     if I2 % 2 or I % 8:
         raise ValueError(f"silu_mul_quant: 2I = {I2} needs I a multiple of 8")
     g2, M = _rows("silu_mul_quant", gate_up, I2)
-    codes, amax = _outputs(gate_up, M, I)
+    amax_in = _given("silu_mul_quant", amax_in, gate_up, M)
+    codes, amax = _outputs(gate_up, M, I if codes_out else 0)
     err = cuda_lib.load().lrt_silu_mul_quant(
-        g2.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, I,
+        g2.data_ptr(), codes.data_ptr() if codes_out else None, amax.data_ptr(),
+        None if amax_in is None else amax_in.data_ptr(), M, I,
         int(gate_up.dtype == torch.bfloat16), _stream(),
     )
     cuda_lib.check(err, "lrt_silu_mul_quant")
-    LAUNCHES["silu_mul_quant"] += 1
-    return codes.view(*gate_up.shape[:-1], I), amax.view(*gate_up.shape[:-1], 1)
+    lead = gate_up.shape[:-1]
+    if not codes_out:
+        _count(TP_LAUNCHES, "silu_mul_absmax", I)
+        return amax.view(*lead, 1)
+    if amax_in is None:
+        _count(LAUNCHES, "silu_mul_quant", I)
+    else:
+        _count(TP_LAUNCHES, "silu_mul_quant_given", I)
+    return codes.view(*lead, I), amax.view(*lead, 1)
 
 
-def _launch_row_quant(x):
+def _launch_row_quant(x, amax_in=None, codes_out=True):
+    """B6; its modes as B5's."""
     from . import cuda_lib
 
     H = x.shape[-1]
     x2, M = _rows("row_quant", x, H)
-    codes, amax = _outputs(x, M, H)
+    amax_in = _given("row_quant", amax_in, x, M)
+    codes, amax = _outputs(x, M, H if codes_out else 0)
     err = cuda_lib.load().lrt_row_quant(
-        x2.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H,
+        x2.data_ptr(), codes.data_ptr() if codes_out else None, amax.data_ptr(),
+        None if amax_in is None else amax_in.data_ptr(), M, H,
         int(x.dtype == torch.bfloat16), _stream(),
     )
     cuda_lib.check(err, "lrt_row_quant")
-    LAUNCHES["row_quant"] += 1
-    return codes.view(*x.shape[:-1], H), amax.view(*x.shape[:-1], 1)
+    lead = x.shape[:-1]
+    if not codes_out:
+        _count(TP_LAUNCHES, "row_absmax", H)
+        return amax.view(*lead, 1)
+    if amax_in is None:
+        _count(LAUNCHES, "row_quant", H)
+    else:
+        _count(TP_LAUNCHES, "row_quant_given", H)
+    return codes.view(*lead, H), amax.view(*lead, 1)
 
 
 # --------------------------------------------------------------- wrappers
@@ -321,15 +404,31 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return _launch_ln_quant(x, weight, bias, eps)
 
 
-def silu_mul_quant(gate_up: torch.Tensor) -> Codes:
-    """B5 (``quant_epilogue.py:143``): (..., 2I) -> codes (..., I) + amax."""
+def silu_mul_quant(gate_up: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
+    """B5 (``quant_epilogue.py:143``): (..., 2I) -> codes (..., I) + amax; on
+    a given ``amax`` (..., 1) f32 (a tp-global one) with no row reduction."""
     if not on_card(gate_up):
-        return silu_mul_quant_plain(gate_up)
-    return _launch_silu_mul_quant(gate_up)
+        return silu_mul_quant_plain(gate_up, amax)
+    return _launch_silu_mul_quant(gate_up, amax)
 
 
-def row_quant(x: torch.Tensor) -> Codes:
-    """B6 (``quant_epilogue.py:191``): per-row absmax + round, one pass."""
+def silu_mul_absmax(gate_up: torch.Tensor) -> torch.Tensor:
+    """B5's absmax-only mode: the raw row absmax of silu(gate) * up (..., 1)."""
+    if not on_card(gate_up):
+        return silu_mul_absmax_plain(gate_up)
+    return _launch_silu_mul_quant(gate_up, codes_out=False)
+
+
+def row_quant(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
+    """B6 (``quant_epilogue.py:191``): per-row absmax + round, one pass; or
+    the codes on a given ``amax`` (..., 1) f32."""
     if not on_card(x):
-        return row_quant_plain(x)
-    return _launch_row_quant(x)
+        return row_quant_plain(x, amax)
+    return _launch_row_quant(x, amax)
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """B6's absmax-only mode: the raw row absmax (..., 1), f32."""
+    if not on_card(x):
+        return row_absmax_plain(x)
+    return _launch_row_quant(x, codes_out=False)

@@ -87,6 +87,13 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return y
 
 
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group, detached (a row-split
+    W8A8 projection's (M, 1) fp32 row amax: its tp-global value; the codes
+    taken on it carry no gradient)."""
+    return all_reduce(t.detach(), group, dist.ReduceOp.MAX)
+
+
 def all_gather_list(values: List[Any], group) -> List[Any]:
     """Every rank's list of Python values, concatenated in group order
     (evaluation's probabilities, rewards and labels)."""

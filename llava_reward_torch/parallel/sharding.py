@@ -22,8 +22,17 @@ fused out axis ([q | k | v], [gate | up]) split over tp holds, on rank r,
 every part's own r-th slice side by side, so each rank's block is its own
 heads (``_FUSED``); saving and resuming undo and redo that order, so a
 checkpoint is the JAX layout whatever the mesh. Under tp, the model's
-heads, kv heads and MLP widths must divide by tp, and quantized leaves are
-refused (their placement under tp is ROADMAP A9).
+heads, kv heads and MLP widths must divide by tp.
+
+A quantized leaf ({'qvalues_*', 'scale'}, a frozen decoder under
+``--load_in_8bit`` / ``--load_in_4bit``) matches no JAX rule, so JAX keeps it
+whole on every rank and XLA slices what each rank's heads use. Here each tp
+rank keeps its block instead (``utils/quantize.tp_block``), split on the
+dim its float kernel's rule splits over tp (and the fused inference layout
+of the qwen / LLaVA decoders, which no rule places, as the projections it
+fuses): each split entry a ``Sharded`` on "tp" alone, so that ``full`` and
+``gather_tree`` give the whole leaf in the JAX layout (W8A8 codes K-major).
+Over fsdp a quantized leaf stays whole, as JAX's rules keep it.
 
 Models gather a ``Sharded`` leaf where they use it: a stacked layer over
 fsdp only (``layer``, inside ``models/clip_vit.layer_slice``), keeping its
@@ -49,6 +58,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.quantize import (is_quantized, is_w8a8, k_major, logical_shape, tp_block,
+                              tp_block_dims)
 from .collectives import gather_shard, gather_whole
 from .tensor import check_tp, fused_parts, slice_parts
 
@@ -211,12 +222,18 @@ def spec_for_path(path: str, leaf=None) -> Spec:
     return ()
 
 
-def _walk(fn, tree, path=""):
-    """``fn(path, leaf)`` over a nested dict; ``None`` subtrees stay."""
+def _is_qleaf(tree) -> bool:
+    return is_quantized(tree) or is_w8a8(tree)
+
+
+def _walk(fn, tree, path="", is_leaf=lambda t: False):
+    """``fn(path, leaf)`` over a nested dict; ``None`` subtrees stay; a dict
+    that ``is_leaf`` names is one leaf."""
     if tree is None:
         return None
-    if isinstance(tree, dict):
-        return {k: _walk(fn, v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, dict) and not is_leaf(tree):
+        return {k: _walk(fn, v, f"{path}/{k}" if path else str(k), is_leaf)
+                for k, v in tree.items()}
     return fn(path, tree)
 
 
@@ -244,7 +261,13 @@ _FUSED: Sequence[Tuple[str, str]] = (
     (r".*layers/qkv_proj$", "qkv"),
     (r".*layers/gate_up_proj$", "gate_up"),
     (r".*blocks/qkv/kernel$", "vision_qkv"),
+    (r".*layers/qkv_proj/kernel$", "qkv"),
+    (r".*layers/gate_up_proj/kernel$", "gate_up"),
 )
+# the fused inference layout of the qwen / LLaVA decoders
+# (``qwen25_vl.fuse_decoder_projections``): no rule places it; a quantized
+# one is split over tp on its out columns, as the projections it fuses are
+_FUSED_INFERENCE = r".*layers/(qkv_proj|gate_up_proj)/kernel$"
 
 
 def _unsplit_parts(t: torch.Tensor, parts: Sequence[int], size: int, dim: int) -> torch.Tensor:
@@ -286,13 +309,17 @@ class Sharded:
 
     def full(self) -> torch.Tensor:
         """The whole leaf in the JAX layout (fused parts back in order),
-        gathered over both axes under autograd."""
+        gathered over both axes under autograd; a K-major block (W8A8 codes)
+        gives a K-major leaf."""
         x = self._fsdp(self.local)
         if "tp" not in self.dims:
             return x
         d = self.dims["tp"]
         x = gather_whole(x, d, self.mesh.group(("tp",)))
-        return _unsplit_parts(x, self.parts, self.mesh.shape["tp"], d) if self.parts else x
+        x = _unsplit_parts(x, self.parts, self.mesh.shape["tp"], d) if self.parts else x
+        k_major_block = self.local.dim() >= 2 and not self.local.is_contiguous() \
+            and self.local.mT.is_contiguous()
+        return k_major(x) if k_major_block else x
 
     def layer(self, i: int) -> torch.Tensor:
         """Layer ``i`` of a stacked leaf, gathered over fsdp under autograd;
@@ -327,26 +354,56 @@ def _block(t: torch.Tensor, dims: Dict[str, int], mesh: Mesh,
     return t
 
 
+def _quant_kinds(tree) -> set:
+    """The packed 4-bit schemes among ``tree``'s quantized leaves."""
+    if not isinstance(tree, dict):
+        return set()
+    if _is_qleaf(tree):
+        return {k[len("qvalues_"):] for k in tree if k in ("qvalues_nf4", "qvalues_i4")}
+    return set().union(*map(_quant_kinds, tree.values()))
+
+
+def _quant_blocks(path: str, qd: dict, mesh: Mesh, parts: dict) -> dict:
+    """This tp rank's block of the quantized leaf ``qd`` at ``path``: split on
+    the tp dim of its float kernel's rule (or of the fused inference layout),
+    each split entry a ``Sharded`` over tp; whole where tp is 1 or no rule
+    splits it over tp."""
+    if mesh.shape["tp"] == 1:
+        return qd
+    meta = torch.empty(logical_shape(qd), device="meta")
+    spec = (None, None, "tp") if re.match(_FUSED_INFERENCE, path) and meta.ndim == 3 \
+        else spec_for_path(path, meta)
+    d = _axis_dims(_divisible_spec(spec, meta, mesh), mesh).get("tp")
+    if d is None:
+        return qd
+    rows = d == meta.ndim - 2
+    p = None if rows else parts.get(_fused_key(path))
+    block = tp_block(qd, rows, p or (meta.shape[d],), mesh.shape["tp"], mesh.coords["tp"])
+    return {k: v if dim is None else Sharded(v, mesh, {"tp": v.dim() + dim}, p)
+            for (k, v), dim in zip(block.items(), tp_block_dims(qd, rows).values())}
+
+
 def shard_params(tree, mesh: Mesh, cfg=None):
     """Each leaf whose (divisible) spec names "fsdp" or "tp" becomes a
     ``Sharded`` holding a contiguous copy of this rank's block; every other
     leaf stays as it is (``sharding.py:126-152``). With fsdp and tp 1 the
     tree comes back unchanged. A tp mesh needs the family's config ``cfg``:
     tp must divide its heads and MLP widths, which also place the fused
-    blocks; a quantized leaf under tp is refused (ROADMAP A9)."""
+    blocks, and a 4-bit decoder's row-split widths. A quantized leaf keeps
+    its tp block (``_quant_blocks``)."""
     tp = mesh.shape["tp"]
     parts = {}
     if tp > 1:
         if cfg is None:
             raise ValueError("a tp mesh needs the model config: its widths place the blocks")
         check_tp(cfg, tp)
+        for kind in sorted(_quant_kinds(tree)):
+            check_tp(cfg, tp, {"i4": "int4"}.get(kind, kind))
         parts = fused_parts(cfg)
 
     def one(path, leaf):
-        if tp > 1 and path.rsplit("/", 1)[-1].startswith("qvalues"):
-            raise NotImplementedError(
-                f"{path}: a quantized frozen decoder under tp {tp} is ROADMAP A9 (the JAX "
-                "package keeps those leaves whole on every tp rank)")
+        if _is_qleaf(leaf):
+            return _quant_blocks(path, leaf, mesh, parts)
         if not isinstance(leaf, torch.Tensor):
             return leaf
         dims = _axis_dims(_divisible_spec(spec_for_path(path, leaf), leaf, mesh), mesh)
@@ -356,7 +413,7 @@ def shard_params(tree, mesh: Mesh, cfg=None):
         block = _block(leaf.detach(), dims, mesh, p).contiguous().clone()
         return Sharded(block.requires_grad_(leaf.requires_grad), mesh, dims, p)
 
-    return _walk(one, tree)
+    return _walk(one, tree, is_leaf=_is_qleaf)
 
 
 def _map(fn, tree):

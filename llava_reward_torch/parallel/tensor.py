@@ -27,8 +27,23 @@ input slice; the row-split delta joins the base's partial sum before the one
 all-reduce, which is linear, so the result is exact. A, B and the scale
 enter the tp region, as each rank's gradient of them is a partial sum.
 
+A quantized projection (a frozen decoder under ``--load_in_8bit`` /
+``--load_in_4bit``) splits the same way. Its leaf reaches the projection as
+this rank's block (``shard_params``; ``utils/quantize.tp_block`` slices a
+whole one here, with no gradient to carry). A W8A8 block runs the int8 GEMM
+on the rank's columns, or on its K-block of a row-split projection, whose
+input codes are taken on the tp-global row amax: each rank's raw absmax of
+its columns (B6's absmax mode), a MAX all-reduce, then B6 in its given-amax
+mode, so that the codes are those the JAX package takes on the whole row,
+bit for bit. The quantizing epilogues of the scoring routes do the same:
+B4 on the whole row, the same on every rank, into the rank's columns;
+B5's codes for down_proj on the tp-global amax (``row_silu_mul``).
+
 tp must divide every head count and MLP width it splits (``check_tp``):
-XLA would split any width that divides, heads or not (ROADMAP §C).
+XLA would split any width that divides, heads or not (ROADMAP §C). A 4-bit
+decoder also needs each rank's rows of a row-split projection to hold whole
+NF4 blocks (64 rows) or whole packed bytes (int4); the JAX package keeps
+4-bit leaves whole on every rank.
 """
 
 from __future__ import annotations
@@ -37,9 +52,11 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..ops import quant_epilogue as qe
 from ..ops.linear import mm
-from ..utils.quantize import qmatmul
-from .collectives import enter_tp, leave_tp
+from ..utils.quantize import (NF4_BLOCK, int8_linear, int8_linear_pre, is_quantized, is_w8a8,
+                              logical_shape, qmatmul, slice_parts, tp_block)
+from .collectives import all_reduce_max, enter_tp, leave_tp
 
 
 class TensorParallel:
@@ -73,12 +90,36 @@ def tp_widths(cfg) -> Dict[str, int]:
     return out
 
 
-def check_tp(cfg, tp: int) -> None:
-    """Raise unless ``tp`` divides every width it splits."""
+def row_split_widths(cfg) -> Dict[str, int]:
+    """The 'in' widths of the decoder's row-split projections (the rows a
+    rank's block of a quantized o_proj / down_proj divides)."""
+    dec = _towers(cfg)["decoder"]
+    return {"decoder o_proj in": dec.q_size,
+            "decoder down_proj in": dec.intermediate_size}
+
+
+# a 4-bit decoder's row-split blocks: whole NF4 blocks, whole packed bytes
+_ROW_UNIT = {"nf4": NF4_BLOCK, "int4": 2}
+
+
+def check_tp(cfg, tp: int, quant: Optional[str] = None) -> None:
+    """Raise unless ``tp`` divides every width it splits; for a decoder
+    quantized ``quant`` ("nf4" or "int4", packed 4-bit codes), unless each
+    rank's rows of a row-split projection hold whole NF4 blocks (64 rows) or
+    whole bytes of two int4 codes."""
     bad = {k: v for k, v in tp_widths(cfg).items() if v % tp}
     if bad:
         raise ValueError(f"tp {tp} does not divide {bad}: tensor parallelism splits whole "
                          f"heads and MLP columns ({tp_widths(cfg)})")
+    unit = _ROW_UNIT.get(quant)
+    local = {k: v // tp for k, v in row_split_widths(cfg).items()}
+    bad = {k: v for k, v in local.items() if unit and v % unit}
+    if bad:
+        what = "the 64-row NF4 block" if quant == "nf4" else "2 (two int4 codes a byte)"
+        raise ValueError(f"tp {tp} leaves each rank {bad} rows of the {quant} decoder's "
+                         f"row-split projections, not a multiple of {what}: a rank's block "
+                         f"holds whole blocks (the JAX package keeps 4-bit leaves whole on "
+                         f"every tp rank; ROADMAP §C)")
 
 
 def fused_parts(cfg) -> Dict[str, Sequence[int]]:
@@ -101,7 +142,7 @@ def tensor_parallel(mesh, cfg=None) -> Optional[TensorParallel]:
 
 
 def local_heads(n: int, tp: Optional[TensorParallel]) -> int:
-    """This rank's share of ``n`` heads."""
+    """This rank's share of ``n`` heads (or MLP columns)."""
     return n if tp is None else n // tp.size
 
 
@@ -110,20 +151,17 @@ def enter(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
     return x if tp is None else enter_tp(x, tp.group)
 
 
-def slice_parts(t: torch.Tensor, parts: Sequence[int], size: int, rank: int,
-                dim: int = -1) -> torch.Tensor:
-    """Rank ``rank``'s block along ``dim`` of a fused axis of ``parts``:
-    every part's own slice of ``1 / size``, in order."""
-    blocks = [p.narrow(dim, rank * (p.shape[dim] // size), p.shape[dim] // size)
-              for p in t.split(list(parts), dim)]
-    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim)
-
-
-def local_cols(t: torch.Tensor, tp: Optional[TensorParallel], parts: Sequence[int],
-               dim: int = -1) -> torch.Tensor:
+def local_cols(t, tp: Optional[TensorParallel], parts: Sequence[int], dim: int = -1):
     """This rank's block along ``dim`` (of ``parts``' full widths): a block
-    as it is, a whole tensor sliced through ``enter``."""
-    if tp is None or t.shape[dim] != sum(parts):
+    as it is, a whole tensor sliced through ``enter``, a whole quantized leaf
+    (``dim`` -1: its columns, -2: its rows) by ``tp_block``."""
+    if tp is None:
+        return t
+    if is_quantized(t) or is_w8a8(t):
+        if logical_shape(t)[dim] != sum(parts):
+            return t
+        return tp_block(t, dim == -2, parts, tp.size, tp.rank)
+    if t.shape[dim] != sum(parts):
         return t
     return slice_parts(enter(t, tp), parts, tp.size, tp.rank, dim)
 
@@ -156,7 +194,7 @@ def column(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
     """``x @ w (+ bias) (+ LoRA)``, this rank's output columns under tp.
     ``x`` has entered the tp region (``enter``); ``parts`` are the full
     widths of the out axis' fused parts (one part when unfused). ``w`` may
-    be quantized (no tp then: ROADMAP A9)."""
+    be quantized: a W8A8 block runs the int8 GEMM on the rank's columns."""
     if tp is not None:
         w = local_cols(w, tp, parts)
         bias = None if bias is None else local_cols(bias, tp, parts)
@@ -168,17 +206,50 @@ def column(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
     return out
 
 
+def _tp_amax(x: torch.Tensor, tp: TensorParallel, absmax) -> torch.Tensor:
+    """The tp-global row amax of a row split over tp: ``absmax`` of this
+    rank's columns (B5 / B6's absmax mode), MAX-reduced over the tp peers."""
+    return all_reduce_max(absmax(x.detach()), tp.group)
+
+
 def row(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, lora: Optional[dict] = None,
         *, tp: Optional[TensorParallel] = None, plain: bool = False) -> torch.Tensor:
     """``x @ w (+ bias) (+ LoRA)`` with ``x`` this rank's input columns under
-    tp: the partial products summed over tp, the bias added after."""
+    tp: the partial products summed over tp, the bias added after. A W8A8
+    ``w`` takes x's codes on the tp-global row amax, on its K-block, and the
+    partial products are summed in fp32 and rounded to x's dtype once, as
+    one device's GEMM rounds its whole-K sum once."""
     if tp is None:
         out = qmatmul(x, w, plain)
         if bias is not None:
             out = out + bias
         return out if lora is None else out + _lora(x, lora, None)
-    out = qmatmul(x, local_cols(w, tp, (x.shape[-1] * tp.size,), -2), plain)
+    w = local_cols(w, tp, (x.shape[-1] * tp.size,), -2)
+    if is_w8a8(w):
+        x2 = x.reshape(-1, x.shape[-1])
+        amax = _tp_amax(x2, tp, qe.row_absmax_plain if plain else qe.row_absmax)
+        out = int8_linear(x2, w, plain, amax, torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        out = qmatmul(x, w, plain)
     if lora is not None:
         out = out + _lora(x, lora, tp, rows=True)
-    out = leave_tp(out, tp.group)
+    out = leave_tp(out, tp.group).to(x.dtype)
+    return out if bias is None else out + bias
+
+
+def row_silu_mul(gate_up: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
+                 tp: Optional[TensorParallel] = None, plain: bool = False) -> torch.Tensor:
+    """A W8A8 down projection of ``silu(gate) * up`` fed by B5's codes
+    (inference): ``gate_up`` (..., 2I) fused, under tp this rank's [gate_r |
+    up_r], so its I / tp columns are its K-block of ``w``, and the codes are
+    taken on their tp-global amax; the partial sums summed over tp in fp32
+    (``row``), the bias added after."""
+    quant = qe.silu_mul_quant_plain if plain else qe.silu_mul_quant
+    if tp is None:
+        out = int8_linear_pre(*quant(gate_up), w, gate_up.dtype, plain)
+    else:
+        w = local_cols(w, tp, (gate_up.shape[-1] // 2 * tp.size,), -2)
+        amax = _tp_amax(gate_up, tp, qe.silu_mul_absmax_plain if plain else qe.silu_mul_absmax)
+        out = int8_linear_pre(*quant(gate_up, amax), w, torch.float32, plain)
+        out = leave_tp(out, tp.group).to(gate_up.dtype)
     return out if bias is None else out + bias

@@ -19,7 +19,10 @@ by the JAX rules, and each data rank reads its own rows
 of ``--micro_train_batch_size``, its tp peers the same rows: one device a
 process, so the global batch is dp x fsdp x micro, as in the JAX CLI. Under
 ``--mesh_tp`` the backbone runs split over the tp ranks
-(``parallel/tensor.py``); tp must divide the heads, kv heads and MLP widths.
+(``parallel/tensor.py``); tp must divide the heads, kv heads and MLP widths
+(and, over a 4-bit decoder, leave whole NF4 blocks or packed bytes in each
+rank's rows of a row-split projection), which is checked before any
+process group starts.
 
 Orchestration (the reference's train(): model -> tokenizer -> optimizer ->
 data -> scheduler -> trainer.fit): load the backbone (or, without
@@ -29,18 +32,18 @@ when ``--lora_rank 0``, the projector under ``--ft_projector``) -> blended
 datasets -> ``GroupSampler`` + ``PrefetchLoader`` -> AdamW ->
 ``RewardTrainer.fit``. Pointwise rows (or ``--cls_based``) train the
 classification objective. Ends with a ``kernel launches`` line (each
-hand-written kernel's launches in the run) and a ``train summary`` line
+hand-written kernel's launches in the run), a ``kernel shapes`` line (the
+W8A8 kernels' launches by width and weight shape) and a ``train summary`` line
 (this rank's mesh, backend, rows, each logged step's loss, grad_norm and
-seconds, bytes of the decoder's stacked layers it holds, peak card memory).
+seconds, bytes of the decoder's stacked layers it holds and of their
+quantized codes among them, peak card memory).
 
 ``--load_in_8bit`` (W8A8: the codes stay int8 in the matmul) and
 ``--load_in_4bit`` (``--quant_scheme`` nf4 or absmax) train LoRA over a
 quantized frozen decoder (train_llava_reward.py:131-153): the decoder's
 stacked layers are quantized one layer at a time on their way to the
-device. Both need LoRA and exclude each other.
-
-Not here yet, refused with the ROADMAP item that brings it: a quantized
-frozen decoder under ``--mesh_tp`` above 1 (A9).
+device. Both need LoRA and exclude each other. On a tp mesh each rank then
+keeps its block of every split quantized leaf (``shard_params``).
 """
 
 from __future__ import annotations
@@ -86,9 +89,14 @@ def _refuse(args) -> None:
         raise ValueError("--load_in_4bit/--load_in_8bit require LoRA (frozen backbone)")
     if args.load_in_4bit and args.load_in_8bit:
         raise ValueError("--load_in_4bit and --load_in_8bit are exclusive")
-    if args.mesh_tp > 1 and (args.load_in_4bit or args.load_in_8bit):
-        raise NotImplementedError(
-            f"--mesh_tp {args.mesh_tp} over a quantized frozen decoder is ROADMAP A9")
+
+
+def _code_bytes(tree) -> int:
+    """Bytes of the quantized codes in ``tree`` (a ``Sharded`` block's own)."""
+    if not isinstance(tree, dict):
+        return 0
+    return sum(getattr(v, "local", v).numel() * getattr(v, "local", v).element_size()
+               if k.startswith("qvalues") else _code_bytes(v) for k, v in tree.items())
 
 
 def train(args):
@@ -105,6 +113,7 @@ def train(args):
     from .io.torch_io import load_torch_state_dict
     from .lora.lora import init_lora, init_vision_lora
     from .parallel.sharding import DATA, shard_params
+    from .parallel.tensor import check_tp
     from .reward.model import init_head_params, num_layers_of
     from .train.optim import make_optimizer, tree_leaves, tree_map
     from .train.train_step import make_cls_loss_fn, make_pairwise_loss_fn
@@ -113,6 +122,17 @@ def train(args):
 
     logger = init_logger(__name__)
     _refuse(args)
+    family = get_family(args.model_type)
+    from_dir = bool(args.pretrain) and os.path.isdir(args.pretrain)
+    cfg = family.config_from_pretrain(args.pretrain) if from_dir else family.tiny_config()
+    # QLoRA-style training over a quantized frozen decoder
+    # (rw_model_general_preference.py:166-175): W8A8 keeps the codes int8 in
+    # the matmul (B6 + the int8 GEMM forward, a bf16 tensor-core product
+    # backward); nf4 / absmax int4 are dequantized a layer at a time
+    scheme = ("w8a8" if args.load_in_8bit else args.quant_scheme) if (
+        args.load_in_8bit or args.load_in_4bit) else None
+    if args.mesh_tp > 1:  # before any process group starts
+        check_tp(cfg, args.mesh_tp, {"absmax": "int4"}.get(scheme, scheme))
     dev = resolve_device(args.device)
     setup_distributed(device=dev.type)
     if dev.type == "cuda":
@@ -121,7 +141,6 @@ def train(args):
     logger.info("mesh %s, rank %d, backend %s", mesh.shape, mesh.rank, backend())
     world, rank = mesh.size, mesh.rank
     data_ways, data_rank = mesh.ways(DATA), mesh.index(DATA)
-    family = get_family(args.model_type)
 
     def generator(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -138,12 +157,6 @@ def train(args):
 
     # ---- model
     param_dtype = torch.bfloat16 if args.bf16 else torch.float32
-    # QLoRA-style training over a quantized frozen decoder
-    # (rw_model_general_preference.py:166-175): W8A8 keeps the codes int8 in
-    # the matmul (B6 + the int8 GEMM forward, a bf16 tensor-core product
-    # backward); nf4 / absmax int4 are dequantized a layer at a time
-    scheme = ("w8a8" if args.load_in_8bit else args.quant_scheme) if (
-        args.load_in_8bit or args.load_in_4bit) else None
 
     def quantized(backbone, device=None, dtype=None):
         """The decoder's stacked layers quantized a layer at a time on their
@@ -157,8 +170,7 @@ def train(args):
         logger.info("frozen decoder weights quantized (%s)", scheme)
         return out
 
-    if args.pretrain and os.path.isdir(args.pretrain):
-        cfg = family.config_from_pretrain(args.pretrain)
+    if from_dir:
         sd = load_torch_state_dict(args.pretrain)
         backbone = family.params_from_sd(sd, cfg, dtype=torch.float32)
         del sd
@@ -172,7 +184,6 @@ def train(args):
         family.tokenizer_setup(tokenizer)
     else:
         logger.warning("no --pretrain dir; using tiny random config (smoke mode)")
-        cfg = family.tiny_config()
         rcfg.layer_id = num_layers_of(cfg)
         backbone = family.init_params(cfg, generator(args.seed), param_dtype, dev)
         if scheme:
@@ -279,9 +290,10 @@ def train(args):
         trainer.load_train_ckpt(args.ckpt_path)
     trainer.fit()
     trainer.save_train_ckpt(args.ckpt_path)
-    from .utils.profiling import kernel_launches
+    from .utils.profiling import kernel_launches, kernel_shapes
 
     print("kernel launches " + json.dumps(kernel_launches()))
+    print("kernel shapes " + json.dumps(kernel_shapes()))
     sampler.set_epoch(0)
     bb = trainer.state.trainable.get("backbone") or trainer.frozen["backbone"]
     dec = bb.get("decoder") or bb.get("text") or {}
@@ -294,6 +306,7 @@ def train(args):
         "rows": [int(i) for i in sampler],
         "layer_bytes": sum(t.numel() * t.element_size()
                            for t in tree_leaves(dec.get("layers"))),
+        "code_bytes": _code_bytes(dec.get("layers")),
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                      if dev.type == "cuda" else None)}), flush=True)
     return trainer

@@ -13,7 +13,9 @@
   ``torch.cuda.memory_stats``, or None without a card;
 - ``kernel_launches()``: every hand-written kernel's launch count in this
   process (each wrapper adds one where it launches its kernel); the command
-  lines print it, so a caller sees which kernels a run went through.
+  lines print it, so a caller sees which kernels a run went through;
+  ``plain_calls()`` counts the plain versions' calls the same way, and
+  ``kernel_shapes()`` the W8A8 launches by width and weight shape.
 """
 
 from __future__ import annotations
@@ -102,4 +104,22 @@ def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
 def kernel_launches() -> Dict[str, int]:
     from ..ops import flash_attention, int8_matmul, quant_epilogue
 
-    return {**flash_attention.LAUNCHES, **quant_epilogue.LAUNCHES, **int8_matmul.LAUNCHES}
+    return {**flash_attention.LAUNCHES, **quant_epilogue.LAUNCHES,
+            **quant_epilogue.TP_LAUNCHES, **int8_matmul.LAUNCHES}
+
+
+def kernel_shapes() -> Dict[str, int]:
+    """B5's, B6's and the int8 GEMM's launches in this process by row width
+    and weight shape (a tp rank's K / tp, N / tp)."""
+    from ..ops import int8_matmul, quant_epilogue
+
+    return {**quant_epilogue.SHAPES, **int8_matmul.SHAPES}
+
+
+def plain_calls() -> Dict[str, int]:
+    """The plain versions' calls in this process, by kernel (the route a run
+    on the CPU took)."""
+    from ..ops import flash_attention, int8_matmul, quant_epilogue
+
+    return {**flash_attention.PLAIN_CALLS, **quant_epilogue.PLAIN_CALLS,
+            **quant_epilogue.TP_PLAIN_CALLS, **int8_matmul.PLAIN_CALLS}

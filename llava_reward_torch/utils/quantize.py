@@ -19,6 +19,13 @@ for bit: fp32 arithmetic, round half to even, the same clip and packing.
   Every place that makes a W8A8 leaf goes through ``k_major`` (or, for a
   concatenation, ``cat_out``).
 
+Under tensor parallelism (``parallel/tensor.py``) each rank keeps its block
+of a split quantized leaf (``tp_block``): a column-split projection its out
+columns (each fused part's own slice, ``slice_parts``), a row-split one its
+in rows (packed rows for the 4-bit schemes, and NF4's scale blocks with
+them), every W8A8 block K-major again. The JAX package keeps these leaves
+whole on every tp rank; the values a rank computes with are the same.
+
 The JAX package's environment switches are not ported: the epilogues are
 always on (``LRT_LN_QUANT``), int4 always runs as W8A8 (``LRT_I4_W8A8``),
 and the int8 product is always the port's GEMM (``LRT_PALLAS_INT8``).
@@ -179,23 +186,29 @@ def is_w8a8(leaf: Any) -> bool:
     return isinstance(leaf, dict) and W8A8_KEY in leaf
 
 
-def _int8_matmul_2d(x2, w, scale, plain: bool = False) -> torch.Tensor:
+def _int8_matmul_2d(x2, w, scale, plain: bool = False, amax=None) -> torch.Tensor:
     """(M, in) x int8 (in, out): per-row absmax codes, s8 x s8 -> s32, then
     ``f32(y) * (amax / 127) * scale`` cast to x's dtype
     (``quantize.py:155-181``). The GEMM's kernel on the card, or with
-    ``plain`` its plain version; its plain version on the CPU."""
-    return (w8a8_matmul_plain if plain else w8a8_matmul)(x2, w, scale, x2.dtype)
+    ``plain`` its plain version; its plain version on the CPU. With ``amax``
+    (M, 1) the codes are taken on it (a row-split block's tp-global amax)."""
+    return (w8a8_matmul_plain if plain else w8a8_matmul)(x2, w, scale, x2.dtype, amax)
 
 
 class _Int8LinearCore(torch.autograd.Function):
     """``_int8_linear_core`` (``quantize.py:184-215``): straight-through
     with respect to the activation quantization; the int8 weights get no
-    gradient (a frozen W8A8 base under LoRA)."""
+    gradient (a frozen W8A8 base under LoRA). On a row-split tp block
+    (``amax`` given) the same rule gives dx for this rank's input columns."""
 
     @staticmethod
-    def forward(ctx, x2, w, scale, plain):
+    def forward(ctx, x2, w, scale, plain, amax=None, out_dtype=None):
         ctx.save_for_backward(w, scale)
-        return _int8_matmul_2d(x2, w, scale, plain)
+        ctx.x_dtype = x2.dtype
+        if out_dtype is None:
+            return _int8_matmul_2d(x2, w, scale, plain, amax)
+        gemm = w8a8_matmul_plain if plain else w8a8_matmul
+        return gemm(x2, w, scale, out_dtype, amax)
 
     @staticmethod
     def backward(ctx, dy):
@@ -211,13 +224,18 @@ class _Int8LinearCore(torch.autograd.Function):
             dx = torch.mm(dys, wt, out_dtype=torch.float32)
         else:
             dx = torch.mm(dys.float(), wt.float())
-        return dx.to(dy.dtype), None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None, None
 
 
-def int8_linear(x: torch.Tensor, qd: QDict, plain: bool = False) -> torch.Tensor:
-    """x (..., in) @ W8A8 weight (in, out); differentiable in x."""
+def int8_linear(x: torch.Tensor, qd: QDict, plain: bool = False,
+                amax: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (..., in) @ W8A8 weight (in, out); differentiable in x. ``amax``
+    (..., 1): the rows' amax to take x's codes on (default: their own);
+    ``out_dtype``: the output's (default x's; dx is in x's)."""
     lead = x.shape[:-1]
-    y = _Int8LinearCore.apply(x.reshape(-1, x.shape[-1]), qd[W8A8_KEY], qd["scale"], plain)
+    y = _Int8LinearCore.apply(x.reshape(-1, x.shape[-1]), qd[W8A8_KEY], qd["scale"], plain,
+                              None if amax is None else amax.reshape(-1, 1), out_dtype)
     return y.reshape(*lead, -1)
 
 
@@ -241,6 +259,66 @@ def qmatmul(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
     if is_w8a8(w):
         return int8_linear(x, w, plain)
     return mm(x, w)
+
+
+# ------------------------------------------------------------ tp blocks
+
+
+def slice_parts(t: torch.Tensor, parts: Sequence[int], size: int, rank: int,
+                dim: int = -1) -> torch.Tensor:
+    """Rank ``rank``'s block along ``dim`` of a fused axis of ``parts``:
+    every part's own slice of ``1 / size``, in order."""
+    blocks = [p.narrow(dim, rank * (p.shape[dim] // size), p.shape[dim] // size)
+              for p in t.split(list(parts), dim)]
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim)
+
+
+def _owned_k_major(w: torch.Tensor) -> torch.Tensor:
+    """A K-major copy of ``w`` in storage of its own (a block never keeps the
+    whole leaf's storage alive)."""
+    return w.mT.clone(memory_format=torch.contiguous_format).mT
+
+
+def logical_shape(qd: QDict) -> tuple:
+    """The (..., in, out) shape of the float kernel a quantized leaf stands
+    for (NF4 and int4 codes hold in / 2 packed rows)."""
+    c = next(v for k, v in qd.items() if k != "scale")
+    return (*c.shape[:-2], c.shape[-2] * (2 if _QNF4 in qd or _Q4 in qd else 1), c.shape[-1])
+
+
+def tp_block_dims(qd: QDict, rows: bool) -> Dict[str, Optional[int]]:
+    """The axis (from the end) along which each entry of a quantized leaf is
+    split under tp, None for an entry kept whole: the codes on 'in' (rows)
+    or 'out'; the scale on 'out' when column-split, on NF4's blocks when
+    row-split, whole otherwise (one per out column)."""
+    return {k: (-2 if rows else -1) if k != "scale" or not rows or _QNF4 in qd else None
+            for k in qd}
+
+
+def tp_block(qd: QDict, rows: bool, parts: Sequence[int], size: int, rank: int) -> QDict:
+    """Rank ``rank``'s block (of ``size`` tp ranks) of a quantized leaf
+    (..., in, out), in storage of its own:
+
+    - column-split (``rows`` False): the out columns of codes and scale,
+      each fused part's own slice (``parts``: their full widths, in order);
+    - row-split: the codes' in rows (``in / (2 size)`` packed rows for NF4 and
+      int4), NF4's scale blocks (``nb / size``), the per-column scale whole.
+
+    W8A8 codes come back K-major (strides (1, in) per layer)."""
+    out = {}
+    for k, d in tp_block_dims(qd, rows).items():
+        v = qd[k]
+        if d is None:
+            out[k] = v
+            continue
+        if rows:
+            n = v.shape[d] // size
+            b = v.narrow(d, rank * n, n)
+        else:
+            b = slice_parts(v, parts, size, rank, d)
+        out[k] = _owned_k_major(b) if k == W8A8_KEY else b.clone(
+            memory_format=torch.contiguous_format)
+    return out
 
 
 def _per_layer(fn: Callable[[torch.Tensor], QDict], w: torch.Tensor) -> QDict:

@@ -233,12 +233,15 @@ def test_pointwise_rows_train_the_cls_objective(tmp_path):
 
 @pytest.mark.parametrize("flags, exc, match", [
     (["--mesh_dp", "2"], ValueError, "mesh 2x-1x1: 1 devices"),
-    (["--load_in_8bit", "--mesh_tp", "2"], NotImplementedError, "A9")],
+    (["--load_in_4bit", "--mesh_tp", "2"], ValueError,
+     r"tp 2 leaves each rank \{'decoder o_proj in': 32\}.*64-row NF4 block")],
     ids=["mesh_dp_one_process", "mesh_tp"])
 def test_unported_train_options_name_their_roadmap_item(flags, exc, match, tmp_path):
-    """``--mesh_tp`` above 1 over a quantized frozen decoder is ROADMAP A9
-    (refused before any process group starts). ``--mesh_dp 2`` in one
-    process asks for a mesh that does not match the world, which
+    """``--mesh_tp 2`` over the smoke config's NF4 decoder leaves each rank
+    32 rows of o_proj, not whole 64-row NF4 blocks: ``check_tp`` refuses it
+    with the widths named, before any process group starts (ROADMAP §C: the
+    JAX package keeps 4-bit leaves whole on every rank). ``--mesh_dp 2`` in
+    one process asks for a mesh that does not match the world, which
     ``create_mesh`` refuses, as the JAX one does."""
     with pytest.raises(exc, match=match):
         _port_train(tmp_path, "phi3v", flags)

@@ -31,7 +31,13 @@ widths it refuses (136, 5376) raising ValueError before any launch,
 B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
 ragged M, at M < 16, at K and N that the 128 x 256 tiles and 128-deep K
 steps do not divide (K = 208 and 8192 + 16, N = 48) and with f32 output,
-and packed int4 run as W8A8 through it; ``_Int8LinearCore`` at LLaVA-NeXT's
+and packed int4 run as W8A8 through it; B5 and B6 in their tensor-parallel
+modes (the raw absmax of a rank's columns, the codes on a given amax) against
+their plain versions and, split over 2 and 4 ranks and MAX-reduced, against
+the kernel's own whole-row codes bit for bit; the GEMM on a rank's K-major
+row block and column block of a stacked W8A8 leaf (``tp_block``), bit-exact,
+its partial sums adding up to the whole product; ``_Int8LinearCore`` at
+LLaVA-NeXT's
 projections (forward through B6 + the GEMM, the bf16 tensor-core backward
 within one bf16 rounding of the fp32 product); the weight quantizers on the card
 against the CPU's. And the wrappers' refusals (an N-major weight among
@@ -722,6 +728,89 @@ def test_int8_matmul_kernel_is_bit_exact(gen, case):
     assert dyn.dtype == out_dtype and tuple(dyn.shape) == (M, N)
     assert torch.equal(pre, ref) and torch.equal(dyn, ref)
     assert not bool(dyn[M // 2].any())
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", ["row_quant", "silu_mul_quant"])
+def test_tp_modes_give_the_whole_rows_codes(gen, name, tp):
+    """A row split over tp ranks: each rank's absmax (B5 / B6's absmax mode),
+    the MAX over ranks, then each rank's codes on it (the given-amax mode):
+    the kernel's own codes of the whole row, bit for bit; each launch against
+    its plain version (B6 bit-exact, B5 under its 2 % rule)."""
+    M, K = 77, 1792
+    silu = name == "silu_mul_quant"
+    x = _rows(gen, M, 2 * K if silu else K, torch.bfloat16)
+    x[3, :K // tp] = 0  # zero on rank 0's columns: its raw absmax is 0
+    if silu:
+        x[3, K:K + K // tp] = 0
+        blocks = [torch.cat([p.chunk(tp, -1)[r] for p in x.chunk(2, -1)], -1).contiguous()
+                  for r in range(tp)]
+        absmax, quant = qe.silu_mul_absmax, qe.silu_mul_quant
+        absmax_plain, quant_plain = qe.silu_mul_absmax_plain, qe.silu_mul_quant_plain
+    else:
+        blocks = [b.contiguous() for b in x.chunk(tp, -1)]
+        absmax, quant, absmax_plain, quant_plain = (qe.row_absmax, qe.row_quant,
+                                                    qe.row_absmax_plain, qe.row_quant_plain)
+    qe.reset_counters()
+    whole = quant(x)
+    local = [absmax(b) for b in blocks]
+    amax = torch.stack(local).amax(0)
+    codes = [quant(b, amax) for b in blocks]
+    stem = name[:-len("_quant")]
+    assert qe.TP_LAUNCHES == {**dict.fromkeys(qe.TP_NAMES, 0), f"{stem}_absmax": tp,
+                              f"{name}_given": tp} and qe.LAUNCHES[name] == 1
+    torch.cuda.synchronize()
+    assert float(local[0][3]) == 0.0
+    assert torch.equal(torch.cat([c for c, _ in codes], -1), whole[0])
+    assert all(torch.equal(a, whole[1]) for _, a in codes)
+    for b, a, (c, am) in zip(blocks, local, codes):
+        ra = absmax_plain(b)
+        if silu:
+            assert torch.allclose(a, ra, rtol=2 ** -7, atol=0)
+        else:
+            assert torch.equal(a, ra)
+        _check_codes(name, (c, am), quant_plain(b, amax))
+
+
+@pytest.mark.parametrize("rows", [True, False], ids=["row_block", "column_block"])
+def test_int8_matmul_on_a_tp_block_of_a_stacked_leaf(gen, rows):
+    """The GEMM on rank r's block of layer 1 of a stacked W8A8 leaf
+    (``tp_block``: K-major in storage of its own), bit-exact against its plain
+    version; the ranks' row-block products (codes on the tp-global amax) add
+    up to the whole leaf's within two fp32 roundings, their column blocks
+    are its columns exactly (the fused [q | k | v] parts' r-th slices)."""
+    from llava_reward_torch.utils.quantize import quantize_stacked_layers, tp_block
+
+    K, N, tp, M = 1792, 1152, 2, 100
+    parts = (768, 192, 192)
+    w = torch.randn(2, K, N, generator=gen, device="cuda").mul_(0.02).bfloat16()
+    leaf = quantize_stacked_layers({"w": w}, min_size=0, scheme="w8a8")["w"]
+    x = _rows(gen, M, K, torch.bfloat16)
+    whole = im.w8a8_matmul(x, leaf["qvalues_w8a8"][1], leaf["scale"][1], torch.float32)
+    outs = []
+    for r in range(tp):
+        blk = tp_block(leaf, rows, parts, tp, r)
+        wq, ws = blk["qvalues_w8a8"][1], blk["scale"][1]
+        assert wq.stride() == (1, wq.shape[0])
+        if rows:
+            xr = x.chunk(tp, -1)[r].contiguous()
+            amax = torch.stack([qe.row_absmax(b.contiguous()) for b in x.chunk(tp, -1)]).amax(0)
+            got = im.w8a8_matmul(xr, wq, ws, torch.float32, amax)
+            ref = im.w8a8_matmul_plain(xr, wq, ws, torch.float32, amax)
+        else:
+            got = im.w8a8_matmul(x, wq, ws, torch.float32)
+            ref = im.w8a8_matmul_plain(x, wq, ws, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        outs.append(got)
+    if rows:
+        total = sum(outs)
+        assert ((total - whole).abs() <= 2 * 2 ** -23 * (outs[0].abs() + outs[1].abs())
+                + 2 ** -23 * whole.abs()).all()
+    else:
+        pieces = [o.split([p // tp for p in parts], -1) for o in outs]
+        back = torch.cat([torch.cat([p[j] for p in pieces], -1) for j in range(len(parts))], -1)
+        assert torch.equal(back, whole)
 
 
 def test_int4_runs_as_w8a8_through_the_gemm(gen):

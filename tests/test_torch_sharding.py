@@ -40,6 +40,7 @@ from llava_reward_torch.core import mesh as tmesh
 from llava_reward_torch.io.convert import to_torch
 from llava_reward_torch.parallel import sharding as ts
 from llava_reward_torch.reward.model import RewardBatch as TBatch
+from llava_reward_torch.utils import quantize as tquant
 
 MESHES = {"1x8x1": (1, 8, 1), "2x4x1": (2, 4, 1), "4x2x1": (4, 2, 1), "hybrid2x4x1": (2, 4, 1)}
 
@@ -206,8 +207,10 @@ def test_mesh_that_does_not_match_the_world_raises(dp, fsdp):
 def test_tensor_parallel_leaves_are_refused():
     """A tp that does not divide the heads, kv heads or MLP widths is refused
     with the widths named (XLA would split any width that divides: ROADMAP
-    §C); so is a tp mesh with no config to place the fused blocks, and a
-    quantized leaf under tp (ROADMAP A9)."""
+    §C); so is a tp mesh with no config to place the fused blocks, and an NF4
+    decoder whose rank's rows of a row-split projection are not whole 64-row
+    blocks (§C: JAX keeps 4-bit leaves whole on every rank). A W8A8 leaf on
+    that mesh places its blocks."""
     tree = {"embed_tokens": torch.zeros(8, 8)}
     tm = ts.create_mesh(1, 1, 8, world_size=8, rank=0)
     qwen = tconfig.qwen_tiny_config(num_layers=2, vision_depth=2)  # 4 heads, 2 kv heads
@@ -217,10 +220,17 @@ def test_tensor_parallel_leaves_are_refused():
         ts.shard_params(tree, ts.create_mesh(1, 2, 4, world_size=8, rank=0), qwen)
     with pytest.raises(ValueError, match="config"):
         ts.shard_params(tree, ts.create_mesh(1, 4, 2, world_size=8, rank=0))
-    q = {"layers": {"qkv_proj": {"qvalues_w8a8": torch.zeros(2, 8, 8, dtype=torch.int8),
-                                 "scale": torch.ones(2, 8)}}}
-    with pytest.raises(NotImplementedError, match="A9"):
-        ts.shard_params(q, ts.create_mesh(1, 4, 2, world_size=8, rank=0), qwen)
+    tq = ts.create_mesh(1, 4, 2, world_size=8, rank=1)
+    nf4 = {"layers": {"o_proj": tquant.quantize_stacked_layers(
+        {"k": torch.ones(2, 64, 64)}, bits=4, min_size=0, scheme="nf4")["k"]}}
+    with pytest.raises(ValueError, match=r"tp 2 leaves each rank .*'decoder o_proj in': 32.* "
+                                         r"nf4 .*64-row NF4 block"):
+        ts.shard_params(nf4, tq, qwen)
+    w8 = {"layers": {"o_proj": tquant.quantize_stacked_layers(
+        {"k": torch.ones(2, 64, 64)}, min_size=0, scheme="w8a8")["k"]}}
+    codes = ts.shard_params(w8, tq, qwen)["layers"]["o_proj"]["qvalues_w8a8"]
+    assert isinstance(codes, ts.Sharded) and codes.dims == {"tp": 1}
+    assert codes.local.shape == (2, 32, 64) and codes.local.mT.is_contiguous()
 
 
 @pytest.mark.parametrize("mesh_key", ["2x4x1", "4x2x1"])

@@ -28,17 +28,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      plain version's output, held to SCALE_BIAS_TOL; last, the kernels at
      the LLaVA-NeXT-13B decoder's shapes (B1 and B8 at 40 heads x 128 MHA,
      RoPE, causal, seq 2976, B1's shared memory at head_dim 128 held to the
-     card's limit, B1 timed at B=8 too; B4-B6 and the GEMM at 8 x 2976 rows
+     card's limit, B1 timed at B=8 too; B4, B5 and the GEMM at 8 x 2976 rows
      of 5120 / 13824); and at this slice's new callers' shapes: B3's segment
-     mode over a video's four temporal slices (2, 16, 5120, 80), B6 and the
+     mode over a video's four temporal slices (2, 16, 5120, 80), the
      dynamic GEMM at the W8A8 LoRA steps' rows (qwen 2 x 1792, LLaVA
      2 x 2976), and _Int8LinearCore there (forward through B6 + the GEMM,
-     backward on the tensor cores against the fp32 product); B6 and B5 in
-     their tensor-parallel modes at a tp-2 rank's shapes of a B=8 request
-     (LLaVA down_proj K 6912, qwen o_proj K 1792, qwen's MLP I 9472): the raw
-     absmax of a rank's columns and the codes on the MAX-reduced amax
-     against their plain versions, and the two ranks' codes together against
-     the kernel's own whole-row codes, bit for bit;
+     backward on the tensor cores against the fp32 product); B5 in its
+     tensor-parallel modes at a tp-2 rank's shapes of a B=8 request (qwen's
+     MLP I 9472), and the two ranks' codes together against the kernel's
+     own whole-row codes, bit for bit, for B5 and for B6 (LLaVA down_proj
+     K 6912, qwen o_proj K 1792); and, first of the phase, B6 in each of its
+     three modes (whole rows, the raw absmax, the codes on a given amax) at
+     every shape the main paths give it (row_quant_shapes: the W8A8
+     decoders' o_proj, the W8A8 CLIP tower's out and fc2, LoRA over a W8A8
+     decoder, a tp-2 rank's o and down blocks), bit for bit against its
+     plain versions, timed by
+     CUDA events, by the profiler's device time, by the wrapper's host
+     microseconds a call, beside the bound, the plain version and (absmax)
+     vector_norm;
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -909,12 +916,6 @@ def check_quant_epilogues(gen, dcfg, M):
         qe.silu_mul_quant_plain(gu), time_ms(lambda: qe.silu_mul_quant(gu)),
         time_ms(lambda: qe.silu_mul_quant_plain(gu), iters=3, warmup=1),
         M * 2 * I * 2 + M * I + M * 4, 10 * M * I, "-> codes (M, I)"))
-    del gu
-    rows.append(_codes_report(
-        f"B6 row_quant ({M},{H}) bf16", "row_quant", qe.row_quant(x), qe.row_quant_plain(x),
-        time_ms(lambda: qe.row_quant(x)), time_ms(lambda: qe.row_quant_plain(x), iters=3,
-                                                  warmup=1),
-        M * H * 2 + M * H + M * 4, 4 * M * H, f"zero rows every {M // 4}"))
     return rows
 
 
@@ -1153,7 +1154,12 @@ def _launch_split(fn, names, reps=3):
 
 def phase_kernels(cfg, qcfg):
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = [
+    # B6 first: its host and event readings are taken before any profiler
+    # session of the process (after one, CUDA calls cost the host more and a
+    # session may hold another's kernels: seen on an H100)
+    rows = check_row_quant(gen, row_quant_shapes(cfg, qcfg, LlavaNextConfig()))
+    torch.cuda.empty_cache()
+    rows += [
         check_direct("B1 fa_direct CLIP", gen, 136, 640, 16, 64, False, False, [0] * 136, 577,
                      cfg),
         check_direct("B1 fa_direct decoder", gen, 8, 2560, 32, 96, True, True,
@@ -1180,8 +1186,8 @@ def phase_kernels(cfg, qcfg):
     rows.append(check_bwd("B8 fa_bwd decoder (2,32,2560,96)", gen, 2, 32, 2560, 96, True,
                           [0, 40]))
     torch.cuda.empty_cache()
-    # the W8A8 CLIP tower's shapes first (the kernels line reports B6 and the
-    # GEMM at the decoders' shapes, which come after; B9 at B=8, its last)
+    # the W8A8 CLIP tower's shapes first (the kernels line reports the GEMM
+    # at the decoders' shapes, which come after; B9 at B=8, its last)
     rows.append(check_ln_quant(gen, cfg.vision, CLIP_M2))
     rows.append(check_ln_quant(gen, cfg.vision, CLIP_M8))
     rows += check_int8_matmul_clip(gen, cfg.vision, CLIP_M8, CLIP_M2)
@@ -1215,7 +1221,8 @@ def check_new_callers(gen, qcfg, lcfg):
     mode over a video's four temporal slices ([video]: 2 x 5120 patch slots,
     3536 valid a row); and, under autograd in the W8A8 LoRA steps, B6 and the
     dynamic GEMM at the training rows (B=2: qwen 2 x 1792, LLaVA 2 x 2976) of
-    the q projection, with _Int8LinearCore's forward and backward there."""
+    the q projection, with _Int8LinearCore's forward and backward there (B6
+    alone at those rows: check_row_quant)."""
     from llava_reward_torch.preprocess.qwen_video import windowize_video
 
     seg = windowize_video(VIDEO_GRID, qcfg.vision.window_size)[1]
@@ -1223,19 +1230,6 @@ def check_new_callers(gen, qcfg, lcfg):
     torch.cuda.empty_cache()
     for name, dcfg, M in (("qwen", qcfg.text, 2 * QWEN_SEQ), ("LLaVA", lcfg.text, 2 * LLAVA_SEQ)):
         H = dcfg.hidden_size
-        x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
-        # beside the CUDA events over back-to-back launches, the profiler's
-        # device time a launch: below ~0.04 ms the wrapper may set the pace
-        nbytes, nops = M * H * 2 + M * H + M * 4, 4 * M * H
-        ev_ms = time_ms(lambda: qe.row_quant(x), iters=100)
-        dev_ms = _device_split(lambda: qe.row_quant(x), ["row_quant"], reps=20)["row_quant"]
-        b_ms = bound_ms(nops, nbytes, PEAK_FP32_FLOPS)[0]
-        _codes_report(f"B6 row_quant {name} training ({M},{H}) bf16", "row_quant",
-                      qe.row_quant(x), qe.row_quant_plain(x), ev_ms,
-                      time_ms(lambda: qe.row_quant_plain(x), iters=3, warmup=1), nbytes, nops,
-                      f"zero rows every {M // 4}; events {ev_ms:.4f} ms over 100 launches "
-                      f"({b_ms / ev_ms:.0%} of the bound), profiler {dev_ms:.4f} ms device "
-                      f"time a launch ({b_ms / dev_ms:.0%} of the bound)")
         _check_gemm_shapes(gen, M, (H, dcfg.q_size), ())
         _check_int8_core(gen, name, M, H, dcfg.q_size)
         torch.cuda.empty_cache()
@@ -1288,6 +1282,10 @@ def _check_tp_mode(gen, name, what, M, K, tp):
     tag = f"{'B5' if silu else 'B6'} {stem}"
     if not same or float(local[0][1]) != 0.0:
         fail(f"{tag} {what}: the ranks' codes on the MAX-reduced amax are not the whole row's")
+    if not silu:  # B6's modes are held and timed at every shape by check_row_quant
+        say("kernel", f"{tag} {what} tp {tp} ({M},{K}): the ranks' codes on the MAX of their raw "
+            f"absmax equal the kernel's whole-row codes bit for bit -> ok")
+        return []
     ra, got = absmax_plain(b), absmax(b)
     err = (got - ra).abs().max().item()
     within = torch.allclose(got, ra, rtol=2 ** -7, atol=0) if silu else torch.equal(got, ra)
@@ -1308,6 +1306,198 @@ def _check_tp_mode(gen, name, what, M, K, tp):
         f"codes on the MAX over {tp} ranks' absmax; the ranks' codes together equal the "
         f"kernel's whole-row codes ({M},{2 * K if silu else K}) bit for bit"))
     return rows
+
+
+# B6's whole-row times before its redesign, ms per launch (CUDA events, 10
+# launches) on an "NVIDIA H100 80GB HBM3, 700.00 W", as PERF.md's table keeps
+# them, keyed (M, H): printed beside the new kernel's
+B6_EARLIER_MS = {(W8A8_M, 3072): 0.0730, (QWEN_M, 3584): 0.0655, (8 * 2976, 5120): 0.1349}
+B6_MODES = {"whole": "row_quant", "absmax": "row_absmax", "given": "row_quant_given"}
+# the rows of the kernels line: the qwen decoder's o_proj input at B=8, and a
+# tp-2 rank's share of it for the two tp modes
+B6_LINE = {"whole": "qwen o_proj B=8", "absmax": "qwen tp-2 o_proj B=8",
+           "given": "qwen tp-2 o_proj B=8"}
+
+
+def row_quant_shapes(cfg, qcfg, lcfg):
+    """(what, M, H) of every B6 call on the main paths: the W8A8 decoders'
+    o_proj input at a B=8 request's rows (phi3v 8 x 2560, qwen 8 x 1792,
+    LLaVA 8 x 2976); the W8A8 CLIP tower's out and fc2 inputs at B=8 and B=2
+    (136 and 34 crops of 640 tokens); LoRA over a W8A8 decoder at a B=2
+    step's rows, every projection's input (the hidden width, which q's
+    output width equals in all three, and down's); a tp-2 rank's row-split
+    blocks at B=8 (o and down, each on its absmax then given-amax)."""
+    fams = (("phi3v", cfg.decoder, W8A8_M, 2 * 2560), ("qwen", qcfg.text, QWEN_M, 2 * QWEN_SEQ),
+            ("LLaVA", lcfg.text, 8 * LLAVA_SEQ, 2 * LLAVA_SEQ))
+    v = cfg.vision
+    out = [(f"{n} o_proj B=8", m8, c.q_size) for n, c, m8, _ in fams]
+    for b, m in (("B=8", CLIP_M8), ("B=2", CLIP_M2)):
+        out += [(f"CLIP out {b}", m, v.hidden_size), (f"CLIP fc2 {b}", m, v.intermediate_size)]
+    for n, c, _, m2 in fams:
+        assert c.q_size == c.hidden_size  # o_proj's input is as wide as the others'
+        out += [(f"{n} LoRA hidden", m2, c.hidden_size), (f"{n} LoRA down", m2,
+                                                          c.intermediate_size)]
+    for n, c, m8, _ in fams:
+        out += [(f"{n} tp-2 o_proj B=8", m8, c.q_size // 2),
+                (f"{n} tp-2 down B=8", m8, c.intermediate_size // 2)]
+    return out
+
+
+def _b6_call(mode, x, amax):
+    if mode == "whole":
+        return lambda: qe.row_quant(x)
+    if mode == "absmax":
+        return lambda: qe.row_absmax(x)
+    return lambda: qe.row_quant(x, amax)
+
+
+def device_ms_each(runs, reps=20, key=None, tries=3):
+    """Device ms a call of each of ``runs``: a torch.profiler session a run of
+    ``reps`` calls, its kernels' device time over the calls. With ``key``, a
+    call is one kernel whose name holds it, and a session must hold exactly
+    ``reps`` of them (else a whole number of kernels a call); one that does
+    not is run again, ``tries`` times at most, then read None: in a process
+    that has profiled before, a session may hold another's kernels or miss
+    its own (seen on an H100)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for run in runs:
+        run()
+        ms = None
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    run()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and (key is None or key in e.name)]
+            if us and (len(us) == reps if key else len(us) % reps == 0):
+                ms = sum(us) / reps / 1e3
+                break
+        out.append(ms)
+    return out
+
+
+def host_us(run, calls=200, sleep_cycles=50_000_000):
+    """Host microseconds a call of ``run`` over ``calls`` calls, taken while
+    the card is busy ahead of the host (a spin of ``sleep_cycles`` queued
+    first), so that no call waits for the card: the wrapper's own cost.
+    Returns (us, whether the card was still busy when the last call
+    returned)."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
+    busy = torch.cuda.Event()
+    busy.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    held = not busy.query()
+    torch.cuda.synchronize()
+    return us, held
+
+
+def _b6_bytes_ops(mode, M, H):
+    """B6's bytes (x read once; codes and amax written; a given amax read)
+    and operations (|x| and max; q * x and the round)."""
+    read, codes = M * H * 2 + (4 * M if mode == "given" else 0), M * H + 4 * M
+    return ((read + 4 * M, 2 * M * H) if mode == "absmax" else
+            (read + codes, (2 if mode == "given" else 4) * M * H))
+
+
+def check_row_quant(gen, shapes, modes=tuple(B6_MODES)):
+    """B6 in each mode at each (what, M, H) of ``shapes`` (bf16 rows, zero
+    rows every M / 4): bit for bit against its plain version (whole rows:
+    codes and amax; absmax: the raw max, 0 on a zero row; given: the codes on
+    each row's absmax times a factor in [1, 2), as another rank's columns may
+    raise it, 0 on the zero rows). Timed four ways: CUDA events over 100
+    back-to-back launches; the profiler's device time a launch (a session a
+    case, 20 launches, device_ms_each); the wrapper's host microseconds a
+    call while the card is busy; the plain version (3 calls); and, absmax,
+    torch.linalg.vector_norm(x, inf) (the library call; events and device
+    time). Prints one line a
+    case and whether the expectations of PERF.md held (device time at least
+    half the bound; absmax no slower than vector_norm; whole rows at the B=8
+    decoder shapes no slower than the kernel they replaced). Returns the
+    kernels line's rows (B6_LINE)."""
+    cases = []
+    for what, M, H in shapes:
+        x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
+        raw = qe.row_absmax_plain(x)
+        given = raw * (1 + torch.rand(M, 1, generator=gen, device="cuda"))
+        for mode in modes:
+            run = _b6_call(mode, x, given)
+            if mode == "whole":
+                got, ref = qe.row_quant(x), qe.row_quant_plain(x)
+            elif mode == "absmax":
+                got, ref = qe.row_absmax(x), raw
+            else:
+                got, ref = qe.row_quant(x, given), qe.row_quant_plain(x, given)
+            torch.cuda.synchronize()
+            if mode == "absmax":
+                err = (got - ref).abs().max().item()
+                exact = torch.equal(got, ref) and not bool(got[0].any())
+            else:
+                err = float((got[0].int() - ref[0].int()).abs().max().item())
+                exact = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            finite = bool(torch.isfinite(got if mode == "absmax" else got[1]).all())
+            del got, ref
+            plain = {"whole": lambda: qe.row_quant_plain(x),
+                     "absmax": lambda: qe.row_absmax_plain(x),
+                     "given": lambda: qe.row_quant_plain(x, given)}[mode]
+            lib = time_ms(lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1),
+                          iters=100) if mode == "absmax" else None
+            cases.append(dict(what=what, M=M, H=H, mode=mode, run=run, err=err, exact=exact,
+                              finite=finite, ms=time_ms(run, iters=100),
+                              plain_ms=time_ms(plain, iters=3, warmup=1), lib=lib,
+                              lib_run=lambda x=x: torch.linalg.vector_norm(x, float("inf"),
+                                                                           dim=-1),
+                              host=host_us(run)))
+    for c, dev in zip(cases, device_ms_each([c["run"] for c in cases], key="quant_kernel")):
+        c["dev"] = dev
+    libs = [c for c in cases if c["mode"] == "absmax"]
+    for c, dev in zip(libs, device_ms_each([c["lib_run"] for c in libs])):
+        c["lib_dev"] = dev
+    line, held = {}, {"device >= half the bound": [], "absmax <= vector_norm": [],
+                      "whole B=8 <= earlier": []}
+    for c in cases:
+        M, H, mode = c["M"], c["H"], c["mode"]
+        nbytes, nops = _b6_bytes_ops(mode, M, H)
+        b_ms, b_by = bound_ms(nops, nbytes, PEAK_FP32_FLOPS)
+        plan = qe.row_plan(H, 2, mode)
+        form = (f"warp form, {plan.rows} rows a tile, {plan.nv} chunks a lane" if plan.form == 0
+                else "block form, a block a row")
+        dev = c["dev"]
+        host, busy = c["host"]
+        share = "not measured" if dev is None else f"{b_ms / dev:.0%}"
+        if dev is not None:
+            held["device >= half the bound"].append(b_ms / dev >= 0.5)
+        notes = [f"{form}; events {c['ms']:.4f} ms over 100 launches ({b_ms / c['ms']:.0%} of "
+                 f"the bound), profiler {'not measured' if dev is None else f'{dev:.4f}'} ms "
+                 f"device time a launch ({share} of the bound), wrapper {host:.1f} us a call "
+                 f"on the host{'' if busy else ' (the card went idle before the last call)'}"]
+        if mode == "absmax":
+            held["absmax <= vector_norm"].append(c["ms"] <= c["lib"])
+            ld = c["lib_dev"]
+            notes.append(f"vector_norm(x, inf) {c['lib']:.4f} ms (profiler "
+                         f"{'not measured' if ld is None else f'{ld:.4f}'} ms)")
+        earlier = B6_EARLIER_MS.get((M, H)) if mode == "whole" else None
+        if earlier is not None:
+            held["whole B=8 <= earlier"].append(c["ms"] <= earlier)
+            notes.append(_earlier(c["ms"], earlier))
+        name = B6_MODES[mode]
+        row = _report(f"B6 {name} {c['what']} ({M},{H}) bf16", name, c["err"], "0 (exact)",
+                      c["exact"], c["finite"], c["ms"], c["plain_ms"], c["lib"], b_ms, b_by,
+                      "; ".join(notes))
+        if B6_LINE.get(mode) == c["what"]:
+            line[mode] = row
+    say("kernel", "B6 expectations (PERF.md): " + "; ".join(
+        f"{k}: {sum(v)} of {len(v)}" for k, v in held.items()))
+    return [line[m] for m in modes if m in line]
 
 
 def _check_int8_core(gen, name, M, K, N):

@@ -1,18 +1,19 @@
 // Quantizing epilogues written by hand for Hopper (sm_90a).
 //
-// norm_quant_kernel<T, LN, NV> replaces two kernels of
+// norm_quant_kernel<T, OP, NV, FULL> replaces three kernels of
 // llava_reward_tpu/ops/quant_epilogue.py:
-//   LN = false: _rms_quant_kernel (B4): Phi-3 RMSNorm (fp32 variance,
+//   OP_RMS: _rms_quant_kernel (B4): Phi-3 RMSNorm (fp32 variance,
 //   x * 1/sqrt(var+eps), bf16 rounding before and after the weight multiply
 //   for bf16 input), then per-row int8 codes and the row amax;
-//   LN = true: _ln_quant_kernel (B9): LayerNorm in fp32 (mean, centred
+//   OP_LN: _ln_quant_kernel (B9): LayerNorm in fp32 (mean, centred
 //   variance, xc * 1/sqrt(var+eps) * w + b), with NO bf16 rounding of the
 //   result (ln_quant quantizes the fp32 LayerNorm output), then codes and
 //   amax. It feeds the CLIP tower's W8A8 qkv and fc1 projections.
 // silu_mul_quant_kernel replaces _silu_mul_quant_kernel (B5): from the fused
 //   (M, 2I) gate_up, y = g * sigmoid(g) * u in fp32 (gate in the first I
 //   columns), rounded to bf16 for bf16 input, then codes and amax.
-// row_quant_kernel replaces _row_quant_kernel (B6): codes and amax of x.
+// norm_quant_kernel with OP_ROW and row_quant_kernel replace
+//   _row_quant_kernel (B6): codes and amax of x.
 //
 // B5 and B6 have two more modes for a row split over tensor-parallel ranks
 // (each rank holds some of the row's columns), so that the codes are those of
@@ -54,13 +55,42 @@
 // (which also pulled the row's divisions into every chunk) and one bf16
 // conversion per value, in place of one per pair, were slower still.
 //
-// B5 and B6: one block of 256 threads owns one row: it reads the row once
-// from device memory with 16-byte loads, keeps the fp32 values in shared
-// memory (12 KB for B6 at H = 3072, 32 KB for B5 at I = 8192), reduces in
-// registers and shared memory, and writes the codes with 8-byte stores. The
-// absmax-only and given-amax modes keep nothing in shared memory: the first
-// reads the row and reduces, the second reads it and writes its codes.
-#include <atomic>
+// B6 (redesigned for Hopper): what bounds it is bytes, 2 (bf16) or 4 (f32)
+// read and 1 written an element, with one max and one multiply an element;
+// at the rows it meets (a tp rank's 14336 x 1792 is 51 MB, 15 us at 3.35
+// TB/s) the host's launch path also counts. It takes one of two forms:
+//   the warp form, H a multiple of 16 up to 3584: norm_quant_kernel with
+//   OP_ROW, B4's persistent streaming template with no weight and no first
+//   pass (tiles of R rows by one bulk copy into the 2-stage ring, a warp a
+//   row); the row stays in registers as it came (bf16: half the registers of
+//   its fp32 widening), its max is taken by shuffles and its codes leave
+//   straight from the registers with 8-byte stores: no staging, no bulk
+//   store and no block barrier a tile. At 1536, 1792 and 2560 (a tp-2 rank's
+//   o_proj) a lane holds 6, 7 or 10 whole chunks (FULL instantiations B6
+//   alone has: they ran 1-6 % faster than the branch a chunk);
+//   the block form, any other multiple of 8 (4096 and 5120, the 6912-18944
+//   wide rows): a block of 256 threads a row that reads the row once with
+//   16-byte loads and, in the whole-row mode, keeps it in shared memory as
+//   it came (37 KB of bf16 at 18944, where the fp32 widening of the kernel
+//   before the redesign took 74 KB; a row above 112 KiB is read again
+//   instead). That kernel already read 77-94 % of its bound at every wide
+//   shape on an H100 and outran the warp form at 4096 and 5120; a
+//   persistent block with a bulk-copy ring of whole rows read slower at the
+//   wide shapes and was dropped (PERF.md).
+// In the absmax mode neither writes codes; in the given-amax mode neither
+// reduces. ops/quant_epilogue.py:row_plan chooses the form, R and S; the
+// warp form's grid comes from one occupancy query a plan, and the kernels'
+// attributes are set once per kernel and device, not per launch.
+//
+// B5: one block of 256 threads owns one row: it reads the row once from
+// device memory with 16-byte loads, keeps the fp32 values in shared memory
+// (32 KB at I = 8192), reduces in registers and shared memory, and writes the
+// codes with 8-byte stores. The absmax-only and given-amax modes keep nothing
+// in shared memory: the first reads the row and reduces, the second reads it
+// and writes its codes.
+#include <mutex>
+#include <utility>
+#include <vector>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -69,7 +99,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 256;  // threads per block of B5 / B6; one block per row
+constexpr int NT = 256;  // threads per block of B5 and of B6's block form; a block a row
 
 // Load 8 consecutive values of a row (16 bytes of bf16, two 16-byte words of
 // f32) as fp32.
@@ -135,6 +165,34 @@ __device__ __forceinline__ void write_codes(const float* ys, int n, float mx, in
 
 constexpr int NQ_HEAD = 128;         // the ring's barriers, before the ring
 constexpr int NQ_SMEM_MAX = 232448;  // 227 KiB, a block's most
+constexpr int OP_RMS = 0, OP_LN = 1, OP_ROW = 2;  // norm_quant_kernel's operation
+
+// The kernels' shared-memory attributes, set once per kernel and device, not
+// on every launch: the most dynamic shared memory the card allows beside the
+// kernel's static array, and (carveout) the L1 / shared split all shared.
+int set_smem_once(const void* kernel, bool carveout) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == kernel && d.second == dev) return 0;
+  int optin = 0;
+  cudaFuncAttributes fa;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - (int)fa.sharedSizeBytes);
+  if (e == cudaSuccess && carveout)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  done.emplace_back(kernel, dev);
+  return 0;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -164,6 +222,55 @@ __device__ __forceinline__ uint32_t code_bits(float v) {
 __device__ __forceinline__ uint32_t pack_codes(float a, float b, float c, float d) {
   return __byte_perm(__byte_perm(code_bits(a), code_bits(b), 0x0040),
                      __byte_perm(code_bits(c), code_bits(d), 0x0040), 0x5410);
+}
+
+// the codes of 4 values, q = 127 / amax, packed
+__device__ __forceinline__ uint32_t codes4(const float* v, float q) {
+  return pack_codes(__fmul_rn(v[0], q), __fmul_rn(v[1], q), __fmul_rn(v[2], q),
+                    __fmul_rn(v[3], q));
+}
+
+// B6's 8 values of a row as they are read (16 bytes of bf16: half the
+// registers of their fp32 widening), widened where used
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<bf16> {
+  uint4 u;
+};
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+
+template <typename T>
+__device__ __forceinline__ Raw8<T> load_raw(const T* p);
+template <>
+__device__ __forceinline__ Raw8<bf16> load_raw<bf16>(const bf16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+template <>
+__device__ __forceinline__ Raw8<float> load_raw<float>(const float* p) {
+  return {*reinterpret_cast<const float4*>(p), *reinterpret_cast<const float4*>(p + 4)};
+}
+
+__device__ __forceinline__ void widen(const Raw8<bf16>& r, float* v) {
+  lrt::Vec8 w;
+  w.u = r.u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(w.h[e]);
+}
+__device__ __forceinline__ void widen(const Raw8<float>& r, float* v) {
+  v[0] = r.a.x; v[1] = r.a.y; v[2] = r.a.z; v[3] = r.a.w;
+  v[4] = r.b.x; v[5] = r.b.y; v[6] = r.b.z; v[7] = r.b.w;
+}
+
+template <typename T>
+__device__ __forceinline__ float abs_max8(const Raw8<T>& r) {
+  float v[8];
+  widen(r, v);
+  return fmaxf(fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))),
+               fmaxf(fmaxf(fabsf(v[4]), fabsf(v[5])), fmaxf(fabsf(v[6]), fabsf(v[7]))));
 }
 
 // the fp32 weight of chunk c (8 elements) from its two 16-byte halves: the
@@ -282,14 +389,19 @@ constexpr int nq_rows_max() {
   return NV <= 8 ? 7 : 4;
 }
 
-// x (M, H) contiguous; w (and b, LN) (H,) bf16 or f32 (wflags bit 0: w is
-// bf16, bit 1: b is bf16) -> codes (M, H), amax (M,). blockDim = 32 (R + 1):
-// warps 0..R-1 consume, warp R produces. H % 16 == 0 and H <= 256 NV.
-template <typename T, bool LN, int NV, bool FULL>
+// x (M, H) contiguous; w (and b, OP_LN) (H,) bf16 or f32 (wflags bit 0: w
+// is bf16, bit 1: b is bf16) -> codes (M, H), amax (M,). blockDim = 32 (R +
+// 1): warps 0..R-1 consume, warp R produces. H % 16 == 0 and H <= 256 NV.
+// OP_ROW (B6) reads no weight; with codes == nullptr it writes the raw row
+// absmax alone, and with amax_in it writes the codes on that amax.
+template <typename T, int OP, int NV, bool FULL>
 __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
     norm_quant_kernel(const T* __restrict__ x, const void* __restrict__ w,
                       const void* __restrict__ b, int wflags, int8_t* __restrict__ codes,
-                      float* __restrict__ amax_out, int M, int H, float eps, int R, int S) {
+                      float* __restrict__ amax_out, const float* __restrict__ amax_in, int M,
+                      int H, float eps, int R, int S) {
+  constexpr bool LN = OP == OP_LN, ROW = OP == OP_ROW;
+  const bool absmax_only = ROW && codes == nullptr, given = ROW && amax_in != nullptr;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
@@ -308,7 +420,7 @@ __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
     }
     sm90::mbar_init_fence();
   }
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+  for (int i = threadIdx.x; i < (ROW ? 0 : H); i += blockDim.x) {
     const int at = (i % 8 < 4 ? 0 : H / 2) + (i / 8) * 4 + i % 4;
     wsm[at] = (wflags & 1) ? __bfloat162float(static_cast<const bf16*>(w)[i])
                            : static_cast<const float*>(w)[i];
@@ -334,6 +446,54 @@ __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
   }
 
   const int nch = H / 8;
+  if constexpr (ROW) {
+    // B6: a warp's row stays in registers as it came (16 bytes a chunk), its
+    // max is taken by shuffles, and its codes go straight to device memory
+    // from the registers, 8 bytes a chunk: no staging and no block barrier
+    for (int t = blockIdx.x, j = 0; t < n_tiles; t += gridDim.x, ++j) {
+      const int s = j % S;
+      const long long row = (long long)t * R + warp;
+      const bool live = warp < min(R, M - t * R);
+      Raw8<T> r[NV];
+      float mx = 0.f;
+      sm90::mbar_wait(&full[s], (j / S) & 1);
+      if (live) {
+        const T* xr = reinterpret_cast<const T*>(ring + (size_t)s * stage_bytes +
+                                                 (size_t)warp * row_bytes);
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          if (holds<FULL>(lane, k, nch)) r[k] = load_raw<T>(xr + (lane + 32 * k) * 8);
+      }
+      sm90::fence_async_smem();  // as below: the loads, before the stage is released
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      if (!live) continue;
+      if (!given) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          if (holds<FULL>(lane, k, nch)) mx = fmaxf(mx, abs_max8(r[k]));
+        mx = warp_max(mx);
+      }
+      if (absmax_only) {  // the raw row absmax: one float a row
+        if (lane == 0) amax_out[row] = mx;
+        continue;
+      }
+      if (given) mx = amax_in[row];
+      const float amax = mx > 0.f ? mx : 1.f;
+      const float q = __fdiv_rn(127.f, amax);
+      int8_t* cr = codes + row * H;
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+        if (holds<FULL>(lane, k, nch)) {
+          float v[8];
+          widen(r[k], v);
+          const uint2 u = {codes4(v, q), codes4(v + 4, q)};
+          *reinterpret_cast<uint2*>(cr + (lane + 32 * k) * 8) = u;
+        }
+      if (lane == 0) amax_out[row] = amax;
+    }
+    return;
+  }
   int j = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++j) {
     const int s = j % S;
@@ -401,24 +561,14 @@ inline size_t nq_smem(int H, int elem, bool ln, int R, int S) {
 template <typename T, bool LN, int NV, bool FULL>
 int launch_norm_quant(const T* x, const void* w, const void* b, int wflags, int8_t* codes,
                       float* amax, int M, int H, float eps, int R, int S, cudaStream_t st) {
-  auto kernel = norm_quant_kernel<T, LN, NV, FULL>;
+  auto kernel = norm_quant_kernel<T, LN ? OP_LN : OP_RMS, NV, FULL>;
   const size_t smem = nq_smem(H, (int)sizeof(T), LN, R, S);
   if (smem > (size_t)NQ_SMEM_MAX || R > nq_rows_max<NV>())
     return (int)cudaErrorInvalidValue;
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = (cudaError_t)set_smem_once((const void*)kernel, true);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  // the attributes once per process and device, not per launch
-  static std::atomic<uint32_t> ready{0};
-  const uint32_t bit = 1u << (dev & 31);
-  if (!(ready.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, NQ_SMEM_MAX);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    ready.fetch_or(bit);
-  }
   int per_sm = 0, sms = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * (R + 1), smem);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -426,7 +576,8 @@ int launch_norm_quant(const T* x, const void* w, const void* b, int wflags, int8
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int tiles = (M + R - 1) / R;
   const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
-  kernel<<<grid, 32 * (R + 1), smem, st>>>(x, w, b, wflags, codes, amax, M, H, eps, R, S);
+  kernel<<<grid, 32 * (R + 1), smem, st>>>(x, w, b, wflags, codes, amax, nullptr, M, H, eps, R,
+                                            S);
   return (int)cudaGetLastError();
 }
 
@@ -526,53 +677,112 @@ __global__ void __launch_bounds__(NT)
   write_codes(ys, I, mx, codes + row * I, amax_out + row);
 }
 
-// B6, with B5's three modes.
+// ------------------------------------------------------------------ B6
+
+// B6's block form, for the rows the warp form does not take (wider than
+// 3584, or 8 k but not 16 k wide): one block of 256 threads a row, which
+// reads the row once with 16-byte loads and, in the whole-row mode, keeps it
+// (keep) in shared memory as it came for its codes after the block's max (37
+// KB of bf16 at H = 18944, where its fp32 widening took 74 KB); a row too
+// large to keep is read again for its codes. The absmax and given-amax modes
+// keep nothing.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 8)  // 32 registers: eight blocks an SM
     row_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ codes,
-                     float* __restrict__ amax_out, const float* __restrict__ amax_in, int H) {
-  extern __shared__ float ys[];
+                     float* __restrict__ amax_out, const float* __restrict__ amax_in, int H,
+                     int keep) {
+  extern __shared__ __align__(16) unsigned char xs[];
   __shared__ float red[NT / 32];
   const long long row = blockIdx.x;
   const T* xr = x + row * H;
+  Raw8<T>* rs = reinterpret_cast<Raw8<T>*>(xs);
+  float v[8];
   if (amax_in != nullptr) {
     const float amax = amax_in[row] > 0.f ? amax_in[row] : 1.f;
     const float q = __fdiv_rn(127.f, amax);
     for (int c = threadIdx.x; c < H / 8; c += NT) {
-      float v[8];
-      load8<T>(xr + c * 8, v);
-      store_codes8(v, q, codes + row * H + c * 8);
+      widen(load_raw<T>(xr + c * 8), v);
+      *reinterpret_cast<uint2*>(codes + row * H + c * 8) = {codes4(v, q), codes4(v + 4, q)};
     }
     if (threadIdx.x == 0) amax_out[row] = amax;
     return;
   }
   float mx = 0.f;
   for (int c = threadIdx.x; c < H / 8; c += NT) {
-    float v[8];
-    load8<T>(xr + c * 8, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (codes != nullptr) ys[c * 8 + e] = v[e];
-      mx = fmaxf(mx, fabsf(v[e]));
-    }
+    const Raw8<T> r = load_raw<T>(xr + c * 8);
+    if (keep) rs[c] = r;
+    mx = fmaxf(mx, abs_max8(r));
   }
   mx = block_reduce<true>(mx, red);
   if (codes == nullptr) {
     if (threadIdx.x == 0) amax_out[row] = mx;
     return;
   }
-  write_codes(ys, H, mx, codes + row * H, amax_out + row);
+  const float amax = mx > 0.f ? mx : 1.f;
+  const float q = __fdiv_rn(127.f, amax);
+  for (int c = threadIdx.x; c < H / 8; c += NT) {
+    widen(keep ? rs[c] : load_raw<T>(xr + c * 8), v);
+    *reinterpret_cast<uint2*>(codes + row * H + c * 8) = {codes4(v, q), codes4(v + 4, q)};
+  }
+  if (threadIdx.x == 0) amax_out[row] = amax;
 }
 
-// Launch one block per row, with n fp32 values of dynamic shared memory when
-// the row is staged there (whole-row codes: ``staged``), none otherwise.
+// B6's kernel for a plan: form 0 (the warp form, norm_quant_kernel OP_ROW at
+// NV chunks a lane, FULL where H == 256 NV) or 1 (the block form); nullptr
+// for a plan no instantiation takes.
+template <typename T>
+const void* row_kernel_t(int form, int nv, int H) {
+  if (form == 1) return (const void*)row_quant_kernel<T>;
+  if (form != 0 || H > 256 * nv) return nullptr;
+#define LRT_RQ(N)                                                             \
+  if (nv == N)                                                                \
+    return H == 256 * N ? (const void*)norm_quant_kernel<T, OP_ROW, N, true> \
+                        : (const void*)norm_quant_kernel<T, OP_ROW, N, false>;
+#define LRT_RQ_FULL(N) \
+  if (nv == N) return H == 256 * N ? (const void*)norm_quant_kernel<T, OP_ROW, N, true> : nullptr;
+  LRT_RQ(1);
+  LRT_RQ(2);
+  LRT_RQ(4);
+  LRT_RQ_FULL(6);
+  LRT_RQ_FULL(7);
+  LRT_RQ(8);
+  LRT_RQ_FULL(10);
+  LRT_RQ(12);
+  LRT_RQ(14);
+#undef LRT_RQ
+#undef LRT_RQ_FULL
+  return nullptr;
+}
+
+inline int rq_rows_max(int nv) { return nv <= 8 ? 7 : 4; }  // nq_rows_max<NV>()
+
+// A plan's kernel, threads a block and dynamic shared memory, checked;
+// nullptr for a plan the kernels do not take. keep: the block form keeps the
+// row in shared memory (whole-row mode).
+const void* row_plan_kernel(int is_bf16, int form, int nv, int H, int rows, int stages,
+                            bool keep, int* threads, size_t* smem) {
+  const size_t elem = is_bf16 ? 2 : 4;
+  if (H <= 0 || H % 8) return nullptr;
+  if (form == 0) {
+    if (H % 16 || rows < 1 || rows > rq_rows_max(nv) || stages < 1 || 2 * stages * 8 > NQ_HEAD)
+      return nullptr;
+    *threads = 32 * (rows + 1);
+    *smem = NQ_HEAD + (size_t)stages * rows * H * elem;
+  } else {
+    *threads = NT;
+    *smem = keep ? (size_t)H * elem : 0;
+  }
+  if (*smem > (size_t)NQ_SMEM_MAX) return nullptr;
+  return is_bf16 ? row_kernel_t<bf16>(form, nv, H) : row_kernel_t<float>(form, nv, H);
+}
+
+// Launch one block of NT threads per row with smem bytes of dynamic shared
+// memory.
 template <typename Kernel, typename... Args>
-int launch_rows(Kernel kernel, int M, int n, bool staged, cudaStream_t st, Args... args) {
+int launch_rows(Kernel kernel, int M, size_t smem, cudaStream_t st, Args... args) {
   if (M == 0) return 0;
-  const size_t smem = staged ? (size_t)n * sizeof(float) : 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const int e = set_smem_once((const void*)kernel, false);
+  if (e != 0) return e;
   kernel<<<M, NT, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
@@ -609,25 +819,60 @@ extern "C" int lrt_silu_mul_quant(const void* gate_up, void* codes, void* amax,
   int8_t* cp = static_cast<int8_t*>(codes);
   float* ap = static_cast<float*>(amax);
   const float* ai = static_cast<const float*>(amax_in);
-  const bool staged = cp != nullptr && ai == nullptr;
+  // whole-row codes stage the row's fp32 values in shared memory
+  const size_t smem = cp != nullptr && ai == nullptr ? (size_t)I * sizeof(float) : 0;
   if (is_bf16)
-    return launch_rows(silu_mul_quant_kernel<bf16>, M, I, staged, st,
+    return launch_rows(silu_mul_quant_kernel<bf16>, M, smem, st,
                        static_cast<const bf16*>(gate_up), cp, ap, ai, I);
-  return launch_rows(silu_mul_quant_kernel<float>, M, I, staged, st,
+  return launch_rows(silu_mul_quant_kernel<float>, M, smem, st,
                      static_cast<const float*>(gate_up), cp, ap, ai, I);
 }
 
-// B6: x (M, H) bf16 or f32 -> codes (M, H) int8, amax (M,) f32; the modes of B5.
-extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, const void* amax_in,
-                             int M, int H, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* cp = static_cast<int8_t*>(codes);
-  float* ap = static_cast<float*>(amax);
-  const float* ai = static_cast<const float*>(amax_in);
-  const bool staged = cp != nullptr && ai == nullptr;
-  if (is_bf16)
-    return launch_rows(row_quant_kernel<bf16>, M, H, staged, st, static_cast<const bf16*>(x),
-                       cp, ap, ai, H);
-  return launch_rows(row_quant_kernel<float>, M, H, staged, st, static_cast<const float*>(x),
-                     cp, ap, ai, H);
+// B6: x (M, H) bf16 or f32 -> codes (M, H) int8, amax (M,) f32; with codes
+// null the raw row absmax only; with amax_in (M,) f32 the codes on it. The
+// plan (form, nv, rows, stages, keep) and the grid (the warp form's: tiles,
+// at most the blocks lrt_row_quant_blocks reports; the block form's: M)
+// come from ops/quant_epilogue.py:row_plan; x 16-byte aligned.
+extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, const void* amax_in, int M,
+                             int H, int is_bf16, int form, int nv, int rows, int stages, int keep,
+                             int grid, void* stream) {
+  int threads = 0;
+  size_t smem = 0;
+  keep = keep && codes != nullptr && amax_in == nullptr;  // only whole rows are kept
+  const void* kernel =
+      row_plan_kernel(is_bf16, form, nv, H, rows, stages, keep, &threads, &smem);
+  if (kernel == nullptr || grid < 1) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const int e = set_smem_once(kernel, form == 0);
+  if (e != 0) return e;
+  const void* w = nullptr;
+  int wflags = 0;
+  float eps = 0.f;
+  void* args_warp[] = {(void*)&x, (void*)&w, (void*)&w, &wflags, &codes, &amax,
+                       (void*)&amax_in, &M, &H, &eps, &rows, &stages};
+  void* args_block[] = {(void*)&x, &codes, &amax, (void*)&amax_in, &H, &keep};
+  const cudaError_t err = cudaLaunchKernel(kernel, dim3(grid), dim3(threads),
+                                           form == 0 ? args_warp : args_block, smem,
+                                           static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) cudaGetLastError();  // not left for the next launch's check
+  return (int)err;
+}
+
+// The warp form's blocks of a B6 plan that fit the card at once (blocks an
+// SM x SMs), or minus a CUDA error; also sets the kernel's shared-memory
+// attributes.
+extern "C" int lrt_row_quant_blocks(int is_bf16, int nv, int H, int rows, int stages) {
+  int threads = 0, dev = 0, per_sm = 0, sms = 0;
+  size_t smem = 0;
+  const void* kernel =
+      row_plan_kernel(is_bf16, 0, nv, H, rows, stages, false, &threads, &smem);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = (cudaError_t)set_smem_once(kernel, true);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  return per_sm * sms;
 }

@@ -40,7 +40,12 @@ _SIGNATURES = {
     # x, codes (null: the raw row absmax only), amax, given amax (or null), M,
     # width, x is bf16
     "lrt_silu_mul_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "lrt_row_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # ... and B6's plan (ops/quant_epilogue.row_plan): form, chunks a lane,
+    # rows a tile, stages, keep the row, then the grid
+    "lrt_row_quant": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    # x is bf16, chunks a lane, width, rows a tile, stages -> the warp form's
+    # blocks on the card at once
+    "lrt_row_quant_blocks": [_I] * 5,
     "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrt_fa_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _I, _I, _I, _F, _P],
 }

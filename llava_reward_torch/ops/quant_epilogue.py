@@ -45,6 +45,11 @@ come into a ring of S stages in shared memory by one bulk copy each, one
 warp per row. ``tile_plan`` chooses R and S per width and dtype; the launch
 refuses a width the kernel does not take (not a multiple of 16, or above
 ``NQ_MAX_WIDTH``) with ``ValueError`` before anything runs.
+
+B6 takes one of two forms (``row_plan``): the same streaming kernel with
+no weight (codes stored from registers) where the width is a multiple of 16
+up to ``ROW_WARP_MAX``, and a block a row for every other multiple of 8. A
+width neither takes raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -231,6 +236,75 @@ def tile_plan(H: int, x_bytes: int, ln: bool, M: int) -> TilePlan:
     return TilePlan(R, NQ_STAGES, smem)
 
 
+# --------------------------------------------------------------- B6's plan
+
+ROW_MODES = ("whole", "absmax", "given")  # codes + amax; the raw absmax; codes on a given amax
+# the warp form's whole-lane instantiations that B6 alone has (csrc:
+# LRT_RQ_FULL): a tp-2 rank's o_proj widths 1536, 1792 and 2560
+ROW_FULL_CHUNKS = (6, 7, 10)
+# the warp form's widest row: on an H100 the warp form read faster than the
+# block form at every main-path width up to 3584 (a third at 1024, a fifth at
+# 3584 on a LoRA step's rows), the block form as fast or faster from 4096 on
+# (PERF.md)
+ROW_WARP_MAX = 3584
+# the block form keeps a whole row in shared memory, as it came, up to this
+# size (two blocks an SM); a larger one is read again for its codes
+ROW_KEEP_BYTES = 112 * 1024
+
+
+class RowPlan(NamedTuple):
+    form: int  # 0: the warp form (norm_quant_kernel, OP_ROW); 1: the block form
+    nv: int  # warp form: 8-element chunks a lane holds (the instantiation); block form 0
+    rows: int  # warp form: R rows a tile, one consumer warp each; block form 1
+    stages: int  # warp form: S tiles in the ring; block form 1
+    keep: int  # block form, whole-row mode: 1 keeps the row in shared memory
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def _row_chunks(H: int) -> int:
+    if H % 256 == 0 and H // 256 in ROW_FULL_CHUNKS:
+        return H // 256
+    return next(n for n in NQ_CHUNKS_PER_LANE if 32 * n * 8 >= H)
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(H: int, x_bytes: int, mode: str) -> RowPlan:
+    """B6's form for rows of width H, ``x_bytes`` an input element, in
+    ``mode`` (``ROW_MODES``). A multiple of 16 up to ``ROW_WARP_MAX``: the
+    warp form, B4's ring of R-row tiles (``tile_plan``'s R and S) with no
+    weight and no staged codes. Any other multiple of 8: the block form, a
+    block a row, whose whole-row mode keeps the row in shared memory in its
+    input dtype up to ``ROW_KEEP_BYTES`` (a larger row is read twice).
+    Raises ValueError for a width that is not a multiple of 8."""
+    if mode not in ROW_MODES:
+        raise ValueError(f"row_quant: mode {mode!r} is not one of {ROW_MODES}")
+    if H <= 0 or H % 8:
+        raise ValueError(f"row_quant: the row width {H} is not a multiple of 8: the kernels "
+                         "read and write a row in whole 8-element chunks")
+    if H % 16 == 0 and H <= ROW_WARP_MAX:
+        R = tile_plan(H, x_bytes, False, NQ_ROWS_MAX).rows  # B4's tiles
+        return RowPlan(0, _row_chunks(H), R, NQ_STAGES, 0, NQ_HEAD + NQ_STAGES * R * H * x_bytes)
+    keep = int(mode == "whole" and H * x_bytes <= ROW_KEEP_BYTES)
+    return RowPlan(1, 0, 1, 1, keep, keep * H * x_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_launch(device: int, H: int, is_bf16: bool, mode: str) -> Tuple[RowPlan, int]:
+    """The plan and, for the warp form, the blocks of it that fit the card at
+    once, asked once a plan and device (the query also sets the kernel's
+    shared-memory attributes); the block form launches a block a row."""
+    from . import cuda_lib
+
+    plan = row_plan(H, 2 if is_bf16 else 4, mode)
+    if plan.form == 1:
+        return plan, 0
+    blocks = cuda_lib.load().lrt_row_quant_blocks(int(is_bf16), plan.nv, H, plan.rows,
+                                                  plan.stages)
+    if blocks < 1:
+        raise RuntimeError(f"row_quant: {plan} does not launch (CUDA error {-blocks})")
+    return plan, blocks
+
+
 # --------------------------------------------------------------- kernel launches
 
 
@@ -241,8 +315,9 @@ _INFERENCE_ONLY = (
 )
 
 
-def _rows(name: str, x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
-    """The (M, n) view of x, which the kernels read row by row."""
+def _rows(name: str, x: torch.Tensor, n: int) -> int:
+    """M, the rows of n that the kernels read from x's pointer, once x is
+    checked as they read it."""
     from . import cuda_lib
 
     cuda_lib.refuse_grad(name, x, route=_INFERENCE_ONLY)
@@ -255,8 +330,7 @@ def _rows(name: str, x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
         raise ValueError(f"{name}: the (M, {x.shape[-1]}) view of x is not contiguous")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x is not 16-byte aligned")
-    M = x.numel() // x.shape[-1]
-    return x.view(M, x.shape[-1]), M
+    return x.numel() // x.shape[-1]
 
 
 def _outputs(x: torch.Tensor, M: int, n: int):
@@ -287,12 +361,12 @@ def _launch_rms_quant(x, weight, eps):
 
     H = x.shape[-1]
     cuda_lib.refuse_grad("rms_quant", weight, route=_INFERENCE_ONLY)
-    x2, M = _rows("rms_quant", x, H)
+    M = _rows("rms_quant", x, H)
     _norm_weights("rms_quant", x, H, weight=weight)
     plan = tile_plan(H, x.element_size(), False, M)
     codes, amax = _outputs(x, M, H)
     err = cuda_lib.load().lrt_rms_quant(
-        x2.data_ptr(), weight.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H, float(eps),
+        x.data_ptr(), weight.data_ptr(), codes.data_ptr(), amax.data_ptr(), M, H, float(eps),
         int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16), plan.rows,
         plan.stages, _stream(),
     )
@@ -306,13 +380,13 @@ def _launch_ln_quant(x, weight, bias, eps):
 
     H = x.shape[-1]
     cuda_lib.refuse_grad("ln_quant", weight, bias, route=_INFERENCE_ONLY)
-    x2, M = _rows("ln_quant", x, H)
+    M = _rows("ln_quant", x, H)
     _norm_weights("ln_quant", x, H, weight=weight, bias=bias)
     plan = tile_plan(H, x.element_size(), True, M)
     codes, amax = _outputs(x, M, H)
     bf = torch.bfloat16
     err = cuda_lib.load().lrt_ln_quant(
-        x2.data_ptr(), weight.data_ptr(), bias.data_ptr(), codes.data_ptr(), amax.data_ptr(),
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), codes.data_ptr(), amax.data_ptr(),
         M, H, float(eps), int(x.dtype == bf), int(weight.dtype == bf), int(bias.dtype == bf),
         plan.rows, plan.stages, _stream(),
     )
@@ -341,11 +415,11 @@ def _launch_silu_mul_quant(gate_up, amax_in=None, codes_out=True):
     I = I2 // 2
     if I2 % 2 or I % 8:
         raise ValueError(f"silu_mul_quant: 2I = {I2} needs I a multiple of 8")
-    g2, M = _rows("silu_mul_quant", gate_up, I2)
+    M = _rows("silu_mul_quant", gate_up, I2)
     amax_in = _given("silu_mul_quant", amax_in, gate_up, M)
     codes, amax = _outputs(gate_up, M, I if codes_out else 0)
     err = cuda_lib.load().lrt_silu_mul_quant(
-        g2.data_ptr(), codes.data_ptr() if codes_out else None, amax.data_ptr(),
+        gate_up.data_ptr(), codes.data_ptr() if codes_out else None, amax.data_ptr(),
         None if amax_in is None else amax_in.data_ptr(), M, I,
         int(gate_up.dtype == torch.bfloat16), _stream(),
     )
@@ -362,28 +436,33 @@ def _launch_silu_mul_quant(gate_up, amax_in=None, codes_out=True):
 
 
 def _launch_row_quant(x, amax_in=None, codes_out=True):
-    """B6; its modes as B5's."""
+    """B6; its modes as B5's. The plan and grid are cached per width, dtype,
+    mode and device, so a call costs the checks, two allocations in their
+    final shapes and one launch."""
     from . import cuda_lib
 
     H = x.shape[-1]
-    x2, M = _rows("row_quant", x, H)
+    M = _rows("row_quant", x, H)
     amax_in = _given("row_quant", amax_in, x, M)
-    codes, amax = _outputs(x, M, H if codes_out else 0)
+    mode = ("whole" if amax_in is None else "given") if codes_out else "absmax"
+    bf = x.dtype == torch.bfloat16
+    dev = x.get_device()
+    plan, blocks = _row_launch(dev, H, bf, mode)
+    amax = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=dev)
+    codes = torch.empty(x.shape, dtype=torch.int8, device=dev) if codes_out else None
+    grid = M if plan.form else min(-(-M // plan.rows), blocks)
     err = cuda_lib.load().lrt_row_quant(
-        x2.data_ptr(), codes.data_ptr() if codes_out else None, amax.data_ptr(),
-        None if amax_in is None else amax_in.data_ptr(), M, H,
-        int(x.dtype == torch.bfloat16), _stream(),
+        x.data_ptr(), None if codes is None else codes.data_ptr(), amax.data_ptr(),
+        None if amax_in is None else amax_in.data_ptr(), M, H, int(bf), plan.form, plan.nv,
+        plan.rows, plan.stages, plan.keep, max(1, grid), torch._C._cuda_getCurrentRawStream(dev),
     )
     cuda_lib.check(err, "lrt_row_quant")
-    lead = x.shape[:-1]
     if not codes_out:
         _count(TP_LAUNCHES, "row_absmax", H)
-        return amax.view(*lead, 1)
-    if amax_in is None:
-        _count(LAUNCHES, "row_quant", H)
-    else:
-        _count(TP_LAUNCHES, "row_quant_given", H)
-    return codes.view(*lead, H), amax.view(*lead, 1)
+        return amax
+    _count(LAUNCHES if amax_in is None else TP_LAUNCHES,
+           "row_quant" if amax_in is None else "row_quant_given", H)
+    return codes, amax
 
 
 # --------------------------------------------------------------- wrappers

@@ -27,14 +27,18 @@ requires grad; a head_dim below the kernels' (16) runs them zero-padded to
 B4-B6 and B9 on f32 and bf16 input, B9 on an odd row count and a zero row,
 the streaming B4 / B9 at widths 128-5120 on one row, a prime row count and
 10007 rows (the ring wraps), bf16 weights read as their f32 widening, and the
-widths it refuses (136, 5376) raising ValueError before any launch,
-B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
+widths it refuses (136, 5376) raising ValueError before any launch;
+B6's three modes bit-exact at every width of the main paths and at 8 k widths
+of its block form (a whole f32 row of 58112, too large to keep in shared
+memory, read twice), on 1, 131 and 2053 rows, and the widths it refuses (not
+8 k) raising ValueError before any launch; B5 at I = 256 and 18944 (Qwen2.5-VL's), the GEMM on K-major weights at a
 ragged M, at M < 16, at K and N that the 128 x 256 tiles and 128-deep K
 steps do not divide (K = 208 and 8192 + 16, N = 48) and with f32 output,
 and packed int4 run as W8A8 through it; B5 and B6 in their tensor-parallel
 modes (the raw absmax of a rank's columns, the codes on a given amax) against
 their plain versions and, split over 2 and 4 ranks and MAX-reduced, against
-the kernel's own whole-row codes bit for bit; the GEMM on a rank's K-major
+the kernel's own whole-row codes bit for bit (K = 1792 and 13824: both of
+B6's forms); the GEMM on a rank's K-major
 row block and column block of a stacked W8A8 leaf (``tp_block``), bit-exact,
 its partial sums adding up to the whole product; ``_Int8LinearCore`` at
 LLaVA-NeXT's
@@ -683,6 +687,62 @@ def test_norm_quant_refuses_what_it_does_not_take(gen):
     assert not any(qe.LAUNCHES.values())
 
 
+# B6's widths on the main paths (PERF.md's B6 row), then widths of its block
+# form that are 8 k but not 16 k, or wider than the warp form's 3584; a
+# whole row of 58112 (f32: 227 KiB) is read twice, not kept
+B6_WIDTHS = [1024, 1536, 1792, 2560, 3072, 3584, 4096, 5120, 6912, 8192, 9472, 13824, 18944]
+B6_BLOCK_WIDTHS = [8, 136, 1000, 3592, 5128, 5376, 18952, 58112]
+
+
+@pytest.mark.parametrize("H", B6_WIDTHS + B6_BLOCK_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_quant_modes_match_plain_at_every_width(gen, dtype, H):
+    """B6's three modes, each one launch, bit for bit against their plain
+    versions: whole rows (codes and amax), the raw absmax, the codes on a
+    given amax (each row's absmax times a factor in [1, 2), as another tp
+    rank's columns may raise it); on one row, a prime row count that no tile
+    height divides and 2053 rows (every ring wraps); row M // 2 zero (amax :=
+    1 and zero codes; its raw absmax 0) and row 1 zero on its first half."""
+    for M in (1, 131, 2053):
+        x = torch.randn(M, H, generator=gen, device="cuda").mul_(3).to(dtype)
+        if M > 1:
+            x[M // 2] = 0
+            x[1, :H // 2] = 0
+        qe.reset_counters()
+        codes, amax = qe.row_quant(x)
+        raw = qe.row_absmax(x)
+        given = qe.row_absmax_plain(x) * (1 + torch.rand(M, 1, generator=gen, device="cuda"))
+        gcodes, gamax = qe.row_quant(x, given)
+        assert qe.LAUNCHES["row_quant"] == 1 and qe.TP_LAUNCHES["row_absmax"] == 1
+        assert qe.TP_LAUNCHES["row_quant_given"] == 1
+        assert qe.SHAPES == {f"row_quant {H}": 1, f"row_absmax {H}": 1,
+                             f"row_quant_given {H}": 1}
+        torch.cuda.synchronize()
+        rc, ra = qe.row_quant_plain(x)
+        assert torch.equal(codes, rc) and torch.equal(amax, ra), (H, M)
+        assert torch.equal(raw, qe.row_absmax_plain(x)), (H, M)
+        rgc, rga = qe.row_quant_plain(x, given)
+        assert torch.equal(gcodes, rgc) and torch.equal(gamax, rga), (H, M)
+        if M > 1:
+            assert float(raw[M // 2]) == 0.0 and float(amax[M // 2]) == 1.0
+            assert float(gamax[M // 2]) == 1.0 and not bool(codes[M // 2].any())
+
+
+def test_row_quant_refuses_widths_no_form_takes(gen):
+    """A width that is not a multiple of 8 raises ValueError in every mode
+    before anything is launched."""
+    qe.reset_counters()
+    for H in (4, 12, 1001):
+        x = _randn(gen, 8, H)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            qe.row_quant(x)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            qe.row_absmax(x)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            qe.row_quant(x, torch.ones(8, 1, device="cuda"))
+    assert not any(qe.LAUNCHES.values()) and not any(qe.TP_LAUNCHES.values())
+
+
 @pytest.mark.parametrize("I", [256, 18944])
 def test_silu_mul_quant_kernel_at_other_widths(gen, I):
     x = _rows(gen, 40, 2 * I, torch.bfloat16)
@@ -730,14 +790,18 @@ def test_int8_matmul_kernel_is_bit_exact(gen, case):
     assert not bool(dyn[M // 2].any())
 
 
+@pytest.mark.parametrize("K", [1792, 13824])
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("name", ["row_quant", "silu_mul_quant"])
-def test_tp_modes_give_the_whole_rows_codes(gen, name, tp):
+def test_tp_modes_give_the_whole_rows_codes(gen, name, tp, K):
     """A row split over tp ranks: each rank's absmax (B5 / B6's absmax mode),
     the MAX over ranks, then each rank's codes on it (the given-amax mode):
     the kernel's own codes of the whole row, bit for bit; each launch against
-    its plain version (B6 bit-exact, B5 under its 2 % rule)."""
-    M, K = 77, 1792
+    its plain version (B6 bit-exact, B5 under its 2 % rule). K = 1792: qwen's
+    o_proj on 2 or 4 ranks, B6's warp form throughout; 13824: LLaVA's
+    down_proj, B6's block form on the whole row and on 2 ranks (6912), the
+    warp form on 4 (3456)."""
+    M = 77
     silu = name == "silu_mul_quant"
     x = _rows(gen, M, 2 * K if silu else K, torch.bfloat16)
     x[3, :K // tp] = 0  # zero on rank 0's columns: its raw absmax is 0

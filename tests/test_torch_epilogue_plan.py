@@ -6,6 +6,11 @@ tests/test_torch_cuda_kernels.py).
   dynamic shared memory of a block, per width and dtype. Every plan fits an
   H100 block's 227 KiB; two blocks share an SM at the main paths' widths;
   the widths the kernel does not take raise ValueError.
+- ``ops/quant_epilogue.row_plan`` (B6): the form (the warp form, B4's
+  streaming tiles; the block form, a block a row), R, the stages and the
+  dynamic shared memory, per width, dtype and mode, at every width B6 meets
+  on the main paths, at 8 k widths that are not 16 k, and the widths no
+  form takes (ValueError).
 - ``chip_smoke._scale_leaf_errors``: the conditioned error of a one-number
   LoRA scale leaf, |d dscale| / (||g_b|| ||b|| / |scale|), on synthetic
   tensors: a cancelling sum reads small, g_b moved by a relative e reads e.
@@ -81,6 +86,89 @@ def test_every_supported_model_width_plans():
         for x_bytes in (2, 4):
             for ln in (False, True):
                 qe.tile_plan(H, x_bytes, ln, 4096)
+
+
+# B6's widths on the main paths: the W8A8 decoders' o_proj and LoRA inputs
+# (hidden = q), the CLIP tower's out / fc2 inputs, down_proj's input, a tp-2
+# rank's o / down blocks; the warp form takes the multiples of 16 up to 3584
+B6_FORMS = {1024: 0, 1536: 0, 1792: 0, 2560: 0, 3072: 0, 3584: 0, 4096: 1, 5120: 1,
+            6912: 1, 8192: 1, 9472: 1, 13824: 1, 18944: 1}
+# the warp form's rows a tile, bf16 / f32: 7 up to 8 chunks a lane, 4 beyond,
+# within a 32 KiB stage
+B6_ROWS = {1024: (7, 7), 1536: (7, 5), 1792: (7, 4), 2560: (4, 3), 3072: (4, 2),
+           3584: (4, 2)}
+
+
+@pytest.mark.parametrize("mode", qe.ROW_MODES)
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H", sorted(B6_FORMS))
+def test_row_plan_at_the_main_paths_widths(H, x_bytes, mode):
+    p = qe.row_plan(H, x_bytes, mode)
+    assert p.form == B6_FORMS[H]
+    assert p.smem <= SMEM_PER_BLOCK
+    if p.form == 0:
+        # B4's tiles with no weight and no staged codes: R rows of one bulk
+        # copy (16-byte multiples, 32 KiB at most), two tiles in the ring
+        assert (p.rows, p.stages) == (B6_ROWS[H][x_bytes // 4], 2)
+        assert p.rows * H * x_bytes <= qe.NQ_STAGE_BYTES and (p.rows * H * x_bytes) % 16 == 0
+        assert p.smem == qe.NQ_HEAD + 2 * p.rows * H * x_bytes
+        # an instantiation the kernel has: a whole number of chunks a lane
+        # where B6 has one (1536, 1792, 2560 and B4's widths), else the branch
+        assert 256 * p.nv >= H and (p.nv in qe.NQ_CHUNKS_PER_LANE or 256 * p.nv == H)
+        assert (256 * p.nv == H) == (H in (1024, 1536, 1792, 2560, 3072, 3584))
+        assert p.keep == 0
+        # at least two blocks an SM
+        assert SMEM_PER_SM // (p.smem + SMEM_RESERVED) >= 2
+    else:
+        # a block a row; the whole-row mode keeps the row as it came (every
+        # main-path row fits: 18944 f32 is 74 KB)
+        assert (p.nv, p.rows, p.stages, p.keep) == (0, 1, 1, int(mode == "whole"))
+        assert p.smem == p.keep * H * x_bytes
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H", [8, 136, 1000, 5128, 18952, 24584])
+def test_row_plan_gives_widths_of_8_k_the_block_form(H, x_bytes):
+    """A multiple of 8 that is not one of 16 (or is, above 5120) has the block
+    form in every mode."""
+    for mode in qe.ROW_MODES:
+        p = qe.row_plan(H, x_bytes, mode)
+        assert p.form == 1 and p.keep == int(mode == "whole")
+        assert p.smem == p.keep * H * x_bytes
+
+
+@pytest.mark.parametrize("H", [0, -16, 4, 12, 1001, 5124])
+def test_row_plan_refuses_widths_no_form_takes(H):
+    for mode in qe.ROW_MODES:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            qe.row_plan(H, 2, mode)
+
+
+def test_row_plan_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="mode"):
+        qe.row_plan(1024, 2, "codes")
+
+
+def test_row_plan_reads_a_row_too_large_to_keep_twice():
+    """The block form's whole-row mode keeps a row of up to 112 KiB in shared
+    memory (two blocks an SM: 28672 f32, 57344 bf16); a larger row is read
+    again for its codes, with no shared memory, so that every multiple of 8
+    runs in every mode (the earlier kernel kept fp32 for both dtypes and
+    could not go past 227 KiB of it)."""
+    assert qe.row_plan(28672, 4, "whole").smem == qe.ROW_KEEP_BYTES
+    assert qe.row_plan(57344, 2, "whole").smem == qe.ROW_KEEP_BYTES
+    for H, x_bytes in ((28680, 4), (57352, 2), (58112, 4), (1 << 20, 2)):
+        for mode in qe.ROW_MODES:
+            assert qe.row_plan(H, x_bytes, mode) == qe.RowPlan(1, 0, 1, 1, 0, 0)
+
+
+def test_every_multiple_of_8_plans():
+    """Every width the kernel took before its redesign (any multiple of 8) has
+    a plan in every mode and dtype that fits a block."""
+    for H in range(8, 20000 + 1, 8):
+        for x_bytes in (2, 4):
+            for mode in qe.ROW_MODES:
+                assert qe.row_plan(H, x_bytes, mode).smem <= SMEM_PER_BLOCK
 
 
 def _lora_case(rng, L=3, r=4, n=64):

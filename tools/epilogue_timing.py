@@ -7,7 +7,8 @@ kernels come from ``--root`` (this checkout by default), so that two commits
 can be timed in one call on one card, in turns (``git archive <commit> |
 tar -x -C scratch/other``, a directory that .gitignore lists):
 
-    python tools/epilogue_timing.py [--root DIR] [--label NAME] [--sweep]
+    python tools/epilogue_timing.py [--root DIR] [--label NAME] [--sweep] [--b6]
+                                    [--b6-variants]
 
 Each reading is one ``READING {json}`` line: the kernel, its (M, H) and
 dtype, the CUDA-event time of one call over 100 back-to-back calls (three
@@ -17,6 +18,19 @@ weight copy, for instance). ``--sweep`` (this checkout's streaming B4 / B9
 only) also times the kernel at the W8A8 paths' shapes over tile plans, R
 rows a tile by S stages (``plan``; ``chosen`` marks ``tile_plan``'s), by the
 CUDA-event time of one launch over 50 through the C interface.
+
+``--b6`` reads B6 (``row_quant``, ``row_absmax``, ``row_quant(x, amax)``) in
+each mode at every shape of chip_smoke.row_quant_shapes, through the wrappers
+of the ``--root`` checkout (so the kernel it had before can be read too):
+events over 100 calls, the profiler's device time a call (a session a
+case), the wrapper's host microseconds a call while the card is busy
+(chip_smoke.host_us, 1000 calls), the bound, vector_norm(x, inf)'s events
+and device time beside the absmax mode, and whether the outputs equal the plain versions'
+bit for bit; then (this checkout only) the host cost of each step of the
+wrapper at a tp-2 rank's qwen o_proj rows. ``--b6-variants`` (this checkout
+only) reads other plans through the C interface at every shape the warp
+form takes: the block form, the branch a chunk in place of a whole-lane
+instantiation, and other rows a tile and stages.
 """
 from __future__ import annotations
 
@@ -30,6 +44,8 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 ap.add_argument("--root", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 ap.add_argument("--label", default="tree")
 ap.add_argument("--sweep", action="store_true")
+ap.add_argument("--b6", action="store_true")
+ap.add_argument("--b6-variants", action="store_true")
 args = ap.parse_args()
 ROOT = os.path.abspath(args.root)
 sys.path.insert(0, ROOT)
@@ -75,7 +91,8 @@ def cases(gen):
 
 cs.phase_device()
 cs.cuda_lib.load()
-for name, shape, run in cases(torch.Generator(device="cuda").manual_seed(1)):
+for name, shape, run in ([] if args.b6 or args.b6_variants
+                         else cases(torch.Generator(device="cuda").manual_seed(1))):
     events = [cs.time_ms(run, iters=100) for _ in range(3)]
     split = cs._device_split(run, ["quant"], reps=20)
     emit(kernel=name, shape=list(shape), dtype="bf16", events_ms=events,
@@ -114,6 +131,149 @@ def sweep(gen):
         torch.cuda.empty_cache()
 
 
+def b6_shapes():
+    return cs.row_quant_shapes(cs.phi35_vision_config(), cs.qwen25_vl_7b_config(),
+                               cs.LlavaNextConfig())
+
+
+def b6(gen):
+    """B6 through the wrappers of --root, each mode at every shape."""
+    cases = []
+    for what, M, H in b6_shapes():
+        x = cs._zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
+        raw = qe.row_absmax_plain(x)
+        given = raw * (1 + torch.rand(M, 1, generator=gen, device="cuda"))
+        for mode in cs.B6_MODES:
+            run = cs._b6_call(mode, x, given)
+            got = run()
+            ref = {"whole": lambda: qe.row_quant_plain(x), "absmax": lambda: raw,
+                   "given": lambda: qe.row_quant_plain(x, given)}[mode]()
+            torch.cuda.synchronize()
+            exact = (torch.equal(got, ref) if mode == "absmax" else
+                     torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+            del got, ref
+            nbytes, nops = cs._b6_bytes_ops(mode, M, H)
+            lib = cs.time_ms(lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1),
+                             iters=100) if mode == "absmax" else None
+            host, busy = cs.host_us(run, calls=1000, sleep_cycles=200_000_000)
+            extra = {} if mode != "absmax" else dict(
+                lib_run=lambda x=x: torch.linalg.vector_norm(x, float("inf"), dim=-1))
+            cases.append(dict(what=what, shape=[M, H], mode=mode, run=run, exact=exact, **extra,
+                              events_ms=[cs.time_ms(run, iters=100) for _ in range(2)],
+                              bound_ms=cs.bound_ms(nops, nbytes, cs.PEAK_FP32_FLOPS)[0],
+                              library_ms=lib, host_us=host, card_busy=busy))
+        torch.cuda.synchronize()
+    libs = [c for c in cases if c["mode"] == "absmax"]
+    lib_devs = cs.device_ms_each([c.pop("lib_run") for c in libs])
+    for c, dev in zip(cases, cs.device_ms_each([c["run"] for c in cases], key="quant_kernel")):
+        c.pop("run")
+        emit(kernel="row_quant", dtype="bf16", device_ms=dev, **c)
+    for c, dev in zip(libs, lib_devs):
+        emit(kernel="vector_norm", dtype="bf16", what=c["what"], shape=c["shape"], device_ms=dev)
+    torch.cuda.empty_cache()
+
+
+def b6_host_steps(gen):
+    """The host cost of each step of this checkout's B6 wrapper, at a tp-2
+    rank's qwen o_proj rows (14336, 1792) bf16, microseconds a call."""
+    M, H = cs.QWEN_M, 1792
+    x = torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16)
+    amax = qe.row_absmax_plain(x)
+    dev = x.get_device()
+    plan, blocks = qe._row_launch(dev, H, True, "absmax")
+    fn, st = cs.cuda_lib.load().lrt_row_quant, torch._C._cuda_getCurrentRawStream(dev)
+    out = torch.empty(M, 1, device="cuda")
+    grid = min(-(-M // plan.rows), blocks)
+    launch = (plan.form, plan.nv, plan.rows, plan.stages, plan.keep, grid, st)
+    steps = {
+        "row_absmax (the wrapper)": lambda: qe.row_absmax(x),
+        "row_quant (the wrapper)": lambda: qe.row_quant(x),
+        "row_quant given (the wrapper)": lambda: qe.row_quant(x, amax),
+        "checks (_rows)": lambda: qe._rows("row_quant", x, H),
+        "given amax check (_given)": lambda: qe._given("row_quant", amax, x, M),
+        "plan lookup (_row_launch)": lambda: qe._row_launch(dev, H, True, "absmax"),
+        "torch.empty_like int8 codes": lambda: torch.empty_like(x, dtype=torch.int8),
+        "x.new_empty amax": lambda: x.new_empty(x.shape[:-1] + (1,), dtype=torch.float32),
+        "torch.empty amax, device index": lambda: torch.empty(
+            (M, 1), dtype=torch.float32, device=dev),
+        "torch.empty x2 (the earlier wrapper)": lambda: (
+            torch.empty(M, H, dtype=torch.int8, device=x.device),
+            torch.empty(M, 1, dtype=torch.float32, device=x.device)),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "torch.cuda.current_stream().cuda_stream": lambda:
+            torch.cuda.current_stream().cuda_stream,
+        "ctypes call, M = 0 (no launch)": lambda: fn(
+            x.data_ptr(), None, out.data_ptr(), None, 0, H, 1, *launch),
+        "ctypes call with the launch (absmax)": lambda: fn(
+            x.data_ptr(), None, out.data_ptr(), None, M, H, 1, *launch),
+        "counting (_count)": lambda: qe._count(qe.TP_LAUNCHES, "row_absmax", H),
+    }
+    for name, run in steps.items():
+        host, busy = cs.host_us(run, calls=1000, sleep_cycles=200_000_000)
+        emit(kernel="row_quant host", step=name, shape=[M, H], host_us=host, card_busy=busy)
+
+
+def b6_variants(gen):
+    """Other plans through the C interface, each mode, at every shape the
+    warp form takes: the block form, the branch a chunk in place of a
+    whole-lane instantiation, and other rows a tile and stages."""
+    fn, st = cs.cuda_lib.load().lrt_row_quant, torch._C._cuda_getCurrentRawStream(0)
+    lib = cs.cuda_lib.load()
+    cases = []
+    for what, M, H in b6_shapes():
+        if qe.row_plan(H, 2, "whole").form:
+            continue
+        x = cs._zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16))
+        raw = qe.row_absmax_plain(x)
+        given = raw * (1 + torch.rand(M, 1, generator=gen, device="cuda"))
+        codes = torch.empty(M, H, dtype=torch.int8, device="cuda")
+        amax = torch.empty(M, 1, device="cuda")
+        for mode in cs.B6_MODES:
+            chosen = qe.row_plan(H, 2, mode)
+            ref = (raw if mode == "absmax" else
+                   qe.row_quant_plain(x, given if mode == "given" else None))
+            keep = int(mode == "whole")
+            plans = [(chosen, "chosen"), (qe.RowPlan(1, 0, 1, 1, keep, keep * H * 2), "block form")]
+            if chosen.nv in qe.ROW_FULL_CHUNKS:
+                nv = next(n for n in qe.NQ_CHUNKS_PER_LANE if n > chosen.nv)
+                plans.append((chosen._replace(nv=nv), "branch a chunk"))
+            plans += [(chosen._replace(rows=R, stages=S, smem=qe.NQ_HEAD + S * R * H * 2),
+                       f"warp R{R} S{S}")
+                      for R in ((4, 7) if chosen.nv <= 8 else (2, 4)) for S in (2, 3)
+                      if (R, S) != (chosen.rows, chosen.stages)]
+            for p, tag in plans:
+                if p.form:
+                    grid, blocks = M, None
+                else:
+                    blocks = lib.lrt_row_quant_blocks(1, p.nv, H, p.rows, p.stages)
+                    grid = min(-(-M // p.rows), blocks)
+                args = (x.data_ptr(), None if mode == "absmax" else codes.data_ptr(),
+                        amax.data_ptr(), given.data_ptr() if mode == "given" else None, M, H, 1,
+                        p.form, p.nv, p.rows, p.stages, p.keep, max(1, grid), st)
+                if (blocks is not None and blocks < 1) or fn(*args) != 0:
+                    emit(kernel="row_quant variant", what=what, shape=[M, H], mode=mode,
+                         plan=list(p), tag=tag, error=blocks)
+                    continue
+                torch.cuda.synchronize()
+                exact = (torch.equal(amax, ref) if mode == "absmax" else
+                         torch.equal(codes, ref[0]) and torch.equal(amax, ref[1]))
+                run = lambda a=args: fn(*a)  # noqa: E731
+                cases.append(dict(what=what, shape=[M, H], mode=mode, plan=list(p), tag=tag,
+                                  blocks=blocks, exact=exact,
+                                  events_ms=cs.time_ms(run, iters=100), run=run,
+                                  hold=(x, given, codes, amax)))
+    for c, dev in zip(cases, cs.device_ms_each([c["run"] for c in cases], key="quant_kernel")):
+        c.pop("run")
+        c.pop("hold")
+        emit(kernel="row_quant variant", device_ms=dev, **c)
+
+
 if args.sweep:
     sweep(torch.Generator(device="cuda").manual_seed(2))
+if args.b6:
+    b6(torch.Generator(device="cuda").manual_seed(3))
+    if hasattr(qe, "row_plan"):
+        b6_host_steps(torch.Generator(device="cuda").manual_seed(4))
+if args.b6_variants:
+    b6_variants(torch.Generator(device="cuda").manual_seed(5))
 emit(kernel="done")

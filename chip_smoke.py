@@ -46,6 +46,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      CUDA events, by the profiler's device time, by the wrapper's host
      microseconds a call, beside the bound, the plain version and (absmax)
      vector_norm;
+  [entry] the single-chip compile check as a user calls it:
+     llava_reward_torch.dryrun.entry() on the card (Phi-3.5-vision at full
+     width cut to 2 decoder and 2 CLIP layers, 4 crops, bf16 weights from
+     seeds 0 and 1, one row of seq 512), fn(*example_args) once: a finite
+     reward, and the launches counted from zero, B1 in the active CLIP
+     layers, B2 x3 and B3 in each decoder layer; beside it, python -m
+     llava_reward_torch.dryrun entry as a subprocess, exit 0 with a finite
+     reward and the same launches;
   4. serve requests at full Phi-3.5-vision width (random bf16 weights from a
      fixed seed, GPM dim 2 + SkipCA) through RewardAdaptor.make_score_fn():
      one pair at B=2 (one side left-padded: B2 + B3 in the decoder) and four
@@ -99,7 +107,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      and 8 run B3 / B8 zero-padded to 64), the eval CLI on the artifact it
      wrote, and the train CLI over [load]'s checkpoint (a word tokenizer
      written beside it) with --load_in_8bit --bf16 --gradient_checkpointing;
-     each command line's own kernel launches, as it prints them;
+     the port's launch scripts over [load]'s checkpoint:
+     scripts/torch/batch_inference_rm_phi.sh (its metrics, the pairwise
+     decisions among them, against the bf16 eval CLI's, both tokenizing with
+     one PYTHONHASHSEED) and scripts/torch/batch_inference_rm_phi_user_input.sh
+     (two finite rewards); each command line's own kernel launches, as it
+     prints them;
   [dist] the train CLI on more than one process, as subprocesses over
      [load]'s checkpoint (bf16 LoRA, SkipCA, the projector, remat; eight
      sample pairs in two steps of four, two held out): (a) one rank over
@@ -244,6 +257,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from llava_reward_torch import dryrun
 from llava_reward_torch.core.config import (LlavaNextConfig, RewardConfig, phi35_vision_config,
                                             phi3v_tiny_config, qwen25_vl_7b_config)
 from llava_reward_torch.evalx import batch_inference
@@ -1598,6 +1612,63 @@ def check_llava_kernels(gen, lcfg):
     rows += check_int8_matmul(gen, tc, 8 * LLAVA_SEQ)
     torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------------------------------ [entry]
+
+ENTRY_TIMEOUT_S = 300
+
+
+def phase_entry():
+    """``dryrun.entry()`` on the card: ``fn(*example_args)`` once, counted
+    from zero, then once more for a warm time; ``python -m
+    llava_reward_torch.dryrun entry`` runs beside it as a subprocess."""
+    t_phase = time.perf_counter()
+    cmd = subprocess.Popen([sys.executable, "-m", "llava_reward_torch.dryrun", "entry"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        fn, args = dryrun.entry("cuda")
+        cfg = dryrun.entry_config()[0]
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_phase
+        with torch.no_grad():
+            reset_counters()  # the main path's run starts here
+            t0 = time.perf_counter()
+            reward = fn(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            got = launches()  # ... and ends here
+            warm_ms = time_ms(lambda: fn(*args), iters=3, warmup=1)
+        out, _ = cmd.communicate(timeout=ENTRY_TIMEOUT_S)
+    finally:
+        if cmd.poll() is None:
+            cmd.kill()
+            cmd.wait()
+    r = reward.float().cpu()
+    n_dec = cfg.decoder.num_layers
+    want = {"fa_direct": cfg.vision.num_active_layers, "prep": 3 * n_dec, "fa_hm": n_dec}
+    if tuple(r.shape) != (1, 2) or not torch.isfinite(r).all():
+        fail(f"entry: reward {r.tolist()}")
+    if got != {k: want.get(k, 0) for k in got}:
+        fail(f"entry: launches {got} != {want}")
+    found = re.findall(r"^kernel launches (\{.*\})$", out, re.M)
+    line = re.findall(r"^entry: reward .*$", out, re.M)
+    if cmd.returncode != 0 or len(found) != 1 or len(line) != 1 or "finite True" not in line[0]:
+        fail(f"entry: python -m llava_reward_torch.dryrun entry exit {cmd.returncode}\n"
+             f"{out[-3000:]}")
+    cmd_got = json.loads(found[0])
+    if cmd_got != got:
+        fail(f"entry: the command line launched {cmd_got}, the call {got}")
+    say("entry", f"dryrun.entry() (Phi-3.5-vision full width, {n_dec} decoder and "
+        f"{cfg.vision.num_layers} CLIP layers, {cfg.num_crops} crops, bf16, one row of seq "
+        f"512): reward {r.numpy().round(6).tolist()}, finite; trees and batch built in "
+        f"{build_s:.2f} s; the first call {first_s:.3f} s, warm {warm_ms:.2f} ms; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    say("entry", f"python -m llava_reward_torch.dryrun entry: exit 0, {line[0]}; launches "
+        f"the same; phase {time.perf_counter() - t_phase:.1f} s")
+    del fn, args, reward
+    torch.cuda.empty_cache()
+    return got
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3489,6 +3560,12 @@ def phase_http(cfg, rcfg, params, reps=3):
 
 
 SAMPLE_POINTS = "data/sample_test/non_pairwise_sample.json"
+BATCH_EVAL_SCRIPT = "scripts/torch/batch_inference_rm_phi.sh"
+# [eval]'s command lines' preference temperature: at the artifact's 0.1 the
+# random head's probabilities sit within 2e-5 of 0.5 (GPM skew products of
+# ~5e-6), under bf16's step there
+EVAL_TAU = "1e-5"
+USER_INPUT_SCRIPT = "scripts/torch/batch_inference_rm_phi_user_input.sh"
 
 
 def _device_top(trace_path, n=8):
@@ -3509,15 +3586,19 @@ def _device_top(trace_path, n=8):
     return sorted(by.items(), key=lambda kv: -kv[1])[:n], busy, span, len(dev)
 
 
-def _cli(logdir, tag, module, *args, env=None):
-    """``python -m module args`` from the checkout's root, started in the
-    background (with ``env`` in place of this process's environment when
-    given), its output to files under ``logdir``."""
+def _start(logdir, tag, argv, env=None):
+    """``argv`` from the checkout's root, started in the background (with
+    ``env`` in place of this process's environment when given), its output
+    to files under ``logdir``."""
     path = os.path.join(logdir, re.sub(r"[ '()]", "_", tag) + ".out")
     out = open(path, "w")
-    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=out,
-                            stderr=subprocess.STDOUT, text=True, env=env)
+    proc = subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, text=True, env=env)
     return proc, out, path, time.perf_counter()
+
+
+def _cli(logdir, tag, module, *args, env=None):
+    """``python -m module args``, as ``_start``."""
+    return _start(logdir, tag, [sys.executable, "-m", module, *args], env)
 
 
 def _cli_results(started, timeout=900):
@@ -3627,16 +3708,26 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
     # checkpoint with --load_in_8bit, started together
     base, pm_dir = phi3v_dirs
     tok_base = _with_word_tokenizer(base, os.path.join(tmp, "phi3v_tok"))
+    # a sharp preference temperature, so that the pairs' bf16 decisions are
+    # not all ties at 0.5
+    sharp = ["--general_preference_tau", EVAL_TAU]
     ev = ["--pretrain", base, "--pm_path", pm_dir, "--dataset", SAMPLE_PAIRS,
           "--micro_batch_size", "4", "--seq_len", str(DATA_SEQ), "--num_workers", "4",
-          "--device", "cuda"]
+          "--device", "cuda", *sharp]
     train_dir = os.path.join(tmp, "train_cli")
-    torch.cuda.empty_cache()  # the card's memory to the three processes beside this one
+    # six processes share the host's cores: two CPU threads each (their
+    # work is on the card; oversubscribed threads only slow their start-up).
+    # The bf16 eval CLI and the batch eval script tokenize alike: the hash
+    # tokenizer (no tokenizer files in [load]'s base) under one PYTHONHASHSEED
+    shared = dict(os.environ, OMP_NUM_THREADS="2")
+    hashed = dict(shared, PYTHONHASHSEED="0")
+    script_env = dict(hashed, PYTHON=sys.executable, PRETRAIN=base, PM_PATH=pm_dir)
+    torch.cuda.empty_cache()  # the card's memory to the processes beside this one
     started = {
         "eval-cli bf16": _cli(tmp, "eval-cli bf16", "llava_reward_torch.eval_batch_inference",
-                              *ev),
+                              *ev, env=hashed),
         "eval-cli w8a8": _cli(tmp, "eval-cli w8a8", "llava_reward_torch.eval_batch_inference",
-                              *ev, "--load_in_8bit"),
+                              *ev, "--load_in_8bit", env=shared),
         "train-cli": _cli(tmp, "train-cli", "llava_reward_torch.train_llava_reward",
                           "--dataset", SAMPLE_PAIRS, "--max_epochs", "1",
                           "--micro_train_batch_size", "2", "--seq_len", "1024",
@@ -3644,7 +3735,7 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
                           "--lora_alpha", "8", "--ft_projector", "--bf16", "--save_path",
                           os.path.join(train_dir, "save"), "--ckpt_path",
                           os.path.join(train_dir, "ckpt"), "--num_workers", "2",
-                          "--device", "cuda"),
+                          "--device", "cuda", env=shared),
         "train-cli w8a8": _cli(tmp, "train-cli w8a8", "llava_reward_torch.train_llava_reward",
                                "--pretrain", tok_base, "--load_in_8bit", "--bf16",
                                "--gradient_checkpointing", "--dataset", SAMPLE_PAIRS,
@@ -3653,7 +3744,14 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
                                "--value_head_dim", "2", "--lora_rank", "4", "--lora_alpha", "8",
                                "--save_path", os.path.join(train_dir, "w8a8_save"),
                                "--ckpt_path", os.path.join(train_dir, "w8a8_ckpt"),
-                               "--num_workers", "2", "--device", "cuda"),
+                               "--num_workers", "2", "--device", "cuda", env=shared),
+        # the port's launch scripts, as a user runs them; the user-input one
+        # over the word tokenizer (simple_inference loads the tokenizer)
+        "script batch eval": _start(tmp, "script batch eval", [
+            "bash", BATCH_EVAL_SCRIPT, "--seq_len", str(DATA_SEQ), "--num_workers", "4",
+            "--device", "cuda", *sharp], script_env),
+        "script user input": _start(tmp, "script user input", [
+            "bash", USER_INPUT_SCRIPT, "--device", "cuda"], dict(script_env, PRETRAIN=tok_base)),
     }
     # a base checkpoint of the smoke config for the train CLI's artifact
     tiny = phi3v_tiny_config(num_crops=4)
@@ -3679,10 +3777,28 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
                                        "--pretrain", tiny_base, "--pm_path", artifact_dir,
                                        "--dataset", SAMPLE_PAIRS, "--micro_batch_size", "4",
                                        "--num_workers", "4", "--device", "cuda")}))
-    for tag in ("eval-cli bf16", "eval-cli w8a8", "eval-cli on the train CLI's artifact"):
+    for tag in ("eval-cli bf16", "eval-cli w8a8", "eval-cli on the train CLI's artifact",
+                "script batch eval"):
         m = res[tag][0]
         if not m or m.get("num_pairs") != 4 or not 0.0 <= m["mean_prob"] <= 1.0:
             fail(f"eval: {tag} printed {m}")
+    # the batch eval script against the bf16 eval CLI: the same decisions
+    # (accuracy and its tie-excluded form over the four pairs), the mean
+    # probability within phase 4's bound; the CLI prints no reward a row
+    m_s, m_c = res["script batch eval"][0], res["eval-cli bf16"][0]
+    script_gap = abs(m_s["mean_prob"] - m_c["mean_prob"])
+    if ((m_s["accuracy"], m_s["accuracy_wo_tie"]) != (m_c["accuracy"], m_c["accuracy_wo_tie"])
+            or script_gap > REWARD_TOL):
+        fail(f"eval: {BATCH_EVAL_SCRIPT} printed {m_s}, the eval CLI {m_c}")
+    _, user_text, user_s = res.pop("script user input")
+    user = re.search(r"^rewards: (.*?)^P\(image1 preferred over image2\) = ([0-9.]+)$",
+                     user_text, re.M | re.S)
+    user_rewards = [float(v) for v in re.findall(r"-?\d+\.\d*(?:e[-+]?\d+)?",
+                                                 user.group(1))] if user else []
+    if (len(user_rewards) != 2 * rcfg.value_head_dim
+            or not all(math.isfinite(v) for v in user_rewards)
+            or not 0.0 <= float(user.group(2)) <= 1.0):
+        fail(f"eval: {USER_INPUT_SCRIPT} printed\n{user_text[-3000:]}")
     # each command line's own launches: one stacked B=8 call for the evals
     # (B1 in CLIP and the 2 decoder layers; W8A8 adds the 2 layers' B4 x2,
     # B5, B6 and four GEMMs); the tiny config's head_dim 16 and 8 run B3
@@ -3699,6 +3815,7 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
                    "fa_bwd": 2, "row_quant": 2 * 4 * 2 + 2 * 4 * 2,
                    "int8_matmul": 2 * 4 * 2 + 2 * 4 * 2}
     want = {"eval-cli bf16": {"fa_direct": n_clip + 2},
+            "script batch eval": {"fa_direct": n_clip + 2},
             "eval-cli w8a8": {"fa_direct": n_clip + 2, **w8},
             "eval-cli on the train CLI's artifact": tiny_hm, "train-cli w8a8": want_train8}
     cli_launches = {}
@@ -3719,7 +3836,7 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
     say("eval", "python -m llava_reward_torch.eval_batch_inference over [load]'s 2-layer "
         f"full-width checkpoint: bf16 {res['eval-cli bf16'][0]} in {res['eval-cli bf16'][2]:.1f} "
         f"s; --load_in_8bit {res['eval-cli w8a8'][0]} in {res['eval-cli w8a8'][2]:.1f} s "
-        f"(four command lines started together); the hash-tokenizer fallback: {fallback}")
+        f"(six command lines started together); the hash-tokenizer fallback: {fallback}")
     on_artifact = res["eval-cli on the train CLI's artifact"][0]
     say("eval", f"the command lines' kernel launches: {cli_launches}")
     say("eval", f"python -m llava_reward_torch.train_llava_reward (smoke mode: tiny config, "
@@ -3736,6 +3853,13 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
         f"artifact {w8_files}; log {w8_log}")
     if "pytorch_model.bin" not in w8_files:
         fail(f"eval: the W8A8 train CLI wrote {w8_files}")
+    say("eval", f"{BATCH_EVAL_SCRIPT} (PRETRAIN and PM_PATH: [load]'s checkpoint; --seq_len "
+        f"{DATA_SEQ} --num_workers 4 --device cuda --general_preference_tau {EVAL_TAU} through "
+        f"\"$@\", as the eval CLIs): exit 0 in "
+        f"{res['script batch eval'][2]:.1f} s, {m_s}; against the bf16 eval CLI: the same "
+        f"decisions, mean_prob gap {script_gap:.3e}; {USER_INPUT_SCRIPT} (PRETRAIN with the word "
+        f"tokenizer): exit 0 in {user_s:.1f} s, rewards {user_rewards}, "
+        f"P(image1 preferred) {float(user.group(2))}")
     say("eval", f"phase {time.perf_counter() - t_phase:.1f} s")
     return {k: got[k] + prof_counts[k] for k in got}
 
@@ -4680,12 +4804,14 @@ def main() -> int:
                         add_cross_attention=True, layer_id=cfg.decoder.num_layers)
     qcfg = qwen25_vl_7b_config()
     rows = phase_kernels(cfg, qcfg)
+    entry = phase_entry()
     # launches: summed over the main paths' runs, each counted from zero: the
-    # serving runs (phi3v bf16, decoder W8A8, tower + decoder W8A8; the sample
-    # pairs from their image files in three pixel modes and the host-bank
-    # fallback; the HTTP server's requests; the loaded checkpoints, bf16 and
-    # W8A8, and qwen's; batch evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16
-    # and W8A8) and the training runs (phi3v's five LoRA steps; qwen's three
+    # single-chip compile check's call; the serving runs (phi3v bf16, decoder
+    # W8A8, tower + decoder W8A8; the sample pairs from their image files in
+    # three pixel modes and the host-bank fallback; the HTTP server's
+    # requests; the loaded checkpoints, bf16 and W8A8, and qwen's; batch
+    # evaluation; qwen bf16 and W8A8; LLaVA-NeXT bf16 and W8A8) and the
+    # training runs (phi3v's five LoRA steps; qwen's three
     # LoRA steps and its full fine-tuning step; LLaVA-NeXT's LoRA steps; the
     # [dist] train CLI processes' own, as each prints them; [tp]'s thirteen
     # processes' own, B5 / B6's tp modes among them)
@@ -4700,7 +4826,7 @@ def main() -> int:
         tp = phase_tp(cfg, rcfg, tmp, dist_a, phi3v_dirs)
     del params, data_batch
     torch.cuda.empty_cache()
-    runs = [served, data, http, loaded, evaled, dist, tp, phase_serve_qwen(qcfg),
+    runs = [entry, served, data, http, loaded, evaled, dist, tp, phase_serve_qwen(qcfg),
             phase_train(cfg, rcfg), phase_train_qwen(qcfg)]
     runs.append(phase_llava())
     counts = {k: sum(r[k] for r in runs) for k in runs[0]}

@@ -1,6 +1,8 @@
-"""Multi-process dry runs (the port's twin of
-``__graft_entry__.py:dryrun_multichip``), run as one process per rank:
+"""The single-chip compile check (the port's twin of
+``__graft_entry__.py:entry``) and the multi-process dry runs (its
+``dryrun_multichip``), the latter run as one process per rank:
 
+  python -m llava_reward_torch.dryrun entry [--device cuda|cpu] [--tiny]
   python -m llava_reward_torch.dryrun multichip N [--device cpu]
   python -m llava_reward_torch.dryrun step SPEC OUT [--device cpu]
   python -m llava_reward_torch.dryrun score SPEC OUT [--device cpu]
@@ -10,6 +12,16 @@ Each process is launched by itself with ``LRT_COORDINATOR`` /
 ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``), or through
 ``python -m torch.distributed.run --nproc_per_node N``; ``core/mesh.py``
 picks NCCL or gloo.
+
+``entry`` builds ``entry()``'s ``(fn, example_args)``: the phi3v reward
+forward at inference, at Phi-3.5-vision's full widths cut to 2 decoder
+layers, 2 CLIP layers and 4 crops, on bf16 weights from seeds 0 and 1 and one
+row of seq 512. It calls ``fn(*args)`` once, waits for the device, and
+prints the reward, whether it is finite, the seconds and a ``kernel
+launches`` line; it exits non-zero on a non-finite reward, and on the card
+when a kernel of the path (B1 in the CLIP tower, B2 and B3 in the decoder)
+did not launch. ``--tiny`` cuts the tiny phi3v config the same way (a quick
+check on the CPU).
 
 ``multichip N`` takes one FSDP LoRA step for each backbone family on tiny
 configs, at the JAX dry run's shapes (a global batch of N rows, each rank
@@ -40,6 +52,9 @@ one of SPEC's ``cfg`` arguments, or read from the ``config.json`` of its
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import math
 import time
 import zlib
 
@@ -227,6 +242,69 @@ def multichip(n: int, device: str = "cuda") -> float:
     return loss
 
 
+# the kernels the entry's forward launches on the card: B1 in the CLIP tower
+# (5 crops x 8 head groups >= 32), B2 three times a layer and B3 in the
+# decoder (1 row x 8 head groups < 32)
+ENTRY_KERNELS = ("fa_direct", "prep", "fa_hm")
+
+
+def entry_config(full=None):
+    """``full`` (``phi35_vision_config()`` by default) cut to 2 decoder
+    layers, 2 CLIP layers and 4 crops, and the entry's reward config: GPM
+    dim 2 with SkipCA on the last layer (``__graft_entry__.py:65-75``)."""
+    full = C.phi35_vision_config() if full is None else full
+    cfg = dataclasses.replace(full, decoder=dataclasses.replace(full.decoder, num_layers=2),
+                              vision=dataclasses.replace(full.vision, num_layers=2),
+                              num_crops=4)
+    rcfg = C.RewardConfig(is_general_preference=True, value_head_dim=2,
+                          add_cross_attention=True, layer_id=cfg.decoder.num_layers)
+    return cfg, rcfg
+
+
+def entry(device: str = "cuda", full=None, dtype: torch.dtype = torch.bfloat16):
+    """``(fn, example_args)`` (``__graft_entry__.py:56-93``): ``fn(params,
+    batch)`` is the phi3v reward forward at inference; ``params`` the
+    backbone and head trees from generators seeded 0 and 1, in ``dtype`` on
+    ``device`` (``"meta"`` gives the shapes alone), and ``batch`` one row of
+    seq 512 from ``tiny_image_batch``. ``full`` is the config to cut."""
+    dev = resolve_device(device)
+    cfg, rcfg = entry_config(full)
+    gen_dev = dev if dev.type == "cuda" else "cpu"
+    g_backbone, g_head = (torch.Generator(device=gen_dev).manual_seed(s) for s in (0, 1))
+    params = {"backbone": phi3v.init_params(cfg, g_backbone, dtype, dev),
+              "head": init_head_params(cfg, rcfg, g_head, dtype, dev)}
+    batch = to_reward_batch(tiny_image_batch(cfg, np.random.default_rng(0), 1, 512), dev)
+
+    def fn(params, batch):
+        return reward_forward(params, cfg, rcfg, batch, training=False).reward
+
+    return fn, (params, batch)
+
+
+def run_entry(device: str = "cuda", tiny: bool = False) -> float:
+    """``fn(*example_args)`` once; prints the reward and the launches."""
+    dev = resolve_device(device)
+    fn, args = entry(device, C.phi3v_tiny_config() if tiny else None)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        reward = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    values = reward.float().cpu().flatten().tolist()
+    finite = all(math.isfinite(v) for v in values)
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    print(f"entry: reward {values}, finite {finite}, {secs:.3f} s on {dev}", flush=True)
+    print("kernel launches " + json.dumps(launches), flush=True)
+    if not finite:
+        raise SystemExit("entry: the reward is not finite")
+    missing = [k for k in ENTRY_KERNELS if not launches[k]]
+    if dev.type == "cuda" and missing:
+        raise SystemExit(f"entry: {missing} did not launch on the card")
+    return values[0]
+
+
 def _local_shapes(tree, path=""):
     if isinstance(tree, dict):
         out = {}
@@ -296,9 +374,12 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
+    e = sub.add_parser("entry")
+    e.add_argument("--tiny", action="store_true",
+                   help="the tiny phi3v config with the same cuts (a quick check on the CPU)")
     m = sub.add_parser("multichip")
     m.add_argument("n", type=int)
-    subs = [m]
+    subs = [e, m]
     for name in ("step", "score"):
         s = sub.add_parser(name)
         s.add_argument("spec")
@@ -308,7 +389,9 @@ def main(argv=None) -> None:
         q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     try:
-        if args.cmd == "multichip":
+        if args.cmd == "entry":
+            run_entry(args.device, args.tiny)
+        elif args.cmd == "multichip":
             multichip(args.n, args.device)
         else:
             {"step": step, "score": score}[args.cmd](args.spec, args.out, args.device)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--pretrain", required=True)
     p.add_argument("--pm_path", required=True)
@@ -20,7 +20,11 @@ def main(argv=None):
     p.add_argument("--images", nargs="+", required=True)
     p.add_argument("--seq_len", type=int, default=2944)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     import torch
     from transformers import AutoTokenizer

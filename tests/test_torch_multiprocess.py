@@ -28,6 +28,9 @@ every rank on a timeout, and runs gloo with a finite timeout of its own.
 - ``python -m llava_reward_torch.dryrun multichip 4 --device cpu`` exits 0
   with a finite loss for every family.
 
+Every launched rank computes on one thread (``OMP_NUM_THREADS=1``), so that
+a launch repeats itself bit for bit.
+
 JAX twins: tests/test_multiprocess.py, test_train_and_sharding.py:199-232,
 test_multifamily_sharding.py:106-190, test_preemption.py.
 """
@@ -73,6 +76,21 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread_a_rank():
+    """Each launched rank computes on one thread. On several, MKL's threaded
+    fp32 GEMMs do not repeat themselves from launch to launch, and the
+    ptx_unequal_tokens step, whose projector bias gradients cancel, then read
+    0.085x to 2.5x its update bound; on one thread every launch gives the
+    same bits, at 0.085x (MKL's reproducible mode, MKL_CBWR=COMPATIBLE, at
+    four threads repeats itself too). Module-scoped, so that the ranks of
+    the module's fixtures run so as well; the other gloo test files import
+    it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
 
 
 def _launch(n, argv, torchrun_env=False):

@@ -28,6 +28,9 @@ trees carried across by ``io/convert.py``.
   [gate_r | up_r], and the blocks of all ranks assemble to the tree bit for
   bit.
 
+Every launched rank computes on one thread (``OMP_NUM_THREADS=1``), so that
+a launch repeats itself bit for bit.
+
 JAX twin: tests/test_tp_and_eval_harness.py:17-47.
 """
 
@@ -61,6 +64,10 @@ from llava_reward_torch.parallel import sharding as ts
 from test_torch_multiprocess import (CFG, F32_EPS, GRAD_RTOL, LOSS_TOL, N_IMG, PAIRS, RCFG,
                                      UPDATE_RTOL, _batch, _get, _launch, _nonzero_b, _np, _paths,
                                      _summary)
+# autouse here too: on several threads the phi3v steps' updated leaves
+# differed from launch to launch, and fsdp 2 x tp 2's projector/fc2/bias
+# once read 1.01x its update bound
+from test_torch_multiprocess import _one_thread_a_rank  # noqa: F401
 from test_torch_sharding import _flat, _jflat, _trees
 
 REWARD_RTOL, REWARD_ATOL = 1e-4, 1e-5  # tests/test_tp_and_eval_harness.py:47

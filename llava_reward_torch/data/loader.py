@@ -8,17 +8,20 @@ The threads end with the iteration: when it is exhausted, when the consumer
 stops early (the generator is closed) and when a worker raises (the error
 reaches the consumer). Queued work is cancelled and the threads are joined
 before the generator returns.
+
+Spans (``utils/profiling``): ``loader.wait`` on the consumer, once a batch;
+``loader.decode_wait``, ``loader.collate`` and ``loader.device_put`` on the
+producer.
 """
 
 from __future__ import annotations
 
-import os
 import queue
-import sys
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Iterator, Optional
+
+from ..utils.profiling import span
 
 
 class PrefetchLoader:
@@ -56,7 +59,6 @@ class PrefetchLoader:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
         pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="PrefetchLoader-worker")
-        trace = os.environ.get("LRT_LOADER_TRACE") == "1"
 
         def put_or_stop(msg) -> bool:
             """A timed put that re-checks ``stop``, so a consumer that left
@@ -79,23 +81,18 @@ class PrefetchLoader:
                 for bi in range(len(batches)):
                     if stop.is_set():
                         return
-                    t0 = time.perf_counter()
-                    items = [f.result() for f in futures[bi]]
+                    with span("loader.decode_wait"):
+                        items = [f.result() for f in futures[bi]]
                     futures[bi] = None
-                    t1 = time.perf_counter()
                     if bi + ahead < len(batches):
                         futures.append(submit(batches[bi + ahead]))
-                    host = self.collate_fn(items)
-                    t2 = time.perf_counter()
-                    dev = self.device_put(host) if self.device_put else host
-                    t3 = time.perf_counter()
-                    if trace:
-                        print(f"[loader] batch {bi}: decode-wait {t1 - t0:.3f}s collate "
-                              f"{t2 - t1:.3f}s device_put {t3 - t2:.3f}s",
-                              file=sys.stderr, flush=True)
-                    if not put_or_stop(("item", dev)):
+                    with span("loader.collate"):
+                        batch = self.collate_fn(items)
+                    if self.device_put:
+                        with span("loader.device_put"):
+                            batch = self.device_put(batch)
+                    if not put_or_stop(("item", batch)):
                         return
-                put_or_stop(("done", None))
             except Exception as e:  # a worker's or the collator's error
                 put_or_stop(("error", e))
 
@@ -103,10 +100,9 @@ class PrefetchLoader:
                                     daemon=True)
         producer.start()
         try:
-            while True:
-                kind, val = out_q.get()
-                if kind == "done":
-                    return
+            for _ in batches:
+                with span("loader.wait"):
+                    kind, val = out_q.get()
                 if kind == "error":
                     raise val
                 yield val

@@ -7,7 +7,8 @@ As in the JAX package: pairwise or pointwise is sniffed from the rows
 in one stacked call per batch; batches stream through ``PrefetchLoader``,
 whose producer thread also moves each batch to the adaptor's device, so the
 copy overlaps the previous batch's work; per-batch forward time is kept,
-and ``profile_dir`` records a ``torch.profiler`` trace of the run.
+and ``profile_dir`` records a ``torch.profiler`` trace of the run on every
+thread, with the loader's spans and ``eval.step`` (``utils/profiling``).
 
 The card's work runs under ``torch.inference_mode()`` on the adaptor's
 explicit device. The preference probabilities are computed on the card and
@@ -17,8 +18,6 @@ fetched once a batch.
 from __future__ import annotations
 
 import contextlib
-import os
-import sys
 import time
 from typing import Dict, Optional, Sequence
 
@@ -33,6 +32,7 @@ from ..ops.pixels import _HALF, PRECISION_BITS, hd_resize_u8_bank, prepare_pixel
 from ..preprocess.collate import collate_samples, to_reward_batch
 from ..reward.model import RewardBatch
 from ..reward.preference import preference_prob
+from ..utils.profiling import span
 from ..utils.profiling import trace as profiler_trace
 from .metrics import pairwise_metrics, pointwise_metrics
 
@@ -173,28 +173,25 @@ def batch_rm_inference(
     params, rcfg = adaptor.params, adaptor.rcfg
 
     probs, rewards, labels, fwd_times = [], [], [], []
-    loader_trace = os.environ.get("LRT_LOADER_TRACE") == "1"
-    t_end = time.perf_counter()
     profiling = profiler_trace(profile_dir) if profile_dir else contextlib.nullcontext()
     with profiling, torch.inference_mode():
         for batch in loader:
             t0 = time.perf_counter()
-            if loader_trace:
-                print(f"[infer] queue-wait {t0 - t_end:.3f}s", file=sys.stderr, flush=True)
-            if pairwise:
-                chosen, rejected, _, _ = batch
-                r = score(params, stack_pair(chosen, rejected))
-                n = r.shape[0] // 2
-                p = preference_prob(r[:n], r[n:], is_general_preference=rcfg.is_general_preference,
-                                    value_head_dim=rcfg.value_head_dim,
-                                    tau=rcfg.general_preference_tau)
-                probs.extend(p.float().cpu().tolist())
-            else:
-                b, y = batch
-                rewards.extend(score(params, b)[:, 0].float().cpu().tolist())
-                labels.extend(np.asarray(y).astype(int).tolist())
-            t_end = time.perf_counter()
-            fwd_times.append(t_end - t0)
+            with span("eval.step"):
+                if pairwise:
+                    chosen, rejected, _, _ = batch
+                    r = score(params, stack_pair(chosen, rejected))
+                    n = r.shape[0] // 2
+                    p = preference_prob(r[:n], r[n:],
+                                        is_general_preference=rcfg.is_general_preference,
+                                        value_head_dim=rcfg.value_head_dim,
+                                        tau=rcfg.general_preference_tau)
+                    probs.extend(p.float().cpu().tolist())
+                else:
+                    b, y = batch
+                    rewards.extend(score(params, b)[:, 0].float().cpu().tolist())
+                    labels.extend(np.asarray(y).astype(int).tolist())
+            fwd_times.append(time.perf_counter() - t0)
             if progress:
                 print(f"\rscored {len(probs) or len(rewards)}/{len(ds)}", end="", flush=True)
     if progress:

@@ -15,6 +15,12 @@ thread-local in PyTorch, so the batcher and the request threads each enter
 ``torch.inference_mode()``; scoring runs on the adaptor's device, never on
 a thread's current device.
 
+Under a running ``torch.profiler`` the service records its spans and
+counters (``utils/profiling``): ``serve.prep`` on the request threads;
+``serve.queue`` (a request's wait for its last device call), ``serve.wait``,
+``serve.call`` with its ``serve.collate`` and ``serve.step``, and the
+``serve.rows`` / ``serve.pad_rows`` / ``serve.calls`` counters on the batcher.
+
     python -m llava_reward_torch.evalx.server \\
         --pretrain <hf_dir> --pm_path <artifact> --port 8399 [--device cuda]
 """
@@ -24,6 +30,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import queue
 import threading
@@ -35,6 +42,11 @@ import torch
 
 from ..preprocess.collate import collate_samples, to_reward_batch
 from ..reward.preference import preference_prob
+from ..utils import profiling
+from ..utils.profiling import span
+
+_request_ids = itertools.count(1)
+_call = threading.local()  # .requests: the request ids of the device call being made
 
 
 def _load_image(spec: str):
@@ -108,23 +120,30 @@ class RewardService:
     def _batcher_loop(self):
         with torch.inference_mode():
             while True:
-                first = self._queue.get()
-                items = [first]
-                deadline = time.monotonic() + self.batch_window_ms / 1000.0
-                while len(items) < self.max_batch:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    try:
-                        items.append(self._queue.get(timeout=remaining))
-                    except queue.Empty:
-                        break
+                with span("serve.wait"):
+                    first = self._queue.get()
+                    items = [first]
+                    deadline = time.monotonic() + self.batch_window_ms / 1000.0
+                    while len(items) < self.max_batch:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            items.append(self._queue.get(timeout=remaining))
+                        except queue.Empty:
+                            break
                 samples = [s for it in items for s in it["samples"]]
+                ids = [it["id"] for it in items for _ in it["samples"]]
                 try:
                     # overflow beyond max_batch runs as follow-up batches
-                    rewards = np.concatenate([
-                        self._score_samples(samples[off: off + self.max_batch])
-                        for off in range(0, len(samples), self.max_batch)])
+                    parts = []
+                    for off in range(0, len(samples), self.max_batch):
+                        end = min(off + self.max_batch, len(samples))
+                        if profiling.recording():
+                            _record_queue(items, off, end)
+                        _call.requests = list(dict.fromkeys(ids[off:end]))
+                        parts.append(self._score_samples(samples[off:end]))
+                    rewards = np.concatenate(parts)
                     pos = 0
                     for it in items:
                         k = len(it["samples"])
@@ -138,18 +157,28 @@ class RewardService:
 
     def _score_samples(self, samples) -> np.ndarray:
         n = len(samples)
-        padded = list(samples) + [samples[-1]] * (self._bucket(n) - n)
-        batch = to_reward_batch(self._collate_family(padded), self.adaptor.device)
-        with self._lock, torch.inference_mode():
-            r = self._score(self.adaptor.params, batch).float().cpu().numpy()
+        bucket = self._bucket(n)
+        with span("serve.call", rows=n, bucket=bucket, requests=getattr(_call, "requests", None)):
+            profiling.count("serve.calls")
+            profiling.count("serve.rows", n)
+            profiling.count("serve.pad_rows", bucket - n)
+            with span("serve.collate"):
+                padded = list(samples) + [samples[-1]] * (bucket - n)
+                batch = to_reward_batch(self._collate_family(padded), self.adaptor.device)
+            with self._lock, torch.inference_mode(), span("serve.step"):
+                r = self._score(self.adaptor.params, batch).float().cpu().numpy()
         return r[:n]
 
     def score(self, caption: str, images) -> np.ndarray:
-        text = self._template(caption)
-        samples = [self.processor(text, [_load_image(im)]) for im in images]
+        rid = next(_request_ids)
+        with span("serve.prep", request=rid, images=len(images)):
+            text = self._template(caption)
+            samples = [self.processor(text, [_load_image(im)]) for im in images]
         if self.batch_window_ms <= 0:
+            _call.requests = [rid]
             return self._score_samples(samples)
-        item = {"samples": samples, "event": threading.Event(), "result": None, "error": None}
+        item = {"samples": samples, "event": threading.Event(), "result": None, "error": None,
+                "id": rid, "queued_ns": profiling.now()}
         self._queue.put(item)
         item["event"].wait()
         if item["error"] is not None:
@@ -164,6 +193,16 @@ class RewardService:
                 is_general_preference=rcfg.is_general_preference,
                 value_head_dim=rcfg.value_head_dim, tau=rcfg.general_preference_tau)
         return float(p[0])
+
+
+def _record_queue(items, off: int, end: int) -> None:
+    """``serve.queue`` for each request whose last row is in rows
+    ``[off, end)`` of the coalesced batch: its wait up to this call."""
+    t, last = profiling.now(), 0
+    for it in items:
+        last += len(it["samples"])
+        if off < last <= end:
+            profiling.record("serve.queue", it["queued_ns"], t, request=it["id"])
 
 
 def make_handler(service: RewardService):

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from ..core.device import on_card
+from ..utils.profiling import spanned
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -85,6 +86,7 @@ def attention_reference(
     return out.reshape(B, Sq, H, D)
 
 
+@spanned("attn")
 def mha(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -127,6 +129,7 @@ def mha(
     )
 
 
+@spanned("attn")
 def fused_rope_attention(
     qkv: torch.Tensor,  # (B, S, q_size + 2*kv_size)
     cos: torch.Tensor,  # (B, S, head_dim)

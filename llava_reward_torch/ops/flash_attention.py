@@ -76,6 +76,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.device import on_card
+from ..utils.profiling import spanned
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 96, 128)
@@ -430,6 +431,7 @@ def _launch_fa_bwd(qt, kt, vt, gt, kv_start, causal, window, scale, q_len, key_m
 # --------------------------------------------------------------- wrappers
 
 
+@spanned("attn")
 def _fused_qkv_attention_direct(
     qkv, cos, sin, kv_start, *, n_heads, head_dim, causal, sliding_window, scale,
     valid_len: Optional[int] = None,

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.device import on_card
+from ..utils.profiling import spanned
 from . import quant_epilogue as qe
 
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
@@ -85,6 +86,7 @@ def w8a8_matmul_plain(x, wq, wscale, out_dtype: Optional[torch.dtype] = None, am
 # --------------------------------------------------------------- kernel launch
 
 
+@spanned("w8a8")
 def _launch(codes, amax, wq, wscale, out_dtype):
     from . import cuda_lib
 

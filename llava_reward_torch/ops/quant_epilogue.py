@@ -60,6 +60,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.device import on_card
+from ..utils.profiling import spanned
 
 _NAMES = ("rms_quant", "silu_mul_quant", "row_quant", "ln_quant")
 LAUNCHES: Dict[str, int] = {n: 0 for n in _NAMES}
@@ -468,6 +469,7 @@ def _launch_row_quant(x, amax_in=None, codes_out=True):
 # --------------------------------------------------------------- wrappers
 
 
+@spanned("w8a8")
 def rms_quant(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> Codes:
     """B4 (``quant_epilogue.py:121``): RMSNorm (Phi-3 cast order) + row int8."""
     if not on_card(x):
@@ -475,6 +477,7 @@ def rms_quant(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> Codes
     return _launch_rms_quant(x, weight, eps)
 
 
+@spanned("w8a8")
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float = 1e-5) -> Codes:
     """B9 (``quant_epilogue.py:112``): LayerNorm (fp32) + row int8."""
@@ -483,6 +486,7 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return _launch_ln_quant(x, weight, bias, eps)
 
 
+@spanned("w8a8")
 def silu_mul_quant(gate_up: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
     """B5 (``quant_epilogue.py:143``): (..., 2I) -> codes (..., I) + amax; on
     a given ``amax`` (..., 1) f32 (a tp-global one) with no row reduction."""
@@ -498,6 +502,7 @@ def silu_mul_absmax(gate_up: torch.Tensor) -> torch.Tensor:
     return _launch_silu_mul_quant(gate_up, codes_out=False)
 
 
+@spanned("w8a8")
 def row_quant(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> Codes:
     """B6 (``quant_epilogue.py:191``): per-row absmax + round, one pass; or
     the codes on a given ``amax`` (..., 1) f32."""

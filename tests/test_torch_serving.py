@@ -15,7 +15,10 @@ data (``data/sample_test``).
   against the host f32 bank) and crop buckets stacks into one call and
   scores as its sides do alone; the tap-table merge and the bank the pair is
   unified on equal the JAX package's;
-- ``score_user_input``; ``StepTimer``, ``trace`` and ``device_memory_stats``.
+- ``score_user_input``; ``span``, ``trace`` and ``device_memory_stats``; the
+  service's spans and counters (a ``serve.queue`` a request, the real rows
+  counted) and the loader's (a ``loader.wait`` a batch, the producer's spans in
+  ``trace.json`` from its own thread).
 
 JAX twins: tests/test_server.py; tests/test_e2e_sample_data.py (which reads
 a reference checkout and skips here: this file reads data/sample_test);
@@ -444,18 +447,18 @@ def test_score_user_input_matches_jax(phi3v):
 
 
 def test_step_timer_and_profiling_hooks(tmp_path):
-    timer = profiling.StepTimer(warmup=2)
-    assert timer.stats() == {"steps": 0}
-    for _ in range(5):
-        with timer.step():
-            time.sleep(0.002)
-    s = timer.stats()
-    assert s["steps"] == 3 and 0.002 <= s["min_s"] <= s["median_s"] <= s["p95_s"]
+    """``span`` records inside ``trace`` and shows in its trace; ``trace``
+    writes the file; no card, no memory stats."""
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("tiny-matmul"):
+        with profiling.span("serve.step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert os.path.getsize(tmp_path / "trace.json") > 0
-    assert any(e.key == "tiny-matmul" for e in prof.key_averages())
+    assert any(e.key == "serve.step" for e in prof.key_averages())
+    (r,) = profiling.session().named("serve.step")
+    assert r.end_ns > r.start_ns and r.thread == threading.get_native_id()
+    with profiling.span("serve.step"):  # the profiler is off again
+        pass
+    assert len(profiling.session().named("serve.step")) == 1
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() is None
 
@@ -485,3 +488,67 @@ def test_batch_inference_writes_a_profile(phi3v, tmp_path):
                                batch_size=4, seq_len=SEQ, num_workers=1, progress=False,
                                profile_dir=str(tmp_path / "prof"))
     assert m["num_pairs"] == 2 and os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+
+
+def test_service_spans_and_counters_under_the_profiler(phi3v):
+    """After a request of one image, two concurrent requests of three images
+    coalesce into one batch of six rows, scored as a call of four and a
+    follow-up of two that carries the second request's last rows: one
+    ``serve.queue`` per request, up to the start of that call, the real rows
+    counted, each call naming its requests, the batcher's wait between."""
+    _, ta = phi3v
+    tok = Tok()
+    proc = tpp.Phi3VProcessor(tok, num_crops=4)
+    service = tsrv.RewardService(ta, tok, proc, seq_len=SEQ, max_batch=4, batch_window_ms=1500)
+    rows, out = _rows(PAIRS), {}
+
+    def req(i):
+        r = rows[i]
+        out[i] = service.score(r["prompt"], [r["chosen_path"], r["reject_path"], r["chosen_path"]])
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        service.score(rows[2]["prompt"], [rows[2]["chosen_path"]])  # then the batcher waits
+        threads = [threading.Thread(target=req, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    assert sorted(out) == [0, 1] and not any(t.is_alive() for t in threads)
+    s = profiling.session()
+    assert s.counts == {"serve.calls": 3, "serve.rows": 7, "serve.pad_rows": 0}
+    preps = sorted(s.named("serve.prep"), key=lambda r: r.start_ns)
+    assert [r.attrs for r in preps] == [{"images": 1}, {"images": 3}, {"images": 3}]
+    queued = {r.request: r for r in s.named("serve.queue")}
+    assert sorted(queued) == sorted(r.request for r in preps)
+    single, *calls = sorted(s.named("serve.call"), key=lambda r: r.start_ns)
+    assert single.attrs == {"rows": 1, "bucket": 1, "requests": [preps[0].request]}
+    assert [(c.attrs["rows"], c.attrs["bucket"]) for c in calls] == [(4, 4), (2, 2)]
+    first, second = calls[0].attrs["requests"]
+    assert calls[1].attrs["requests"] == [second]
+    assert queued[first].end_ns <= calls[0].start_ns < queued[second].end_ns
+    assert queued[second].end_ns <= calls[1].start_ns
+    for name in ("serve.collate", "serve.step"):
+        assert sorted(r.parent for r in s.named(name)) == sorted(c.id for c in [single] + calls)
+    # the wait between the single call and the coalesced one
+    (wait,) = [w for w in s.named("serve.wait")
+               if single.end_ns <= w.start_ns and w.end_ns <= calls[0].start_ns]
+    assert wait.seconds > 0
+
+
+def test_loader_waits_once_a_batch_and_the_trace_holds_every_thread(phi3v, tmp_path):
+    _, ta = phi3v
+    tok = Tok()
+    tbi.batch_rm_inference(ta, _rows(PAIRS)[:3], tok, tpp.Phi3VProcessor(tok, num_crops=4),
+                           batch_size=1, seq_len=SEQ, num_workers=1, progress=False,
+                           profile_dir=str(tmp_path))
+    s = profiling.session()
+    assert len(s.named("loader.wait")) == len(s.named("eval.step")) == 3
+    for name in ("loader.decode_wait", "loader.collate", "loader.device_put"):
+        assert len(s.named(name)) == 3, name
+    consumer = {r.thread for r in s.named("eval.step")}
+    assert {r.thread for r in s.named("loader.collate")}.isdisjoint(consumer)
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    tids = {e["name"]: e.get("tid") for e in events if e.get("ph") == "X"}
+    assert "loader.collate" in tids and "eval.step" in tids
+    assert tids["loader.collate"] != tids["eval.step"]

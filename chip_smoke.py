@@ -88,7 +88,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      base64 images, four /score_pair requests queued behind a one-image
      request that holds the card (one B=8 device call), four more at once
      free-running; every answer's rewards bit-equal to make_score_fn on the
-     same collated samples, the decisions the same across buckets;
+     same collated samples, the decisions the same across call shapes;
   [load] a 2-layer full-width Phi-3.5-vision base checkpoint (HF keys, the
      published config.json at 2 layers) and a reward artifact (LoRA r=128,
      heads, projector) written to a temporary directory, read back through
@@ -3408,7 +3408,7 @@ def phase_http(cfg, rcfg, params, reps=3):
     request, so that the batcher takes them as one B=8 call; then four more
     from four threads at once, free-running. Every answer's rewards are
     bit-equal to a direct make_score_fn call on the same collated samples
-    at the same bucket; across buckets (B=8 against B=2) the decisions agree."""
+    at the same shape; across shapes (B=8 against B=2) the decisions agree."""
     t_phase = time.perf_counter()
     tok = SmokeTok(cfg.decoder.vocab_size)
     adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
@@ -3430,12 +3430,10 @@ def phase_http(cfg, rcfg, params, reps=3):
     text = lambda row: apply_phi3v_chat_template(tok, row["prompt"])  # noqa: E731
 
     def direct(samples):
-        """make_score_fn on the service's own collation at its bucket."""
-        pad = service._bucket(len(samples)) - len(samples)
-        batch = to_reward_batch(service._collate_family(list(samples) + [samples[-1]] * pad),
-                                "cuda")
+        """make_score_fn on the service's own collation at its shape."""
+        batch = to_reward_batch(service._collate_family(list(samples)), "cuda")
         with torch.inference_mode():
-            return score(params, batch).float().cpu().numpy()[: len(samples)]
+            return score(params, batch).float().cpu().numpy()
 
     def samples_of(row, keys=("chosen_path", "reject_path")):
         return [proc(text(row), [_load_image(row[k])]) for k in keys]
@@ -3524,7 +3522,7 @@ def phase_http(cfg, rcfg, params, reps=3):
         free_r = np.concatenate([pair_rewards(results[f"free{i}"]) for i in range(4)])
         gaps = {k: float(np.abs(r - b2).max()) for k, r in (("B=8", coalesced), ("free", free_r))}
         if not decisions(coalesced) == decisions(free_r) == decisions(b2):
-            fail(f"http: decisions across buckets differ: B=8 {decisions(coalesced)}, "
+            fail(f"http: decisions across call shapes differ: B=8 {decisions(coalesced)}, "
                  f"free-running {decisions(free_r)}, B=2 {decisions(b2)}")
         sizes = list(calls)
         got = launches()  # ... and ends here
@@ -3535,7 +3533,7 @@ def phase_http(cfg, rcfg, params, reps=3):
     want = _serving_launches(cfg, sizes + [2, 2, 8] + [2] * 4)
     if got != want:
         fail(f"http: launches {got} != {want} for device calls {sizes}")
-    say("http", f"/healthz ok; /score_pair (two sample PNG paths, B=2 bucket): "
+    say("http", f"/healthz ok; /score_pair (two sample PNG paths, B=2 call): "
         f"{float(np.median(times[1:])):.4f} s/request (median of {len(times) - 1} after one "
         f"warm: {[round(t, 4) for t in times]}), rewards {pair_rewards(out).round(6).tolist()} "
         f"prob {out['prob']:.6f}, bit-equal to make_score_fn on the same collated samples; "

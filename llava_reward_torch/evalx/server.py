@@ -6,8 +6,11 @@ POST /score_pair   {"prompt": str, "chosen": path|b64, "rejected": path|b64}
                    -> {"prob": float, "chosen_reward": [...], ...}
 GET  /healthz
 
-Requests are padded to a power-of-two batch bucket (up to ``max_batch``)
-and a fixed sequence length, so the card sees a handful of shapes. Host
+Each device call is shaped to the rows it carries: exactly its rows, the
+tokens left-padded to the longest row rounded up to 128 (``seq_len`` caps a
+row, cut from the right), and for Qwen2.5-VL the windowed patches
+right-padded to the longest row's, rounded up to 128, and the merged units
+to the longest row's. Padding adds nothing to a row's reward. Host
 preprocessing runs on the request threads; a batcher thread coalesces the
 samples of every request that arrives within ``batch_window_ms`` into one
 device call; the card's work is serialised by a lock. Grad mode is
@@ -19,7 +22,9 @@ Under a running ``torch.profiler`` the service records its spans and
 counters (``utils/profiling``): ``serve.prep`` on the request threads;
 ``serve.queue`` (a request's wait for its last device call), ``serve.wait``,
 ``serve.call`` with its ``serve.collate`` and ``serve.step``, and the
-``serve.rows`` / ``serve.pad_rows`` / ``serve.calls`` counters on the batcher.
+``serve.rows`` / ``serve.pad_rows`` / ``serve.calls`` counters on the batcher,
+with the tokens and patches its calls carry and compute (``serve.tokens``,
+``serve.tokens_padded``, ``serve.patches``, ``serve.patches_padded``).
 
     python -m llava_reward_torch.evalx.server \\
         --pretrain <hf_dir> --pm_path <artifact> --port 8399 [--device cuda]
@@ -40,6 +45,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from ..ops.flash_attention import _round_up
 from ..preprocess.collate import collate_samples, to_reward_batch
 from ..reward.preference import preference_prob
 from ..utils import profiling
@@ -47,6 +53,10 @@ from ..utils.profiling import span
 
 _request_ids = itertools.count(1)
 _call = threading.local()  # .requests: the request ids of the device call being made
+# each axis of a device call rounds up to this: the decoder's rows are whole 128-row
+# tiles of the int8 GEMM and whole blocks of the attention kernels, the Qwen2.5-VL
+# tower's patches whole 64-patch windows
+_TILE = 128
 
 
 def _load_image(spec: str):
@@ -72,12 +82,6 @@ class RewardService:
         if batch_window_ms > 0:
             self._start_batcher()
 
-    def _bucket(self, n: int) -> int:
-        b = 1
-        while b < n:
-            b *= 2
-        return min(b, self.max_batch)
-
     def _template(self, caption: str) -> str:
         mt = self.adaptor.model_type
         if mt == "qwen":
@@ -93,16 +97,20 @@ class RewardService:
         return apply_phi3v_chat_template(self.tokenizer, caption)
 
     def _collate_family(self, samples):
+        """The host batch of ``samples`` at the call's own shape: each axis
+        padded to its longest row, rounded up to ``_TILE``."""
         cfg = self.adaptor.cfg
         pad_id = (cfg.decoder if hasattr(cfg, "decoder") else cfg.text).pad_token_id
+        seq = min(self.seq_len, _round_up(max(len(s.input_ids) for s in samples), _TILE))
         if self.adaptor.model_type == "qwen":
-            from ..data.datasets import _qwen_budgets
             from ..preprocess.collate import collate_qwen_samples
 
-            pb, ub = _qwen_budgets(self.processor, None, None)
-            return collate_qwen_samples(samples, self.seq_len, pad_id, pb, ub)
-        # no crop buckets: stable shapes across requests
-        return collate_samples(samples, self.seq_len, pad_id, crop_buckets=None)
+            imgs = [s for s in samples if s.patches is not None]
+            patches = _round_up(max((s.patches.shape[0] for s in imgs), default=0), _TILE)
+            units = max((s.unit_gather.shape[0] for s in imgs), default=0)
+            return collate_qwen_samples(samples, seq, pad_id, patches, units)
+        # no crop buckets: every image at the crop budget
+        return collate_samples(samples, seq, pad_id, crop_buckets=None)
 
     # ------------------------------------------------ cross-request batching
     #
@@ -157,17 +165,18 @@ class RewardService:
 
     def _score_samples(self, samples) -> np.ndarray:
         n = len(samples)
-        bucket = self._bucket(n)
-        with span("serve.call", rows=n, bucket=bucket, requests=getattr(_call, "requests", None)):
+        with span("serve.call", rows=n, requests=getattr(_call, "requests", None)):
             profiling.count("serve.calls")
             profiling.count("serve.rows", n)
-            profiling.count("serve.pad_rows", bucket - n)
+            profiling.count("serve.pad_rows", 0)
             with span("serve.collate"):
-                padded = list(samples) + [samples[-1]] * (bucket - n)
-                batch = to_reward_batch(self._collate_family(padded), self.adaptor.device)
+                host = self._collate_family(samples)
+                if profiling.recording():
+                    _count_fill(host)
+                batch = to_reward_batch(host, self.adaptor.device)
             with self._lock, torch.inference_mode(), span("serve.step"):
                 r = self._score(self.adaptor.params, batch).float().cpu().numpy()
-        return r[:n]
+        return r
 
     def score(self, caption: str, images) -> np.ndarray:
         rid = next(_request_ids)
@@ -193,6 +202,18 @@ class RewardService:
                 is_general_preference=rcfg.is_general_preference,
                 value_head_dim=rcfg.value_head_dim, tau=rcfg.general_preference_tau)
         return float(p[0])
+
+
+def _count_fill(host) -> None:
+    """The valid tokens and patches of a host batch against those its call
+    computes (on the host arrays: no device sync)."""
+    mask = host["attention_mask"]
+    profiling.count("serve.tokens", int(np.count_nonzero(mask)))
+    profiling.count("serve.tokens_padded", mask.size)
+    segments = host.get("patch_valid")
+    if segments is not None:
+        profiling.count("serve.patches", int(np.count_nonzero(segments)))
+        profiling.count("serve.patches_padded", segments.size)
 
 
 def _record_queue(items, off: int, end: int) -> None:

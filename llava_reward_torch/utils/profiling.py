@@ -61,12 +61,20 @@ NAMES: Dict[str, Name] = {
                                            "the last device call carrying one of its rows"),
     "serve.wait": Name("span", False, "batcher: from the end of one call to the start of the "
                                       "next, the blocked get and the coalescing window"),
-    "serve.call": Name("span", True, "batcher: one device call; attrs rows, bucket, requests"),
-    "serve.collate": Name("span", True, "batcher: pad to the bucket, collate, copy to the card"),
+    "serve.call": Name("span", True, "batcher: one device call; attrs rows, requests"),
+    "serve.collate": Name("span", True, "batcher: collate at the call's shape, copy to the card"),
     "serve.step": Name("span", True, "batcher: the score function under the lock, to .cpu()"),
     "serve.rows": Name("counter", False, "batcher: real rows of the device calls"),
-    "serve.pad_rows": Name("counter", False, "batcher: rows padded up to the bucket"),
+    "serve.pad_rows": Name("counter", False, "batcher: padding rows of the device calls (none: "
+                                             "a call computes its rows alone)"),
     "serve.calls": Name("counter", False, "batcher: device calls"),
+    "serve.tokens": Name("counter", False, "batcher: valid tokens of the device calls' rows"),
+    "serve.tokens_padded": Name("counter", False, "batcher: tokens the device calls compute, "
+                                                  "rows x padded length"),
+    "serve.patches": Name("counter", False, "batcher: image patches of the device calls' rows "
+                                            "(nonzero segment id)"),
+    "serve.patches_padded": Name("counter", False, "batcher: patches the device calls compute, "
+                                                   "rows x padded patches"),
     "loader.wait": Name("span", False, "consumer: blocked on the next finished batch"),
     "loader.decode_wait": Name("span", False, "producer: waiting on a batch's items"),
     "loader.collate": Name("span", False, "producer: a batch's collate"),

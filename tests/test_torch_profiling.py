@@ -190,6 +190,9 @@ def test_the_table_names_every_span_and_counter_the_package_uses():
                     for fn, name in pat.findall(fh.read()):
                         used.setdefault(name, set()).add(fn)
     assert set(used) == set(profiling.NAMES)
+    fill = {"serve.tokens", "serve.tokens_padded", "serve.patches", "serve.patches_padded"}
+    assert fill <= {n for n, v in profiling.NAMES.items() if v.kind == "counter"}
+    assert all(used[n] == {"count"} for n in fill | {"serve.pad_rows"})
     kinds = {"span": {"span", "spanned"}, "interval": {"record"}, "counter": {"count"}}
     for name, fns in used.items():
         assert fns <= kinds[profiling.NAMES[name].kind], (name, fns)

@@ -244,6 +244,141 @@ def test_concurrent_pairs_share_one_b8_call(phi3v):
         np.testing.assert_allclose(got, want, rtol=0, atol=PARITY_BAR)
 
 
+# ------------------------------------------------------------ call shapes
+
+# (width, height) of each row's image and its caption's length in words: the
+# rows of a call differ on both axes
+SHAPE_ROWS = [((300, 200), 3), ((120, 100), 40), ((410, 330), 12), ((90, 260), 25),
+              ((250, 250), 7)]
+QWEN_MAX_PIXELS = 96 * 28 * 28  # up to 384 patches an image: several windows
+SHAPE_SEQ = 1280  # above the longest row's length rounded up to 128, in both families
+
+
+def _qwen_adaptor():
+    cfg = qwen_tiny_config(num_layers=2, vision_depth=2)
+    kw = dict(is_general_preference=True, value_head_dim=2, layer_id=cfg.text.num_layers)
+    jr, tr = JRewardConfig(**kw), tconfig.RewardConfig(**kw)
+    tree = jax.tree_util.tree_map(np.asarray, {
+        "backbone": jqwen.init_params(jax.random.PRNGKey(0), cfg),
+        "head": j_init_head(jax.random.PRNGKey(1), cfg, jr)})
+    tcfg = tconfig.qwen_tiny_config(num_layers=2, vision_depth=2)
+    return cfg, TAdaptor(tcfg, tr, to_torch(tree, "cpu"), model_type="qwen", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    return _qwen_adaptor()
+
+
+def _shape_service(family, phi3v, qwen, seq_len):
+    """A service of the family's tiny adaptor, no batcher, and its samples of
+    SHAPE_ROWS."""
+    if family == "qwen":
+        cfg, ta = qwen
+        tok = QTok(cfg.text.image_token_id)
+        proc = tqv.Qwen25VLProcessor(tok, min_pixels=cfg.min_pixels, max_pixels=QWEN_MAX_PIXELS,
+                                     image_token_id=cfg.text.image_token_id)
+    else:
+        ta = phi3v[1]
+        tok = Tok()
+        proc = tpp.Phi3VProcessor(tok, num_crops=4)
+    service = tsrv.RewardService(ta, tok, proc, seq_len=seq_len, max_batch=8, batch_window_ms=0)
+    samples = [proc(service._template(" ".join(f"w{j}" for j in range(words))),
+                    [_image(w, h, 10 + i)])
+               for i, ((w, h), words) in enumerate(SHAPE_ROWS)]
+    return service, samples
+
+
+def _static(service, samples):
+    """The samples collated at the static shapes every call had before: the
+    whole ``seq_len`` and, for qwen, the processor's patch and unit budgets."""
+    pad = service.adaptor.cfg
+    pad = (pad.decoder if hasattr(pad, "decoder") else pad.text).pad_token_id
+    if service.adaptor.model_type == "qwen":
+        from llava_reward_torch.data.datasets import _qwen_budgets
+
+        return tcollate.collate_qwen_samples(samples, service.seq_len, pad,
+                                             *_qwen_budgets(service.processor, None, None))
+    return tcollate.collate_samples(samples, service.seq_len, pad, crop_buckets=None)
+
+
+def _up(x, m=128):
+    return -(-x // m) * m
+
+
+def _collated(service):
+    seen, collate = [], service._collate_family
+
+    def rec(samples):
+        seen.append(collate(samples))
+        return seen[-1]
+
+    service._collate_family = rec
+    return seen
+
+
+@pytest.mark.parametrize("family,n", [("qwen", 1), ("qwen", 3), ("qwen", 5),
+                                      ("phi3v", 1), ("phi3v", 3), ("phi3v", 5)])
+def test_a_call_is_shaped_to_its_rows(phi3v, qwen, family, n):
+    """A call of n rows of different image sizes and prompt lengths computes
+    exactly its rows, its tokens left-padded to the longest row rounded up to
+    128 and, for qwen, its windowed patches to the longest row's rounded up
+    to 128 and its units to the longest row's. Its rewards are each row's
+    scored alone and the rows' at the static shapes; the counters hold the
+    valid and the computed tokens and patches."""
+    service, samples = _shape_service(family, phi3v, qwen, SHAPE_SEQ)
+    samples = samples[:n]
+    seen = _collated(service)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = service._score_samples(samples)
+    (host,) = seen
+    lens = [len(s.input_ids) for s in samples]
+    S = _up(max(lens))
+    assert S < SHAPE_SEQ
+    assert host["input_ids"].shape == host["attention_mask"].shape == (n, S)
+    counts = profiling.session().counts
+    assert counts["serve.rows"] == n and counts["serve.pad_rows"] == 0
+    assert (counts["serve.tokens"], counts["serve.tokens_padded"]) == (sum(lens), n * S)
+    if family == "qwen":
+        P = _up(max(s.patches.shape[0] for s in samples))
+        U = max(s.unit_gather.shape[0] for s in samples)
+        assert host["pixel_values"].shape[:2] == host["patch_valid"].shape == (n, P)
+        assert host["rot_pos"].shape[:2] == (n, P) and host["unit_gather"].shape == (n, U)
+        assert host["position_ids"].shape == (3, n, S)
+        real = sum(int(np.count_nonzero(s.patch_valid)) for s in samples)
+        assert (counts["serve.patches"], counts["serve.patches_padded"]) == (real, n * P)
+    else:
+        assert host["pixel_values"].shape[1] == 5  # the crop budget, whatever the image
+        assert "serve.patches" not in counts and "serve.patches_padded" not in counts
+    assert got.shape == (n, 2)
+    alone = np.concatenate([service._score_samples([s]) for s in samples])
+    np.testing.assert_allclose(got, alone, rtol=0, atol=PARITY_BAR)
+    static = service._score(service.adaptor.params,
+                            tcollate.to_reward_batch(_static(service, samples), "cpu"))
+    np.testing.assert_allclose(got, static.float().numpy(), rtol=0, atol=PARITY_BAR)
+
+
+@pytest.mark.parametrize("family", ["qwen", "phi3v"])
+def test_a_row_longer_than_seq_len_is_cut_as_before(phi3v, qwen, family):
+    """``seq_len`` still caps a row: a call holding a row longer than it runs
+    at ``seq_len``, its tokens cut from the right exactly as the static
+    collation cuts them, with the same rewards."""
+    _, samples = _shape_service(family, phi3v, qwen, SHAPE_SEQ)
+    longest = max(len(s.input_ids) for s in samples)
+    seq = longest - 37  # below the longest row, no multiple of 128
+    service, samples = _shape_service(family, phi3v, qwen, seq)
+    seen = _collated(service)
+    got = service._score_samples(samples)
+    (host,) = seen
+    static = _static(service, samples)
+    for key in ("input_ids", "attention_mask", "splice_idx") + (
+            ("position_ids",) if family == "qwen" else ()):
+        np.testing.assert_array_equal(host[key], static[key], err_msg=key)
+    assert host["input_ids"].shape == (len(samples), seq)
+    want = service._score(service.adaptor.params, tcollate.to_reward_batch(static, "cpu"))
+    np.testing.assert_allclose(got, want.float().numpy(), rtol=0, atol=PARITY_BAR)
+
+
 # ------------------------------------------------------------ batch_rm_inference
 
 
@@ -515,14 +650,25 @@ def test_service_spans_and_counters_under_the_profiler(phi3v):
             t.join(timeout=120)
     assert sorted(out) == [0, 1] and not any(t.is_alive() for t in threads)
     s = profiling.session()
-    assert s.counts == {"serve.calls": 3, "serve.rows": 7, "serve.pad_rows": 0}
+    assert {k: v for k, v in s.counts.items() if not k.startswith("serve.tokens")} == {
+        "serve.calls": 3, "serve.rows": 7, "serve.pad_rows": 0}
+
+    def tokens(i, key):
+        text = service._template(rows[i]["prompt"])
+        return len(proc(text, [tsrv._load_image(rows[i][key])]).input_ids)
+
+    want = tokens(2, "chosen_path") + sum(2 * tokens(i, "chosen_path") + tokens(i, "reject_path")
+                                          for i in (0, 1))
+    assert s.counts["serve.tokens"] == want
+    assert want <= s.counts["serve.tokens_padded"] <= 7 * SEQ
+    assert s.counts["serve.tokens_padded"] % 128 == 0
     preps = sorted(s.named("serve.prep"), key=lambda r: r.start_ns)
     assert [r.attrs for r in preps] == [{"images": 1}, {"images": 3}, {"images": 3}]
     queued = {r.request: r for r in s.named("serve.queue")}
     assert sorted(queued) == sorted(r.request for r in preps)
     single, *calls = sorted(s.named("serve.call"), key=lambda r: r.start_ns)
-    assert single.attrs == {"rows": 1, "bucket": 1, "requests": [preps[0].request]}
-    assert [(c.attrs["rows"], c.attrs["bucket"]) for c in calls] == [(4, 4), (2, 2)]
+    assert single.attrs == {"rows": 1, "requests": [preps[0].request]}
+    assert [c.attrs["rows"] for c in calls] == [4, 2]
     first, second = calls[0].attrs["requests"]
     assert calls[1].attrs["requests"] == [second]
     assert queued[first].end_ns <= calls[0].start_ns < queued[second].end_ns

@@ -13,7 +13,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      the GEMM at the CLIP tower's shapes (87040 and 21760 rows of 1024 / 4096);
      B4 and B9 timed two ways (CUDA events over 100 launches, the profiler's
      device time), beside the replaced kernels' times and torch's rms_norm /
-     layer_norm alone;
+     layer_norm alone; the norm kernel (the norm mode of the same template,
+     every bf16 RMSNorm / LayerNorm on the card) at the CLIP, Phi-3, Qwen
+     tower and LLaVA shapes against the plain code, with its bound, its
+     device time and torch's fused norm beside;
      the GEMM on K-major weights, as every W8A8 leaf is laid out, with
      torch._int_mm on the same weights plus the scale epilogue as its library
      call; the B3 and GEMM rows print the replaced kernels' times beside theirs;
@@ -275,6 +278,7 @@ from llava_reward_torch.models.clip_vit import layer_slice
 from llava_reward_torch.ops import cuda_lib
 from llava_reward_torch.ops import flash_attention as fa
 from llava_reward_torch.ops import int8_matmul as im
+from llava_reward_torch.ops import norms
 from llava_reward_torch.ops import quant_epilogue as qe
 from llava_reward_torch.ops.pixels import hd_resize_u8_bank, prepare_pixel_bank
 from llava_reward_torch.ops.rope import rope_cos_sin_for_config
@@ -486,8 +490,69 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 
 
 def reset_counters() -> None:
-    for mod in (fa, qe, im):
+    for mod in (fa, qe, im, norms):
         mod.reset_counters()
+
+
+# the norm kernel's entries in launches() (ops/norms: every bf16 RMSNorm and
+# LayerNorm on the card)
+NORM_KERNELS = tuple(norms.LAUNCHES)
+
+
+def _but_norms(counts):
+    """``counts`` without the norm kernel's entries. The norm kernel runs on
+    every route of a model, the plain and the reference attention's too, so
+    a model's kernels-against-plain comparison holds it on both sides;
+    check_norms (phase 3) alone holds it against the plain code."""
+    return {k: v for k, v in counts.items() if k not in NORM_KERNELS}
+
+
+def _norm_launches(cfg, w8a8=False, tower_w8a8=False, skipca=True, forwards=1):
+    """The norm kernel's launches in ``forwards`` inference forwards of bf16
+    weights (phi3v, Qwen2.5-VL or LLaVA-NeXT): CLIP's LayerNorms
+    (pre_layernorm, and ln1 / ln2 of each active layer, which a W8A8 tower
+    sends to B9), Qwen2.5-VL's tower RMSNorms (norm1 / norm2 a block, the
+    merger's ln_q), the decoder's two a layer (B4's under W8A8) and its final
+    norm, and SkipCA's (``skipca``: a bf16 head with add_cross_attention on a
+    family that wires it)."""
+    dec = cfg.decoder if hasattr(cfg, "decoder") else cfg.text
+    rms, ln = (0 if w8a8 else 2 * dec.num_layers) + 1 + int(skipca), 0
+    if hasattr(cfg.vision, "depth"):
+        rms += 2 * cfg.vision.depth + 1
+    else:
+        ln = 1 + (0 if tower_w8a8 else 2 * cfg.vision.num_active_layers)
+    return {"rms_norm": forwards * rms, "layer_norm": forwards * ln}
+
+
+def _step_norms(cfg, steps=1, projector=False, vision_lora=False):
+    """The norm kernel's launches in ``steps`` LoRA steps under remat, fp32
+    heads and adapters over a frozen bf16 backbone. The frozen tower runs
+    once a step with no gradient, so each of its norms takes the kernel
+    (the merger's ln_q too, unless it is the trainable fp32 projector).
+    Decoder layer 0's input norm reads the embeddings, which carry no
+    gradient unless a trainable projector (``projector``) feeds them: it
+    takes the kernel in the forward and again in the remat recompute; every
+    norm after an adapter, and SkipCA's (an fp32 head), keeps the plain code.
+    Under vision LoRA (``vision_lora``) only the tower's pre_layernorm and
+    layer 0's ln1 (forward and recompute) read no gradient."""
+    out = {"rms_norm": 0, "layer_norm": 0}
+    if hasattr(cfg.vision, "depth"):
+        out["rms_norm"] = 2 * cfg.vision.depth + (0 if projector else 1)
+    else:
+        out["layer_norm"] = 3 if vision_lora else 1 + 2 * cfg.vision.num_active_layers
+    if not (projector or vision_lora):
+        out["rms_norm"] += 2
+    return {k: steps * v for k, v in out.items()}
+
+
+def _cli_norms(cfg, steps, sides, projector):
+    """The norm kernel's launches of a train CLI process: ``steps`` LoRA steps
+    (``_step_norms``), then ``sides`` held-out forwards under no_grad with
+    the adapters inline (a decoder's LoRA layers keep their norms off B4, so
+    they take the norm kernel under W8A8 too) and the fp32 head (SkipCA's
+    norm plain)."""
+    st, ev = _step_norms(cfg, projector=projector), _norm_launches(cfg, skipca=False)
+    return {k: steps * st[k] + sides * ev[k] for k in st}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -949,6 +1014,79 @@ def check_ln_quant(gen, vcfg, M):
         f"zero rows every {M // 4} (LayerNorm of a zero row is the bias); {times}")
 
 
+# The norm kernel's main-path shapes (ops/norms.py): the CLIP tower's
+# LayerNorm at B=8 (136 crops x 640 tokens), the Phi-3 decoder's RMSNorm at
+# 8 rows x 2944, the Qwen2.5-VL tower's at a call's 43008 patches, LLaVA-NeXT's
+# decoder at 8 x 2976.
+NORM_SHAPES = (("CLIP layer_norm", True, CLIP_M8, 1024), ("Phi-3 rms_norm", False, 23552, 3072),
+               ("Qwen tower rms_norm", False, 43008, 1280),
+               ("LLaVA rms_norm", False, 8 * 2976, 5120))
+
+
+def _bf16_ulps(a, b):
+    """Distance of two bf16 tensors in ulps (values in order, +0 == -0)."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _norm_rule(got, ref, ln, b):
+    """Whether the norm kernel is within its rule of the plain code
+    (tests/test_torch_norm_kernel.py): RMSNorm 2 bf16 ulps (its first rounding
+    may flip where the row's fp32 sums, taken in another order, move by an
+    ulp); LayerNorm one ulp, plus 2^-20 of its terms where x - mean times the
+    weight cancels the bias."""
+    g, r = got.float(), ref.float()
+    e = torch.frexp(torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126))[1]
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    tol = ulp + 2.0 ** -20 * ((r - b.float()).abs() + b.float().abs()) if ln else 2 * ulp
+    return not bool(((g - r).abs() > tol).any())
+
+
+def check_norms(gen):
+    """The norm kernel (norm mode of norm_quant_kernel) against the plain
+    code at the main paths' shapes, by its rule (``_norm_rule``), with its ulp
+    distances and bit-equal share; the kernel's time by CUDA events over 100
+    launches and its device time, the plain code's, torch's fused norm as the
+    library yardstick, and the bound: 4 bytes an element (bf16 read and
+    written) plus the weights at 3.35 TB/s."""
+    for title, ln, M, H in NORM_SHAPES:
+        x = _zero_rows(torch.randn(M, H, generator=gen, device="cuda", dtype=torch.bfloat16)
+                       .mul_(2))
+        w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.1 * torch.randn(H, generator=gen, device="cuda")).to(torch.bfloat16)
+        if ln:
+            run = lambda: norms.layer_norm(x, w, b, 1e-5)  # noqa: E731
+            plain = lambda: norms.layer_norm_plain(x, w, b, 1e-5)  # noqa: E731
+            lib = lambda: torch.nn.functional.layer_norm(x, (H,), w, b, 1e-5)  # noqa: E731
+        else:
+            run = lambda: norms.rms_norm(x, w, 1e-5)  # noqa: E731
+            plain = lambda: norms.rms_norm_plain(x, w, 1e-5)  # noqa: E731
+            lib = lambda: torch.nn.functional.rms_norm(x, (H,), w, 1e-5)  # noqa: E731
+        name = "layer_norm" if ln else "rms_norm"
+        norms.reset_counters()
+        got, ref = run(), plain()
+        if norms.LAUNCHES[name] != 1:
+            fail(f"norm {title}: the kernel did not launch ({norms.LAUNCHES})")
+        d = _bf16_ulps(got, ref)
+        ms = time_ms(run, iters=100)
+        dev = _device_split(run, ["norm_quant"], reps=20)["norm_quant"]
+        b_ms, b_by = bound_ms((7 if ln else 4) * M * H, 4 * M * H + H * 2 * (2 if ln else 1),
+                              PEAK_FP32_FLOPS)
+        _report(
+            f"norm {title} ({M},{H}) bf16", name, float(d.max()),
+            "1 bf16 ulp + 2^-20 of the terms" if ln else "2 bf16 ulps",
+            _norm_rule(got, ref, ln, b), bool(torch.isfinite(got).all()), ms,
+            time_ms(plain, iters=5, warmup=1), time_ms(lib, iters=100), b_ms, b_by,
+            f"bit-equal {float((d == 0).float().mean()):.6f}, 1 ulp on "
+            f"{float((d == 1).float().mean()):.3e}, 2 on {float((d == 2).float().mean()):.3e}, "
+            f"more on {float((d > 2).float().mean()):.3e}; events over 100 launches, profiler "
+            f"{dev:.4f} ms device time a launch, {100 * b_ms / dev if dev else 0:.1f} % of the "
+            "bound")
+        del x, got, ref
+
+
 def _int_mm_scaled(codes, amax, wq, ws):
     """The library yardstick: cuBLASLt's s8 x s8 -> s32 on the same K-major
     weights the kernel reads, plus the epilogue."""
@@ -1224,6 +1362,8 @@ def phase_kernels(cfg, qcfg):
     # left out of the kernels line, whose rows keep the shapes of the runs
     # before LLaVA came, so that each kernel's series reads on
     check_llava_kernels(gen, LlavaNextConfig())
+    check_norms(gen)  # printed, left out of the kernels line, as LLaVA's
+    torch.cuda.empty_cache()
     check_new_callers(gen, qcfg, LlavaNextConfig())
     rows += check_tp_modes(gen, qcfg, LlavaNextConfig())
     return rows
@@ -1646,7 +1786,8 @@ def phase_entry():
             cmd.wait()
     r = reward.float().cpu()
     n_dec = cfg.decoder.num_layers
-    want = {"fa_direct": cfg.vision.num_active_layers, "prep": 3 * n_dec, "fa_hm": n_dec}
+    want = {"fa_direct": cfg.vision.num_active_layers, "prep": 3 * n_dec, "fa_hm": n_dec,
+            **_norm_launches(cfg)}
     if tuple(r.shape) != (1, 2) or not torch.isfinite(r).all():
         fail(f"entry: reward {r.tolist()}")
     if got != {k: want.get(k, 0) for k in got}:
@@ -1758,11 +1899,11 @@ def serve_and_check(tag, cfg, rcfg, params, req2, req8, per2, per8, reps, model_
 
     # the same B=2 forward through the kernels' plain versions, and through
     # the reference attention (neither kernel nor plain version)
-    before = launches()
+    before = _but_norms(launches())
     rp = adaptor.make_score_fn(attn_impl="plain")(params, req2)
     torch.cuda.synchronize()
-    if launches() != before:
-        fail(f"{tag}: the plain forward launched a kernel")
+    if _but_norms(launches()) != before:
+        fail(f"{tag}: the plain forward launched a kernel other than the norm kernel")
     # the reference route changes the attention only: on the card a W8A8
     # decoder keeps its epilogue and GEMM kernels there, as in the JAX package
     rx = adaptor.make_score_fn(attn_impl="xla")(params, req2)
@@ -1806,8 +1947,11 @@ def phase_serve(cfg, rcfg, reps=3):
     # per request: B1 in CLIP; B2 x3 + B3 (B=2) or B1 (B=8) in the decoder
     attn2 = {"fa_direct": n_clip, "prep": 3 * n_dec, "fa_hm": n_dec}
     attn8 = {"fa_direct": n_clip + n_dec}
+    # and the norm kernel at every norm of the forward (CLIP's LayerNorms,
+    # the decoder's RMSNorms and SkipCA's)
+    nrm = _norm_launches(cfg)
     bf16_launches, bf16_r, bf16_t = serve_and_check(
-        "serve", cfg, rcfg, params, req2, req8, attn2, attn8, reps)
+        "serve", cfg, rcfg, params, req2, req8, {**attn2, **nrm}, {**attn8, **nrm}, reps)
 
     # --load_in_8bit: the decoder's projections W8A8, quantized on the card;
     # CLIP and the head stay bf16 (bench.py:209-216)
@@ -1819,9 +1963,10 @@ def phase_serve(cfg, rcfg, reps=3):
     quantized = [k for k, v in qparams["backbone"]["decoder"]["layers"].items()
                  if isinstance(v, dict)]
     say("w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s: {quantized}")
-    # per decoder layer: B4 x2, B6, B5 and the four GEMMs
+    # per decoder layer: B4 x2 (in place of its two norms), B6, B5 and the
+    # four GEMMs
     w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
-          "int8_matmul": 4 * n_dec}
+          "int8_matmul": 4 * n_dec, **_norm_launches(cfg, w8a8=True)}
     w8_launches, w8_r, w8_t = serve_and_check(
         "w8a8", cfg, rcfg, qparams, req2, req8, {**attn2, **w8}, {**attn8, **w8}, reps)
     for name, rb, rq in (("B=2", bf16_r[0], w8_r[0]), ("B=8", bf16_r[1], w8_r[1])):
@@ -1844,7 +1989,8 @@ def phase_serve(cfg, rcfg, reps=3):
     # per active CLIP layer: B9 x2, one fused qkv GEMM and fc1 on its codes,
     # out and fc2 on the dynamic form (B6 + GEMM)
     tw = {**w8, "ln_quant": 2 * n_clip, "row_quant": n_dec + 2 * n_clip,
-          "int8_matmul": 4 * n_dec + 4 * n_clip}
+          "int8_matmul": 4 * n_dec + 4 * n_clip,
+          **_norm_launches(cfg, w8a8=True, tower_w8a8=True)}
     tw_launches, tw_r, tw_t = serve_and_check(
         "w8a8-tower", cfg, rcfg, tparams, req2, req8, {**attn2, **tw}, {**attn8, **tw}, reps,
         tol=TOWER_REWARD_TOL)
@@ -2039,7 +2185,8 @@ def phase_data(cfg, rcfg, params, reps=3):
     adaptor = RewardAdaptor(cfg, rcfg, params, device="cuda")
     score = adaptor.make_score_fn()
     n_clip, n_dec = cfg.vision.num_active_layers, cfg.decoder.num_layers
-    per = {"fa_direct": n_clip + n_dec}  # B = 8: B1 in CLIP and in the decoder
+    # B = 8: B1 in CLIP and in the decoder; the norm kernel at every norm
+    per = {"fa_direct": n_clip + n_dec, **_norm_launches(cfg)}
     say("data", f"native image library: {'built' if native.native_available() else 'absent'}"
         f"{'' if native.native_available() else f' ({native.build_error})'}; "
         f"{pairs} pairs of {SAMPLE_PAIRS}, Phi3VProcessor(num_crops={cfg.num_crops}), "
@@ -2116,7 +2263,8 @@ def phase_data(cfg, rcfg, params, reps=3):
     r = score(params, rb)
     torch.cuda.synchronize()
     got = launches()  # ... and ends here
-    want = {"fa_direct": n_clip, "prep": 3 * n_dec, "fa_hm": n_dec}  # B=2
+    want = {"fa_direct": n_clip, "prep": 3 * n_dec, "fa_hm": n_dec,  # B=2
+            **_norm_launches(cfg)}
     if got != {k: want.get(k, 0) for k in got} or not bool(torch.isfinite(r).all()):
         fail(f"data: fallback batch launches {got} != {want} or rewards {r}")
     counts = {k: counts[k] + got[k] for k in counts}
@@ -2254,7 +2402,7 @@ def phase_load(cfg, rcfg, params, qcfg, data_batch, tmp):
     got, r, load_s, gap = _load_and_score(
         "load", base, pm, "phi3v",
         {"backbone": cast_params(merged, torch.bfloat16), "head": params["head"]},
-        data_batch, {"fa_direct": n_clip + 2})
+        data_batch, {"fa_direct": n_clip + 2, **_norm_launches(cfg2)})
     counts = {k: counts[k] + got[k] for k in counts}
     say("load", f"phi3v: wrote {nbytes / 1e9:.3f} GB (base: 2 decoder layers, every width "
         f"and the CLIP tower; artifact: LoRA r={LORA_R} on {list(DEFAULT_TARGETS)}, heads, "
@@ -2269,7 +2417,8 @@ def phase_load(cfg, rcfg, params, qcfg, data_batch, tmp):
             "head": params["head"]}
     w8 = {"rms_quant": 4, "silu_mul_quant": 2, "row_quant": 2, "int8_matmul": 8}
     got, rq, load_q, gapq = _load_and_score("load-w8a8", base, pm, "phi3v", want,
-                                            data_batch, {"fa_direct": n_clip + 2, **w8},
+                                            data_batch, {"fa_direct": n_clip + 2, **w8,
+                                                         **_norm_launches(cfg2, w8a8=True)},
                                             quantize="w8a8")
     counts = {k: counts[k] + got[k] for k in counts}
     say("load", f"phi3v W8A8: load_reward_adaptor(quantize='w8a8') in {load_q:.2f} s; codes "
@@ -2309,7 +2458,8 @@ def phase_load(cfg, rcfg, params, qcfg, data_batch, tmp):
     batch, (qseq, qpatches) = _qwen_sample_batch(qcfg2)
     n_full = len(qcfg.vision.fullatt_block_indexes)
     got, r, load_s, gap = _load_and_score("load-qwen", base, pm, "qwen", want, batch,
-                                          {"prep": 3 * 2, "fa_hm": 2 + n_full})
+                                          {"prep": 3 * 2, "fa_hm": 2 + n_full,
+                                           **_norm_launches(qcfg2)})
     counts = {k: counts[k] + got[k] for k in counts}
     say("load", f"qwen: wrote {nbytes / 1e9:.3f} GB (base: the {qcfg.vision.depth}-block "
         f"tower and 2 decoder layers at every width; artifact: LoRA r={LORA_R} on "
@@ -2374,7 +2524,9 @@ def phase_serve_qwen(qcfg, reps=3):
     n_dec, n_full = tc.num_layers, len(vc.fullatt_block_indexes)
     # per request: B2 x3 + B3 in each decoder layer, B3 (segments) in each
     # full-attention vision block; the 64-patch windows stay on the reference
-    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full}
+    # and the norm kernel at every norm: the tower's and the merger's, the
+    # decoder's and SkipCA's
+    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full, **_norm_launches(qcfg)}
     torch.cuda.reset_peak_memory_stats()
     bf16_launches, bf16_r, bf16_t = serve_and_check(
         "qwen", qcfg, rcfg, params, req2, req8, attn, attn, reps, "qwen", QWEN_REWARD_TOL)
@@ -2393,7 +2545,7 @@ def phase_serve_qwen(qcfg, reps=3):
                  if isinstance(v, dict) and isinstance(v.get("kernel"), dict)]
     say("qwen-w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s: {quantized}")
     w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
-          "int8_matmul": 4 * n_dec}
+          "int8_matmul": 4 * n_dec, **_norm_launches(qcfg, w8a8=True)}
     torch.cuda.reset_peak_memory_stats()
     w8_launches, w8_r, w8_t = serve_and_check(
         "qwen-w8a8", qcfg, rcfg, qparams, req2, req8, {**attn, **w8}, {**attn, **w8}, reps,
@@ -2478,9 +2630,9 @@ def phase_video(qcfg, rcfg, params, qparams, reps=3):
     head, spread = _principal_head(qcfg, rcfg, params, [v2, v8])
     _say_head("video", "the video rows'", spread)
     vp, vq = {**params, "head": head}, {**qparams, "head": head}
-    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full}
+    attn = {"prep": 3 * n_dec, "fa_hm": n_dec + n_full, **_norm_launches(qcfg)}
     w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
-          "int8_matmul": 4 * n_dec}
+          "int8_matmul": 4 * n_dec, **_norm_launches(qcfg, w8a8=True)}
     torch.cuda.reset_peak_memory_stats()
     bf16_launches, bf16_r, bf16_t = serve_and_check(
         "video", qcfg, rcfg, vp, v2, v8, attn, attn, reps, "qwen", QWEN_REWARD_TOL)
@@ -2816,11 +2968,12 @@ def _quant_lora_steps(tag, scheme, frozen, dec, trainable, make_loss, chosen, re
     layer_check(qfrozen)
     with torch.no_grad():
         lk = make_loss("auto")(trainable, qfrozen, chosen, rejected)[0].float().item()
-        before = launches()
+        before = _but_norms(launches())
         lp = make_loss("plain")(trainable, qfrozen, chosen, rejected)[0].float().item()
         torch.cuda.synchronize()
-        if launches() != before:
-            fail(f"{tag} {scheme}: the plain route launched a kernel")
+        if _but_norms(launches()) != before:
+            fail(f"{tag} {scheme}: the plain route launched a kernel other than the norm "
+                 "kernel")
     tx = make_optimizer(LR, TOTAL_STEPS)
     step = make_train_step(make_loss("auto"), tx)
     state = init_train_state(trainable, tx)
@@ -2883,7 +3036,8 @@ def phase_train(cfg, rcfg, steps=5):
     reset_counters()  # the training path's run starts here
     state, losses, norms, times = _timed_steps(step, state, frozen, chosen, rejected, steps)
     counts = launches()  # ... and ends here
-    per = {"fa_direct": n_clip, "prep": 3 * n_dec * 3, "fa_hm": 2 * n_dec, "fa_bwd": n_dec}
+    per = {"fa_direct": n_clip, "prep": 3 * n_dec * 3, "fa_hm": 2 * n_dec, "fa_bwd": n_dec,
+           **_step_norms(cfg)}
     _expect(f"{steps} steps B=2", counts, {k: steps * v for k, v in per.items()})
     med = float(np.median(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2909,7 +3063,7 @@ def phase_train(cfg, rcfg, steps=5):
     reset_counters()
     state, l8, n8, t8 = _timed_steps(step, state, frozen, c8, r8, 1)
     _expect("B=8 step", launches(), {"fa_direct": n_clip + 2 * n_dec, "prep": 3 * n_dec,
-                                     "fa_bwd": n_dec})
+                                     "fa_bwd": n_dec, **_step_norms(cfg)})
     say("train", f"B=8 seq 2944: loss {l8[0]:.6f} grad_norm {n8[0]:.4f}; {t8[0]:.4f} s/step "
         f"(first call), {4 / t8[0]:.3f} pairs/s; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2929,7 +3083,8 @@ def phase_train(cfg, rcfg, steps=5):
     reset_counters()
     _, lv, nv, tv_t = _timed_steps(step4, init_train_state(tv, tx4), frozen4, chosen, rejected, 1)
     _expect("vision-LoRA step", launches(), {"fa_hm": 2 * n_clip + 2 * 4, "fa_bwd": n_clip + 4,
-                                             "prep": 3 * 4 * 3})
+                                             "prep": 3 * 4 * 3,
+                                             **_step_norms(cfg4, vision_lora=True)})
     say("train", f"--train_vision (CLIP LoRA r={LORA_R}, 4 decoder layers): loss {lv[0]:.6f} "
         f"grad_norm {nv[0]:.4f}; {tv_t[0]:.4f} s/step (first call)")
     del tv, step4, frozen4
@@ -2984,12 +3139,13 @@ def _route_parity(tag, make_loss, trainable, frozen, chosen, rejected, stacked, 
     route are printed."""
     probs = []
     lk, gk = _loss_and_grads(make_loss("auto"), trainable, frozen, chosen, rejected, probs)
-    before = launches()
+    before = _but_norms(launches())
     lp, gp = _loss_and_grads(make_loss("plain"), trainable, frozen, chosen, rejected, probs)
     lx, gx = _loss_and_grads(make_loss("xla"), trainable, frozen, chosen, rejected, probs)
     torch.cuda.synchronize()
-    if launches() != before:
-        fail(f"{tag}: the plain-route or reference step launched a kernel")
+    if _but_norms(launches()) != before:
+        fail(f"{tag}: the plain-route or reference step launched a kernel other than the norm "
+             "kernel")
     decided = [bool((p > 0.5).all()) for p in probs]
     say(tag, f"preference probability per pair, kernels / plain / reference: "
         f"{[p.cpu().numpy().round(6).tolist() for p in probs]}; every pair's decision the "
@@ -3202,7 +3358,7 @@ def phase_train_qwen(qcfg, steps=5):
     counts = launches()  # ... and ends here
     # the frozen tower is not recomputed; each decoder layer runs B3 forward
     # and again under remat, and B8 once; the separate layout ropes in torch
-    per = {"fa_hm": n_full + 2 * n_dec, "fa_bwd": n_dec}
+    per = {"fa_hm": n_full + 2 * n_dec, "fa_bwd": n_dec, **_step_norms(qcfg, projector=True)}
     _expect(f"{steps} qwen LoRA steps B=2", counts, {k: steps * v for k, v in per.items()})
     med = float(np.median(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3390,10 +3546,11 @@ def _request_launches(cfg, B):
 
 
 def _serving_launches(cfg, sizes):
-    """Launches of the serving path for device calls of ``sizes`` rows."""
+    """Launches of the serving path for device calls of ``sizes`` rows (phi3v:
+    the norm kernel at every norm of each call)."""
     want = dict.fromkeys(launches(), 0)
     for b in sizes:
-        for k, v in _request_launches(cfg, b).items():
+        for k, v in {**_request_launches(cfg, b), **_norm_launches(cfg)}.items():
             want[k] += v
     return want
 
@@ -3674,7 +3831,7 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
         prof_counts = launches()
     finally:
         batch_inference.preference_prob = orig
-    per8 = {"fa_direct": n_clip + n_dec}  # one B=8 call
+    per8 = {"fa_direct": n_clip + n_dec, **_norm_launches(cfg)}  # one B=8 call
     if after_pairs != {k: per8.get(k, 0) for k in after_pairs}:
         fail(f"eval: pairwise launches {after_pairs} != {per8}")
     if got != {k: 3 * per8.get(k, 0) for k in got}:  # the eight rows: two B=4 calls, B1 again
@@ -3812,10 +3969,18 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
     want_train8 = {"fa_direct": 3 * n_clip + 2 * 2, "prep": 3 * 2 + 2 * 3 * 2, "fa_hm": 2 * 2,
                    "fa_bwd": 2, "row_quant": 2 * 4 * 2 + 2 * 4 * 2,
                    "int8_matmul": 2 * 4 * 2 + 2 * 4 * 2}
-    want = {"eval-cli bf16": {"fa_direct": n_clip + 2},
-            "script batch eval": {"fa_direct": n_clip + 2},
-            "eval-cli w8a8": {"fa_direct": n_clip + 2, **w8},
-            "eval-cli on the train CLI's artifact": tiny_hm, "train-cli w8a8": want_train8}
+    # the norm kernel: every norm of the evals' call ([load]'s artifact has
+    # SkipCA, the train CLI's has none); the train CLIs as _cli_norms has
+    # them (the smoke one with --ft_projector, the W8A8 one without)
+    cfg2 = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=2))
+    want_train8.update(_cli_norms(cfg2, steps=1, sides=2, projector=False))
+    want = {"eval-cli bf16": {"fa_direct": n_clip + 2, **_norm_launches(cfg2)},
+            "script batch eval": {"fa_direct": n_clip + 2, **_norm_launches(cfg2)},
+            "eval-cli w8a8": {"fa_direct": n_clip + 2, **w8, **_norm_launches(cfg2, w8a8=True)},
+            "eval-cli on the train CLI's artifact": {**tiny_hm,
+                                                     **_norm_launches(tiny, skipca=False)},
+            "train-cli w8a8": want_train8}
+    smoke_norms = _cli_norms(tiny, steps=1, sides=2, projector=True)
     cli_launches = {}
     for tag, (_, text, _) in res.items():
         found = re.findall(r"^kernel launches (\{.*\})$", text, re.M)
@@ -3824,11 +3989,13 @@ def phase_eval(cfg, rcfg, params, data_rewards, phi3v_dirs, tmp):
         got_cli = cli_launches[tag] = json.loads(found[0])
         ran = {k for k, v in got_cli.items() if v}
         if tag == "train-cli":
-            ok = ran == {"fa_hm", "fa_bwd"}
+            ok = (ran == {"fa_hm", "fa_bwd", *NORM_KERNELS}
+                  and all(got_cli[k] == v for k, v in smoke_norms.items()))
         else:
             ok = got_cli == {k: want[tag].get(k, 0) for k in got_cli}
         if not ok:
-            fail(f"eval: {tag} launched {got_cli} (expected {want.get(tag, 'B3 and B8 only')})")
+            fail(f"eval: {tag} launched {got_cli} (expected "
+                 f"{want.get(tag, f'B3, B8 and the norm kernel {smoke_norms} only')})")
     fallback = {t: "hash tokenizer" in r[1] for t, r in res.items() if t.startswith("eval")}
     train_log = [ln for ln in res["train-cli"][1].splitlines() if ln.strip()][-3:]
     say("eval", "python -m llava_reward_torch.eval_batch_inference over [load]'s 2-layer "
@@ -4013,7 +4180,9 @@ def phase_dist(cfg, tmp):
     # at a time (B=2 / B=1 rows: B2 x3 + B3 a layer), B1 in CLIP
     n_clip = cfg.vision.num_active_layers
     want = {"fa_direct": 4 * n_clip + 2 * 4, "prep": 2 * 6 + 2 * 6, "fa_hm": 2 * 2,
-            "fa_bwd": 2 * 2}
+            "fa_bwd": 2 * 2,
+            **_cli_norms(dataclasses.replace(cfg, decoder=dataclasses.replace(
+                cfg.decoder, num_layers=2)), steps=2, sides=2, projector=True)}
     for tag, x in s.items():
         if x["launches"] != {k: want.get(k, 0) for k in x["launches"]}:
             fail(f"dist: {tag} launched {x['launches']}, expected {want}")
@@ -4101,16 +4270,18 @@ def _attention_launches(cfg, tp, rows, clip=True):
 
 
 def _cli_launches(cfg, tp, step_rows, steps, eval_rows):
-    """One train CLI process's launches: per step the forward, the decoder's
-    again under remat (the CLIP tower holds nothing trainable: once), the
-    backward's B2 x3 (the fused core's recompute) and B8 a decoder layer;
-    then each held-out side's forward."""
+    """One train CLI process's launches over [dist]'s flags (--ft_projector):
+    per step the forward, the decoder's again under remat (the CLIP tower
+    holds nothing trainable: once), the backward's B2 x3 (the fused core's
+    recompute) and B8 a decoder layer; then each held-out side's forward;
+    the norm kernel as ``_cli_norms`` has it."""
     fwd = _attention_launches(cfg, tp, step_rows)
     remat = _attention_launches(cfg, tp, step_rows, clip=False)
     side = _attention_launches(cfg, tp, eval_rows)
     L = cfg.decoder.num_layers
     bwd = {"prep": 3 * L, "fa_bwd": L}
-    return {k: steps * (fwd[k] + remat[k] + bwd.get(k, 0)) + 2 * side[k] for k in fwd}
+    return {**{k: steps * (fwd[k] + remat[k] + bwd.get(k, 0)) + 2 * side[k] for k in fwd},
+            **_cli_norms(cfg, steps, 2, projector=True)}
 
 
 def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
@@ -4216,7 +4387,7 @@ def phase_tp(cfg, rcfg, tmp, a, phi3v_dirs):
     outs = [torch.load(os.path.join(tmp, f"tp_score.out.{r}"), weights_only=True)
             for r in range(2)]
     per = [_attention_launches(cfg2, 2, 2), _attention_launches(cfg2, 2, 8)]
-    want = {k: per[0][k] + per[1][k] for k in per[0]}
+    want = {**{k: per[0][k] + per[1][k] for k in per[0]}, **_norm_launches(cfg2, forwards=2)}
     for r, o in enumerate(outs):
         got = {k: v for k, v in o["launches"].items() if v}
         if got != {k: v for k, v in want.items() if v}:
@@ -4329,7 +4500,7 @@ def _tp_w8a8(cfg, rcfg, tmp, res, one_w8, counts, card):
             for r in range(2)]
     want = _attention_launches(cfg, 2, 2)
     w8, shapes = _w8a8_launches(dec, 2, 1, fused=True)
-    want.update(w8)
+    want.update(w8, **_norm_launches(cfg, w8a8=True))
     for r, o in enumerate(outs):
         got = {k: v for k, v in o["launches"].items() if v}
         if got != {k: v for k, v in want.items() if v} or o["shapes"] != shapes:
@@ -4420,6 +4591,7 @@ def _tp_steps(tmp, counts):
             want["fa_hm"] += len(cfg.vision.fullatt_block_indexes)
         elif fa._direct_group(cfg.vision.num_heads // 2, cfg.vision.head_dim) is not None:
             want["fa_direct"] = cfg.vision.num_active_layers
+        want.update({k: v for k, v in _step_norms(cfg).items() if v})  # the frozen projector
         checks[family] = (cfg, one, f32, want, spec)
         del frozen, trainable, req, chosen, rejected
         torch.cuda.empty_cache()
@@ -4701,6 +4873,9 @@ def phase_llava(reps=3, steps=3):
     # per request: B1 in the 23 CLIP layers and the 40 decoder layers (B x 40
     # head groups >= 32 at B=2 already), no B2 / B3
     attn2, attn8 = _request_launches(lcfg, 2), _request_launches(lcfg, 8)
+    # and the norm kernel at every norm (SkipCA is not wired for LLaVA)
+    nrm = _norm_launches(lcfg, skipca=False)
+    attn2, attn8 = {**attn2, **nrm}, {**attn8, **nrm}
     torch.cuda.reset_peak_memory_stats()
     bf16_launches, bf16_r, bf16_t = serve_and_check(
         "llava", lcfg, rcfg, params, req2, req8, attn2, attn8, reps, "llava", LLAVA_REWARD_TOL)
@@ -4717,7 +4892,7 @@ def phase_llava(reps=3, steps=3):
     say("llava-w8a8", f"decoder quantized in {time.perf_counter() - t0:.1f} s, one layer at a "
         f"time: {quantized}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     w8 = {"rms_quant": 2 * n_dec, "silu_mul_quant": n_dec, "row_quant": n_dec,
-          "int8_matmul": 4 * n_dec}
+          "int8_matmul": 4 * n_dec, **_norm_launches(lcfg, w8a8=True, skipca=False)}
     torch.cuda.reset_peak_memory_stats()
     w8_launches, w8_r, w8_t = serve_and_check(
         "llava-w8a8", lcfg, rcfg, qparams, req2, req8, {**attn2, **w8}, {**attn8, **w8}, reps,
@@ -4762,7 +4937,8 @@ def phase_llava(reps=3, steps=3):
     # per step: B1 in CLIP (frozen: no backward, no recompute); B3 forward and
     # its remat recompute and B8 in each decoder layer
     _expect(f"llava {steps} LoRA steps B=2", counts,
-            {"fa_direct": steps * n_clip, "fa_hm": steps * 2 * n_dec, "fa_bwd": steps * n_dec})
+            {"fa_direct": steps * n_clip, "fa_hm": steps * 2 * n_dec, "fa_bwd": steps * n_dec,
+             **_step_norms(lcfg, steps)})
     med = float(np.median(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     say("llava", f"LoRA r={LORA_R} alpha {LORA_ALPHA} on {list(QWEN_TARGETS)} ({n_lora / 1e6:.1f} "
@@ -4781,7 +4957,8 @@ def phase_llava(reps=3, steps=3):
         "llava", "W8A8", frozen, "text", trainable,
         lambda impl: make_pairwise_loss_fn(lcfg, rcfg, attn_impl=impl, remat=True,
                                            projector_path=PROJECTOR_PATHS["llava"]),
-        chosen, rejected, {"fa_direct": n_clip, "fa_hm": 2 * n_dec, "fa_bwd": n_dec}, 7, n_dec,
+        chosen, rejected, {"fa_direct": n_clip, "fa_hm": 2 * n_dec, "fa_bwd": n_dec,
+                           **_step_norms(lcfg)}, 7, n_dec,
         lambda qf: _llava_layer_grads(lcfg, qf, trainable, req2, gen, "W8A8"),
         {"loss": losses, "s": med, "peak": peak}, release=True)
     counts = {k: counts[k] + got[k] for k in counts}
@@ -4828,6 +5005,8 @@ def main() -> int:
             phase_train(cfg, rcfg), phase_train_qwen(qcfg)]
     runs.append(phase_llava())
     counts = {k: sum(r[k] for r in runs) for k in runs[0]}
+    say("norm", "the norm kernel's launches over the main paths' runs: "
+        f"{ {k: counts[k] for k in NORM_KERNELS} }")
 
     kernels = []
     for name, meta in KERNELS.items():

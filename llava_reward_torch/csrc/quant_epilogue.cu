@@ -14,6 +14,15 @@
 //   columns), rounded to bf16 for bf16 input, then codes and amax.
 // norm_quant_kernel with OP_ROW and row_quant_kernel replace
 //   _row_quant_kernel (B6): codes and amax of x.
+// norm_quant_kernel with OP_RMS_NORM and OP_LN_NORM (the norm mode) replaces
+//   no TPU kernel: it carries ops/norms.rms_norm and layer_norm for bf16 rows
+//   on the card (the JAX package leaves them to XLA's fusions), storing the
+//   normalised row itself instead of its codes: RMSNorm in Phi-3's cast order
+//   (bf16(x * 1/sqrt(var+eps)), then the weight's product rounded to bf16),
+//   LayerNorm as B9 computes it, rounded once to bf16, for rows of up to
+//   2048 (the vision towers' widths). One read of 2 bytes
+//   and one write of 2 an element, where the plain route's passes over fp32
+//   temporaries move 36 (RMSNorm) and 64 (LayerNorm).
 //
 // B5 and B6 have two more modes for a row split over tensor-parallel ranks
 // (each rank holds some of the row's columns), so that the codes are those of
@@ -35,11 +44,11 @@
 // read and 1 written (B5: 4 read, 1 written), far below the card's ~295
 // operations-per-byte ridge, so they are bound by memory bytes.
 //
-// B4 and B9 stream. A persistent grid (as many blocks as fit the SMs) walks
-// tiles of R consecutive rows; a tile of the contiguous (M, H) input is one
-// span of R * H * sizeof(T) bytes (at most 32 KiB), which ONE cp.async.bulk
-// brings into a ring of S = 2 stages in shared memory, issued by one thread
-// of a producer warp. The R consumer warps (7 up to H = 2048, 4 beyond) own
+// B4, B9 and the norm mode stream. A persistent grid (as many blocks as fit
+// the SMs) walks tiles of R consecutive rows; a tile of the contiguous (M, H)
+// input is one span of R * H * sizeof(T) bytes (at most 32 KiB), which ONE
+// cp.async.bulk brings into a ring of S = 2 stages in shared memory, issued
+// by one thread of a producer warp. The R consumer warps (7 up to H = 2048, 4 beyond) own
 // one row of a tile each: the row goes into registers with 16-byte loads
 // (lane l holds the 8-element chunks l, l + 32, ...; NV chunks at most, all
 // of them without a branch where H = 256 NV), the stage is released once the
@@ -48,8 +57,10 @@
 // a second pass over the registers. The weight and bias are widened to fp32
 // once per block into shared memory, from bf16 or f32. The codes of a tile
 // go to one of two staging buffers and leave by one bulk store of R * H
-// bytes; the amax values are stored directly. ops/quant_epilogue.py:tile_plan
-// sizes R and the shared memory. On an H100 the kernel was paced by its row
+// bytes; the amax values are stored directly. The norm mode stages its bf16
+// row the same way and stores R * H * 2 bytes a tile.
+// ops/quant_epilogue.py:tile_plan sizes R and the shared memory (norm mode:
+// ops/norms.py:norm_plan). On an H100 the kernel was paced by its row
 // math more than by the bytes in flight: more stages or more, smaller blocks
 // ran slower (tools/epilogue_timing.py --sweep), while a branch per chunk
 // (which also pulled the row's divisions into every chunk) and one bf16
@@ -166,6 +177,7 @@ __device__ __forceinline__ void write_codes(const float* ys, int n, float mx, in
 constexpr int NQ_HEAD = 128;         // the ring's barriers, before the ring
 constexpr int NQ_SMEM_MAX = 232448;  // 227 KiB, a block's most
 constexpr int OP_RMS = 0, OP_LN = 1, OP_ROW = 2;  // norm_quant_kernel's operation
+constexpr int OP_RMS_NORM = 3, OP_LN_NORM = 4;     // ... in the norm mode: the row, no codes
 
 // The kernels' shared-memory attributes, set once per kernel and device, not
 // on every launch: the most dynamic shared memory the card allows beside the
@@ -345,7 +357,8 @@ __device__ __forceinline__ float rms_row(float (&v)[NV][8], const float (&p)[8],
 }
 
 // B9's row from the first pass p: v becomes y; returns the row's max |y|
-template <bool FULL, int NV>
+// (MX; the norm mode takes no max and gets 0)
+template <bool FULL, int NV, bool MX = true>
 __device__ __forceinline__ float ln_row(float (&v)[NV][8], const float (&p)[8],
                                         const float* wsm, int H, int lane, float eps) {
   const int nch = H / 8;
@@ -373,10 +386,54 @@ __device__ __forceinline__ float ln_row(float (&v)[NV][8], const float (&p)[8],
       for (int e = 0; e < 8; ++e) {
         const float y = __fadd_rn(__fmul_rn(__fmul_rn(v[k][e], inv), wv[e]), bv[e]);
         v[k][e] = y;
-        mx = fmaxf(mx, fabsf(y));
+        if (MX) mx = fmaxf(mx, fabsf(y));
       }
     }
-  return warp_max(mx);
+  return MX ? warp_max(mx) : 0.f;
+}
+
+// The norm mode's RMSNorm row from the first pass p, as ops/norms.rms_norm
+// computes it (Phi-3's cast order): y = x * 1/sqrt(var+eps) rounded to bf16,
+// then w * y in fp32 (v becomes it); store_row rounds it to bf16 once more.
+// The arithmetic is B4's for bf16 input.
+template <bool FULL, int NV>
+__device__ __forceinline__ void rms_norm_row(float (&v)[NV][8], const float (&p)[8],
+                                             const float* wsm, int H, int lane, float eps) {
+  const int nch = H / 8;
+  const float var = __fdiv_rn(warp_sum(sum8(p)), (float)H);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+      float wv[8];
+      weight8(wsm, H, lane + 32 * k, wv);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const __nv_bfloat162 r =
+            __floats2bfloat162_rn(__fmul_rn(v[k][e], inv), __fmul_rn(v[k][e + 1], inv));
+        v[k][e] = __fmul_rn(wv[e], __low2float(r));
+        v[k][e + 1] = __fmul_rn(wv[e + 1], __high2float(r));
+      }
+    }
+}
+
+// The norm mode's row from registers into its staging tile, chunk c = lane
+// + 32 k at its place in the row: 8 bf16 values (16 bytes, rounded to
+// nearest even).
+template <bool FULL, int NV>
+__device__ __forceinline__ void store_row(const float (&v)[NV][8], int nch, int lane,
+                                          unsigned char* out) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (holds<FULL>(lane, k, nch)) {
+      union {
+        uint4 u;
+        __nv_bfloat162 h[4];
+      } w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w.h[e] = __floats2bfloat162_rn(v[k][2 * e], v[k][2 * e + 1]);
+      *reinterpret_cast<uint4*>(out + (size_t)(lane + 32 * k) * 16) = w.u;
+    }
 }
 
 // Consumer warps a block at most: 7 where a lane holds up to 8 chunks (a
@@ -393,15 +450,20 @@ constexpr int nq_rows_max() {
 // is bf16, bit 1: b is bf16) -> codes (M, H), amax (M,). blockDim = 32 (R +
 // 1): warps 0..R-1 consume, warp R produces. H % 16 == 0 and H <= 256 NV.
 // OP_ROW (B6) reads no weight; with codes == nullptr it writes the raw row
-// absmax alone, and with amax_in it writes the codes on that amax.
+// absmax alone, and with amax_in it writes the codes on that amax. The norm
+// mode (OP_RMS_NORM, OP_LN_NORM) writes the normalised row to codes' bytes
+// as (M, H) bf16, and no amax.
 template <typename T, int OP, int NV, bool FULL>
 __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
     norm_quant_kernel(const T* __restrict__ x, const void* __restrict__ w,
                       const void* __restrict__ b, int wflags, int8_t* __restrict__ codes,
                       float* __restrict__ amax_out, const float* __restrict__ amax_in, int M,
                       int H, float eps, int R, int S) {
-  constexpr bool LN = OP == OP_LN, ROW = OP == OP_ROW;
+  constexpr bool NORM = OP == OP_RMS_NORM || OP == OP_LN_NORM;
+  constexpr bool LN = OP == OP_LN || OP == OP_LN_NORM, ROW = OP == OP_ROW;
   const bool absmax_only = ROW && codes == nullptr, given = ROW && amax_in != nullptr;
+  // bytes an output element: a code, or the norm mode's bf16 value
+  constexpr int ob = NORM ? 2 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
@@ -409,7 +471,7 @@ __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
   const int stage_bytes = R * row_bytes;
   unsigned char* ring = smem + NQ_HEAD;
   int8_t* staging = reinterpret_cast<int8_t*>(ring + (size_t)S * stage_bytes);  // two tiles
-  float* wsm = reinterpret_cast<float*>(staging + 2 * R * H);  // w, then b (LN)
+  float* wsm = reinterpret_cast<float*>(staging + 2 * R * H * ob);  // w, then b (LN)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_tiles = (M + R - 1) / R;
 
@@ -519,32 +581,41 @@ __global__ void __launch_bounds__(32 * (nq_rows_max<NV>() + 1), NV <= 4 ? 2 : 1)
 
     // the staging buffer of this tile was read by the bulk store of two
     // tiles ago, which the barrier of the last tile waited for
-    int8_t* st = staging + (j & 1) * R * H;
+    int8_t* st = staging + (j & 1) * R * H * ob;
     if (live) {
-      const float mx =
-          LN ? ln_row<FULL, NV>(v, p, wsm, H, lane, eps)
-             : rms_row<T, FULL, NV>(v, p, wsm, H, lane, eps);
-      const float amax = mx > 0.f ? mx : 1.f;
-      const float q = __fdiv_rn(127.f, amax);
-      int8_t* cr = st + warp * H;
+      if constexpr (NORM) {
+        if constexpr (LN)
+          ln_row<FULL, NV, false>(v, p, wsm, H, lane, eps);
+        else
+          rms_norm_row<FULL, NV>(v, p, wsm, H, lane, eps);
+        store_row<FULL, NV>(v, nch, lane,
+                            reinterpret_cast<unsigned char*>(st) + (size_t)warp * H * ob);
+      } else {
+        const float mx =
+            LN ? ln_row<FULL, NV>(v, p, wsm, H, lane, eps)
+               : rms_row<T, FULL, NV>(v, p, wsm, H, lane, eps);
+        const float amax = mx > 0.f ? mx : 1.f;
+        const float q = __fdiv_rn(127.f, amax);
+        int8_t* cr = st + warp * H;
 #pragma unroll
-      for (int k = 0; k < NV; ++k)
-        if (holds<FULL>(lane, k, nch)) {
-          uint2 u;
-          u.x = pack_codes(__fmul_rn(v[k][0], q), __fmul_rn(v[k][1], q),
-                           __fmul_rn(v[k][2], q), __fmul_rn(v[k][3], q));
-          u.y = pack_codes(__fmul_rn(v[k][4], q), __fmul_rn(v[k][5], q),
-                           __fmul_rn(v[k][6], q), __fmul_rn(v[k][7], q));
-          *reinterpret_cast<uint2*>(cr + (lane + 32 * k) * 8) = u;
-        }
-      if (lane == 0) amax_out[(long long)t * R + warp] = amax;
+        for (int k = 0; k < NV; ++k)
+          if (holds<FULL>(lane, k, nch)) {
+            uint2 u;
+            u.x = pack_codes(__fmul_rn(v[k][0], q), __fmul_rn(v[k][1], q),
+                             __fmul_rn(v[k][2], q), __fmul_rn(v[k][3], q));
+            u.y = pack_codes(__fmul_rn(v[k][4], q), __fmul_rn(v[k][5], q),
+                             __fmul_rn(v[k][6], q), __fmul_rn(v[k][7], q));
+            *reinterpret_cast<uint2*>(cr + (lane + 32 * k) * 8) = u;
+          }
+        if (lane == 0) amax_out[(long long)t * R + warp] = amax;
+      }
     }
     sm90::fence_async_smem();  // the codes written here, seen by the bulk store
     if (threadIdx.x == 0) sm90::bulk_wait_read();  // the last tile's store has read its buffer
     sm90::bar_sync(1, 32 * R);
     if (threadIdx.x == 0) {
-      sm90::bulk_store(codes + (long long)t * R * H, st,
-                       (uint32_t)(min(R, M - t * R) * H));
+      sm90::bulk_store(codes + (long long)t * R * H * ob, st,
+                       (uint32_t)(min(R, M - t * R) * H * ob));
       sm90::bulk_commit();
     }
   }
@@ -776,6 +847,62 @@ const void* row_plan_kernel(int is_bf16, int form, int nv, int H, int rows, int 
   return is_bf16 ? row_kernel_t<bf16>(form, nv, H) : row_kernel_t<float>(form, nv, H);
 }
 
+// ------------------------------------------------------------------ the norm mode
+
+// The norm mode's kernel at nv chunks a lane, FULL where H == 256 nv (at 5
+// chunks, Qwen2.5-VL's vision width 1280, the whole-lane form alone); nullptr
+// for a plan no instantiation takes. LayerNorm runs in the vision towers
+// alone, so its ladder stops at 8 chunks (H <= 2048); RMSNorm's is B4's.
+template <int OP>
+const void* norm_kernel_t(int nv, int H) {
+  if (H > 256 * nv) return nullptr;
+#define LRT_NM(N)                                                            \
+  if (nv == N)                                                               \
+    return H == 256 * N ? (const void*)norm_quant_kernel<bf16, OP, N, true> \
+                        : (const void*)norm_quant_kernel<bf16, OP, N, false>;
+  LRT_NM(1);
+  LRT_NM(2);
+  LRT_NM(4);
+  if (nv == 5) return H == 256 * 5 ? (const void*)norm_quant_kernel<bf16, OP, 5, true> : nullptr;
+  LRT_NM(8);
+  if constexpr (OP == OP_RMS_NORM) {
+    LRT_NM(12);
+    LRT_NM(14);
+    LRT_NM(16);
+    LRT_NM(20);
+  }
+#undef LRT_NM
+  return nullptr;
+}
+
+// A norm-mode plan's kernel and dynamic shared memory (barriers, S stages of
+// R bf16 rows, two staging tiles of the bf16 output, the fp32 weight and
+// bias), checked; nullptr for a plan the kernels do not take.
+const void* norm_plan_kernel(int ln, int nv, int H, int rows, int stages, size_t* smem) {
+  if (H <= 0 || H % 16 || rows < 1 || rows > rq_rows_max(nv) || stages < 1 ||
+      2 * stages * 8 > NQ_HEAD)
+    return nullptr;
+  *smem = NQ_HEAD + (size_t)stages * rows * H * 2 + 2 * (size_t)rows * H * 2 +
+          (size_t)H * 4 * (ln ? 2 : 1);
+  if (*smem > (size_t)NQ_SMEM_MAX) return nullptr;
+  return ln ? norm_kernel_t<OP_LN_NORM>(nv, H) : norm_kernel_t<OP_RMS_NORM>(nv, H);
+}
+
+// The blocks of a persistent kernel that fit the card at once (blocks an SM
+// x SMs) at threads a block and smem bytes, or minus a CUDA error; also sets
+// the kernel's shared-memory attributes.
+int blocks_at_once(const void* kernel, int threads, size_t smem) {
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t e = (cudaError_t)set_smem_once(kernel, true);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  return per_sm * sms;
+}
+
 // Launch one block of NT threads per row with smem bytes of dynamic shared
 // memory.
 template <typename Kernel, typename... Args>
@@ -862,17 +989,43 @@ extern "C" int lrt_row_quant(const void* x, void* codes, void* amax, const void*
 // SM x SMs), or minus a CUDA error; also sets the kernel's shared-memory
 // attributes.
 extern "C" int lrt_row_quant_blocks(int is_bf16, int nv, int H, int rows, int stages) {
-  int threads = 0, dev = 0, per_sm = 0, sms = 0;
+  int threads = 0;
   size_t smem = 0;
   const void* kernel =
       row_plan_kernel(is_bf16, 0, nv, H, rows, stages, false, &threads, &smem);
   if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
-  cudaError_t e = (cudaError_t)set_smem_once(kernel, true);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -(int)e;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  return per_sm * sms;
+  return blocks_at_once(kernel, threads, smem);
+}
+
+// The norm mode (ops/norms.py): x (M, H) bf16, w (and b, ln) (H,) bf16
+// (w_bf16, b_bf16) or f32 -> out (M, H) bf16. The plan (chunks a lane, rows a
+// tile, stages) and the grid (tiles, at most the blocks lrt_norm_blocks
+// reports) come from ops/norms.py:norm_plan; x and out 16-byte aligned.
+extern "C" int lrt_norm(const void* x, const void* w, const void* b, void* out, int M, int H,
+                        float eps, int ln, int w_bf16, int b_bf16, int nv, int rows, int stages,
+                        int grid, void* stream) {
+  size_t smem = 0;
+  const void* kernel = norm_plan_kernel(ln, nv, H, rows, stages, &smem);
+  if (kernel == nullptr || grid < 1) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const int e = set_smem_once(kernel, true);
+  if (e != 0) return e;
+  int wflags = (w_bf16 ? 1 : 0) | (b_bf16 ? 2 : 0);
+  float* amax = nullptr;
+  const float* amax_in = nullptr;
+  void* args[] = {(void*)&x, (void*)&w,    (void*)&b, &wflags, &out, &amax,
+                  (void*)&amax_in, &M,     &H,        &eps,    &rows, &stages};
+  const cudaError_t err = cudaLaunchKernel(kernel, dim3(grid), dim3(32 * (rows + 1)), args, smem,
+                                           static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) cudaGetLastError();  // not left for the next launch's check
+  return (int)err;
+}
+
+// The blocks of a norm-mode plan that fit the card at once, or minus a CUDA
+// error; also sets the kernel's shared-memory attributes.
+extern "C" int lrt_norm_blocks(int ln, int nv, int H, int rows, int stages) {
+  size_t smem = 0;
+  const void* kernel = norm_plan_kernel(ln, nv, H, rows, stages, &smem);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  return blocks_at_once(kernel, 32 * (rows + 1), smem);
 }

@@ -46,6 +46,12 @@ _SIGNATURES = {
     # x is bf16, chunks a lane, width, rows a tile, stages -> the warp form's
     # blocks on the card at once
     "lrt_row_quant_blocks": [_I] * 5,
+    # the norm mode: x, w, b, out, M, H, eps, LayerNorm, w / b is bf16, then
+    # the plan (chunks a lane, rows a tile, stages) and the grid
+    "lrt_norm": [_P, _P, _P, _P, _I, _I, _F] + [_I] * 7 + [_P],
+    # LayerNorm, chunks a lane, width, rows a tile, stages -> the plan's
+    # blocks on the card at once
+    "lrt_norm_blocks": [_I] * 5,
     "lrt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrt_fa_bwd": [_P] * 11 + [_I] * 5 + [_P, _I, _I, _I, _I, _F, _P],
 }

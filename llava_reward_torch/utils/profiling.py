@@ -75,6 +75,11 @@ NAMES: Dict[str, Name] = {
                                             "(nonzero segment id)"),
     "serve.patches_padded": Name("counter", False, "batcher: patches the device calls compute, "
                                                    "rows x padded patches"),
+    "norm.kernel_rows": Name("counter", False, "ops/norms: rows of card tensors normalised "
+                                               "by the norm kernel"),
+    "norm.plain_rows": Name("counter", False, "ops/norms: rows of card tensors normalised by "
+                                              "the plain code (fp32, autograd, a row the "
+                                              "kernel does not take)"),
     "loader.wait": Name("span", False, "consumer: blocked on the next finished batch"),
     "loader.decode_wait": Name("span", False, "producer: waiting on a batch's items"),
     "loader.collate": Name("span", False, "producer: a batch's collate"),
@@ -283,10 +288,10 @@ def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
 
 
 def kernel_launches() -> Dict[str, int]:
-    from ..ops import flash_attention, int8_matmul, quant_epilogue
+    from ..ops import flash_attention, int8_matmul, norms, quant_epilogue
 
     return {**flash_attention.LAUNCHES, **quant_epilogue.LAUNCHES,
-            **quant_epilogue.TP_LAUNCHES, **int8_matmul.LAUNCHES}
+            **quant_epilogue.TP_LAUNCHES, **int8_matmul.LAUNCHES, **norms.LAUNCHES}
 
 
 def kernel_shapes() -> Dict[str, int]:
